@@ -1,0 +1,333 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch/CUDA probe on one NVIDIA Hopper card.
+
+Run from the root of a checkout, with no arguments::
+
+    python3 chip_smoke.py
+
+Phases, one line each (any failure exits non-zero and prints no result):
+
+1. environment: torch, CUDA and nvcc versions, the card's name and power limit;
+2. build: every kernel under ``tpu_node_checker_torch/ops/csrc/`` with nvcc,
+   one process per source, all at once;
+3. kernels: each kernel at the shapes the compute probe gives it, held against
+   its plain PyTorch version on the card, and timed beside its plain version,
+   one PyTorch library call computing the same function, and the card's bound;
+4. main path: the compute-level probe through its entry point
+   (``python -m tpu_node_checker_torch --emit-probe - --probe-level compute``),
+   which must report healthy, validate against the report schema and show
+   every kernel launched; then the three kernel probes in this process, with
+   their launch counts;
+5. the ``kernels`` line, then the ``nvidia-smi`` line, then the result line.
+
+Bounds use the H100 SXM data sheet: 3.35 TB/s of device memory, 989 TFLOP/s
+bf16 on the tensor cores.  Times are steady-state CUDA-event times over many
+back-to-back launches, inputs warm in L2.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+HBM_BYTES_PER_S = 3.35e12
+BF16_FLOPS = 989e12
+F32_FLOPS = 67e12
+REPS = 200
+STARTUP_SCRIPT = """
+import json, time
+t0 = time.perf_counter()
+import torch
+t1 = time.perf_counter()
+torch.zeros(1, device="cuda").add_(1).item()
+t2 = time.perf_counter()
+a = torch.zeros((64, 64), dtype=torch.bfloat16, device="cuda")
+torch.mm(a, a, out_dtype=torch.float32).sum().item()
+t3 = time.perf_counter()
+import tpu_node_checker_torch.ops
+t4 = time.perf_counter()
+print(json.dumps({"import_torch_s": t1 - t0, "cuda_context_s": t2 - t1,
+                  "first_mm_s": t3 - t2, "import_port_s": t4 - t3}))
+"""
+
+
+def fail(msg: str) -> None:
+    print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def phase(n: int, name: str, **fields) -> None:
+    print(f"phase {n} {name}: " + json.dumps(fields, default=str), flush=True)
+
+
+def cuda_ms(torch, fn, reps: int = REPS) -> float:
+    """Mean device time of ``fn`` over ``reps`` back-to-back calls, by CUDA events."""
+    for _ in range(10):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def timed_turns(torch, kernel, plain, library) -> tuple:
+    """(kernel_ms, plain_ms, library_ms), each the better of two turns taken
+    in the order plain, kernel, library, library, kernel, plain."""
+    order = [plain, kernel, library, library, kernel, plain]
+    times = [cuda_ms(torch, f) for f in order]
+    return min(times[1], times[4]), min(times[0], times[5]), min(times[2], times[3])
+
+
+def device_ms(torch, fn, kernel_symbol: str, reps: int = 20):
+    """Mean device time of the kernel named ``kernel_symbol`` per call of
+    ``fn``, from torch.profiler's CUDA trace; None when the trace holds no
+    such kernel (the timed loops above then stand alone)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total_us, count = 0.0, 0
+    for evt in prof.key_averages():
+        if kernel_symbol in evt.key:
+            total_us += getattr(evt, "self_device_time_total", 0.0)
+            count += evt.count
+    return total_us / count / 1e3 if count else None
+
+
+def bound(bytes_moved: float, flops: float, peak_flops: float) -> tuple:
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / peak_flops * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def main() -> int:
+    try:
+        import torch
+    except ImportError as exc:
+        fail(f"torch does not import: {exc}")
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: this smoke test needs an NVIDIA card")
+    root = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, root)
+    try:
+        from tpu_node_checker_torch import ops
+        from tpu_node_checker_torch.ops import _build
+        from tpu_node_checker_torch.ops.dma_probe import dma_stream_reference
+        from tpu_node_checker_torch.ops.flash_attention import causal_attention_reference
+        from tpu_node_checker_torch.ops.pallas_probe import tiled_matmul_reference
+        from tpu_node_checker_torch.probe.schema import validate_report
+    except ImportError as exc:
+        fail(f"the tpu_node_checker_torch package is not beside this script: {exc}")
+    if not os.path.abspath(ops.__file__).startswith(root + os.sep):
+        fail(f"imported {ops.__file__}, not the package beside this script in {root}")
+    import torch.nn.functional as F
+
+    # The plain f32 products must run in full f32, not TF32.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda:0")
+
+    # -- 1. environment
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    nvcc = subprocess.run(
+        [_build.nvcc_path(), "--version"], capture_output=True, text=True, check=True
+    ).stdout.strip().splitlines()[-1]
+    phase(1, "environment", torch=torch.__version__, cuda=torch.version.cuda, nvcc=nvcc,
+          card=smi, device_count=torch.cuda.device_count())
+
+    # -- 2. build every kernel from the checkout's sources
+    t0 = time.perf_counter()
+    libs = _build.build_all()
+    phase(2, "build", seconds=round(time.perf_counter() - t0, 2),
+          libraries=[os.path.relpath(p, root) for p in libs])
+
+    # -- 3. each kernel at the compute probe's shapes, against its plain version
+    gen = torch.Generator(device=dev).manual_seed(0)
+    rows = []
+
+    m = k = n = 512
+    a = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+    b = torch.randn((k, n), generator=gen, device=dev).to(torch.bfloat16)
+    out = ops.tiled_matmul(a, b, 0.5)
+    torch.cuda.synchronize()
+    ref = tiled_matmul_reference(a, b, 0.5)
+    err = float((out - ref).abs().max().item())
+    rel = float(((out - ref).abs() / ref.abs().clamp_min(1.0)).max().item())
+    # f32 accumulation in another order (bf16 products are exact in f32).
+    tol = 1e-3
+    ms, plain_ms, lib_ms = timed_turns(
+        torch,
+        lambda: ops.tiled_matmul(a, b, 0.5),
+        lambda: tiled_matmul_reference(a, b, 0.5),
+        lambda: torch.mm(a, b, out_dtype=torch.float32) * 0.5,
+    )
+    dev_ms = device_ms(torch, lambda: ops.tiled_matmul(a, b, 0.5), "tiled_matmul_kernel")
+    bms, by = bound(2 * (m * k + k * n) + 4 * m * n, 2 * m * n * k, BF16_FLOPS)
+    rows.append(dict(
+        name="tiled_matmul", route="cuda",
+        source="tpu_node_checker_torch/ops/csrc/tiled_matmul.cu",
+        replaces="tpu_node_checker/ops/pallas_probe.py:54",
+        max_abs_err=err, check=f"max|d|/max(|ref|,1) = {rel:.3e} < {tol}", ok=rel < tol,
+        ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=lib_ms,
+        device_ms=dev_ms, shape=[m, k, n],
+    ))
+
+    r_, c_, chunk = 4096, 512, 256
+    x = torch.randn((r_, c_), generator=gen, device=dev)
+    out = ops.dma_stream(x, chunk)
+    torch.cuda.synchronize()
+    ref = dma_stream_reference(x)
+    exact = bool(torch.equal(out, ref))
+    ms, plain_ms, lib_ms = timed_turns(
+        torch,
+        lambda: ops.dma_stream(x, chunk),
+        lambda: dma_stream_reference(x),
+        lambda: x.mul(2).add_(1),
+    )
+    dev_ms = device_ms(torch, lambda: ops.dma_stream(x, chunk), "dma_stream_kernel")
+    bms, by = bound(8 * r_ * c_, 2 * r_ * c_, F32_FLOPS)
+    rows.append(dict(
+        name="dma_stream", route="cuda",
+        source="tpu_node_checker_torch/ops/csrc/dma_stream.cu",
+        replaces="tpu_node_checker/ops/dma_probe.py:105",
+        max_abs_err=float((out - ref).abs().max().item()), check="torch.equal (exact)",
+        ok=exact, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=lib_ms,
+        device_ms=dev_ms, shape=[r_, c_, chunk],
+    ))
+
+    shape = (1, 2, 256, 128)
+    q, kk, v = (torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16) for _ in range(3))
+    out = ops.flash_forward(q, kk, v)
+    torch.cuda.synchronize()
+    ref = causal_attention_reference(q, kk, v)
+    err = float((out.float() - ref.float()).abs().max().item())
+    tol = 2e-2  # the probe's own tolerance; one bf16 step at |x| < 4 is <= 1.6e-2
+    ms, plain_ms, lib_ms = timed_turns(
+        torch,
+        lambda: ops.flash_forward(q, kk, v),
+        lambda: causal_attention_reference(q, kk, v),
+        lambda: F.scaled_dot_product_attention(q, kk, v, is_causal=True),
+    )
+    B, H, S, D = shape
+    causal_flops = 4 * B * H * (S * (S + 1) // 2) * D  # QK^T and PV over the lower triangle
+    dev_ms = device_ms(torch, lambda: ops.flash_forward(q, kk, v), "flash_forward_kernel")
+    bms, by = bound(4 * B * H * S * D * 2, causal_flops, BF16_FLOPS)
+    rows.append(dict(
+        name="flash_attention", route="cuda",
+        source="tpu_node_checker_torch/ops/csrc/flash_attention.cu",
+        replaces="tpu_node_checker/ops/flash_attention.py:108",
+        max_abs_err=err, check=f"max|d| = {err:.3e} < {tol}", ok=err < tol,
+        ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=lib_ms,
+        device_ms=dev_ms, shape=list(shape),
+    ))
+    for r in rows:
+        phase(3, f"kernel {r['name']}", **{k2: r[k2] for k2 in (
+            "ok", "check", "max_abs_err", "ms", "device_ms", "plain_ms", "library_ms", "bound_ms",
+            "bound_by")})
+    bad = [r["name"] for r in rows if not r["ok"]]
+    if bad:
+        fail(f"kernels disagree with their plain versions: {bad}")
+
+    # -- 4. the main path through its entry point, then the probes in-process
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "tpu_node_checker_torch", "--emit-probe", "-",
+         "--probe-level", "compute"],
+        capture_output=True, text=True, cwd=root, timeout=600,
+        env={**os.environ, "TNC_SCHEMA_STRICT": "1"},
+    )
+    main_s = time.perf_counter() - t0
+    try:
+        report = json.loads(proc.stdout)
+    except json.JSONDecodeError:
+        fail(f"the entry point printed no report (exit {proc.returncode}): {proc.stderr[-2000:]}")
+    launches = report.get("kernel_launches") or {}
+    violations = validate_report(report)
+    phase(4, "main path", exit_code=proc.returncode, seconds=round(main_s, 2),
+          ok=report.get("ok"), error=report.get("error"),
+          child_elapsed_ms=report.get("elapsed_ms"),
+          dispatch_overhead_ms=report.get("dispatch_overhead_ms"),
+          pallas_ok=report.get("pallas_ok"), dma_ok=report.get("dma_ok"),
+          flash_attention_ok=report.get("flash_attention_ok"),
+          matmul_tflops=report.get("matmul_tflops"), int8_tops=report.get("int8_tops"),
+          hbm_gbps=report.get("hbm_gbps"), dma_gbps=report.get("dma_gbps"),
+          kernel_launches=launches, schema_violations=violations,
+          perf_floor=report.get("perf_floor"))
+    if proc.returncode != 0 or not report.get("ok"):
+        fail(f"compute-level probe not healthy: {report.get('error')}")
+    for key in ("pallas_ok", "dma_ok", "flash_attention_ok"):
+        if report.get(key) is not True:
+            fail(f"{key} is {report.get(key)!r}")
+    if violations:
+        fail(f"report violates the schema: {violations}")
+    missed = [r["name"] for r in rows if not launches.get(r["name"])]
+    if missed:
+        fail(f"the main path never launched: {missed}")
+    for r in rows:
+        r["launches"] = launches[r["name"]]
+
+    # The probe child's start-up, in parts: a fresh interpreter importing torch,
+    # then the CUDA context, then the first library product on the card.
+    startup = subprocess.run(
+        [sys.executable, "-c", STARTUP_SCRIPT], capture_output=True, text=True,
+        cwd=root, timeout=300, check=True,
+    )
+    phase(4, "child start-up", **json.loads(startup.stdout.strip().splitlines()[-1]))
+
+    # The compute probes in this process, at the child's card sizes, each timed
+    # on the host clock: where the main path's wall time goes.
+    ops.reset_launches()
+    probes = {}
+    seconds = {}
+    for name, run in (
+        ("burn", lambda: ops.matmul_burn(iters=64, device=dev)),
+        ("hbm", lambda: ops.hbm_bandwidth_probe(device=dev)),
+        ("tiled_matmul", lambda: ops.pallas_matmul_probe(device=dev)),
+        ("int8", lambda: ops.int8_matmul_probe(m=1024, k=1024, n=1024, iters=128, device=dev)),
+        ("flash_attention", lambda: ops.flash_attention_probe(seq=256, device=dev)),
+        ("dma_stream", lambda: ops.dma_stream_probe(device=dev)),
+        ("memtest", lambda: ops.hbm_pattern_probe(device=dev)),
+    ):
+        t0 = time.perf_counter()
+        probes[name] = run()
+        seconds[name] = round(time.perf_counter() - t0, 4)
+    in_process = ops.launch_counts()
+    phase(4, "in-process probes", launches=in_process, seconds=seconds,
+          ok={name: p.ok for name, p in probes.items()},
+          errors={name: p.error for name, p in probes.items() if p.error})
+    bad = [name for name, p in probes.items() if not p.ok]
+    bad += [name for name in ops.KERNEL_WRAPPERS if not in_process.get(name)]
+    if bad:
+        fail(f"in-process probes failed or never launched their kernel: {bad}")
+
+    # -- 5. the kernels line, the card line, the result line
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
+            "plain_ms", "bound_ms", "bound_by", "library_ms", "device_ms", "ok", "check")
+    print(json.dumps({"kernels": [{k2: r[k2] for k2 in keys} for r in rows]}), flush=True)
+    print(smi, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu",
+        "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,93 @@
+"""The CUDA kernels against their plain versions, on an NVIDIA card.
+
+Every test here is marked ``cuda`` and skips where no card is visible: a
+CUDA kernel has no CPU mode.  The file imports no JAX (the machine with the
+card has none), so it runs there without the suite's conftest::
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+
+torch and the port are reached through ``importlib.import_module``:
+tests/test_dependency_surface.py rejects any other ``import`` in tests/.
+"""
+
+import importlib
+
+import pytest
+
+torch = importlib.import_module("torch")
+port_dma = importlib.import_module("tpu_node_checker_torch.ops.dma_probe")
+port_flash = importlib.import_module("tpu_node_checker_torch.ops.flash_attention")
+port_matmul = importlib.import_module("tpu_node_checker_torch.ops.pallas_probe")
+port_liveness = importlib.import_module("tpu_node_checker_torch.probe.liveness")
+
+
+@pytest.fixture()
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernels have no CPU mode")
+    # The plain versions' f32 products run in full f32, not TF32.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda:0")
+
+
+@pytest.mark.cuda
+class TestKernelsOnCard:
+    """Each kernel against its plain version on the card (run on the chip)."""
+
+    @pytest.mark.parametrize("m,k,n", [(512, 512, 512), (256, 1024, 384)])
+    def test_tiled_matmul(self, cuda_device, m, k, n):
+        g = torch.Generator(device=cuda_device).manual_seed(0)
+        a = torch.randn((m, k), generator=g, device=cuda_device).to(torch.bfloat16)
+        b = torch.randn((k, n), generator=g, device=cuda_device).to(torch.bfloat16)
+        before = port_matmul.tiled_matmul.launches
+        out = port_matmul.tiled_matmul(a, b, 0.5)
+        torch.cuda.synchronize()
+        assert port_matmul.tiled_matmul.launches == before + 1
+        ref = port_matmul.tiled_matmul_reference(a, b, 0.5)
+        # f32 accumulation in another order.
+        assert float(((out - ref).abs() / ref.abs().clamp_min(1.0)).max()) < 1e-3
+
+    @pytest.mark.parametrize("rows,cols,chunk", [(4096, 512, 256), (12, 7, 3), (130, 33, 13)])
+    def test_dma_stream_exact(self, cuda_device, rows, cols, chunk):
+        x = torch.randn((rows, cols), device=cuda_device)
+        out = port_dma.dma_stream(x, chunk)
+        torch.cuda.synchronize()
+        assert torch.equal(out, port_dma.dma_stream_reference(x))
+
+    @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)])
+    @pytest.mark.parametrize("head_dim", [32, 64, 128])
+    def test_flash_forward(self, cuda_device, dtype, tol, head_dim):
+        q, k, v = (torch.randn((1, 2, 256, head_dim), device=cuda_device).to(dtype)
+                   for _ in range(3))
+        out = port_flash.flash_forward(q, k, v)
+        torch.cuda.synchronize()
+        ref = port_flash.causal_attention_reference(q, k, v)
+        # f32 arithmetic on both sides; bf16 output rounds once.
+        assert float((out.float() - ref.float()).abs().max()) < tol
+
+    def test_flash_rejects_other_dtypes(self, cuda_device):
+        q = torch.zeros((1, 1, 128, 64), dtype=torch.float16, device=cuda_device)
+        with pytest.raises(TypeError, match="bf16 or f32"):
+            port_flash.flash_forward(q, q, q)
+
+    def test_flash_gradients_match_plain(self, cuda_device):
+        leaves = [torch.randn((1, 2, 256, 64), device=cuda_device).requires_grad_(True)
+                  for _ in range(3)]
+        before = port_flash.flash_forward.launches
+        torch.tanh(port_flash.flash_attention(*leaves)).sum().backward()
+        assert port_flash.flash_forward.launches == before + 1
+        plain = [t.detach().clone().requires_grad_(True) for t in leaves]
+        torch.tanh(port_flash.causal_attention_reference(*plain)).sum().backward()
+        for a, b in zip(leaves, plain):
+            # Same backward; the forwards differ only in f32 summation order.
+            torch.testing.assert_close(a.grad, b.grad, atol=1e-5, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_compute_probe_on_card(cuda_device):
+    r = port_liveness.run_local_probe(level="compute")
+    assert r.ok, r.error
+    assert r.platform == "gpu"
+    d = r.to_dict()
+    assert d["pallas_ok"] and d["dma_ok"] and d["flash_attention_ok"]
+    assert all(n > 0 for n in d["kernel_launches"].values()), d["kernel_launches"]

@@ -1,0 +1,397 @@
+"""Subprocess-isolated card liveness probe.
+
+Initialises CUDA (and optionally runs real compute) in a **child process**
+with a hard wall-clock timeout.  CUDA initialisation can hang on a sick card
+(after an Xid, or while another process holds it), and the caller must never
+be taken down or stalled by the probe.  The child reports over a pipe as one
+JSON line; anything else (timeout, crash, OOM, import error) degrades to a
+structured failure, never an exception.
+
+Probe levels (each includes the previous):
+
+* ``enumerate``: CUDA init + card enumeration (platform, count, kinds,
+  memory);
+* ``compute``: tensor-core matmul burn (bf16) + exact int8 check, memory
+  bandwidth sample + data-integrity pattern memtest, and the three kernels
+  written by hand for Hopper (tiled matmul, bulk-copy stream, flash
+  attention), each held against its plain version, on one card
+  (:mod:`tpu_node_checker_torch.ops`).
+
+The JAX package's ``collective``, ``mesh`` and ``workload`` levels, and
+distributed probing (``TNC_PROBE_DISTRIBUTED=1``), are not ported yet: asked
+for, they fail with a structured "not yet ported" error and never run
+silently at a lower level.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+from dataclasses import dataclass, field
+from typing import List, Optional
+
+from tpu_node_checker_torch.probe.levels import (  # noqa: F401 — re-exported API
+    DEFAULT_TIMEOUT_S,
+    LEVEL_TIMEOUTS_S,
+    LEVELS,
+)
+
+# The child is a standalone -c program (not a fork), so the caller never
+# initialises CUDA and a wedged card cannot leak into it.
+_CHILD_SCRIPT = r"""
+import json, os, sys, time
+level = sys.argv[1]
+device = sys.argv[2]
+out = {"ok": False, "level": level}
+# The levels this package runs; the others are the JAX package's alone so far.
+PORTED_LEVELS = ("enumerate", "compute")
+
+
+def _append_error(msg):
+    # Every late-folding verdict uses this: demote ok and chain the message
+    # onto whatever error is already standing.
+    out["ok"] = False
+    out["error"] = f"{out['error']}; {msg}" if out.get("error") else msg
+
+
+t0 = time.perf_counter()
+hbm_capacity_error = None
+try:
+    if os.environ.get("TNC_PROBE_DISTRIBUTED") == "1":
+        raise NotImplementedError(
+            "distributed probing (TNC_PROBE_DISTRIBUTED=1) is not yet ported "
+            "to the PyTorch/CUDA probe; use the JAX package's probe"
+        )
+    if level not in PORTED_LEVELS:
+        raise NotImplementedError(
+            f"probe level {level!r} is not yet ported to the PyTorch/CUDA "
+            f"probe (ported: {', '.join(PORTED_LEVELS)})"
+        )
+    import torch
+    from tpu_node_checker_torch.ops._harness import resolve_device
+    # cuda:0 unless the caller asked for the CPU; an absent card raises here.
+    dev = resolve_device(device)
+    on_card = dev.type == "cuda"
+    if on_card:
+        n_dev = torch.cuda.device_count()
+        out["platform"] = "gpu"
+        out["device_kinds"] = sorted({torch.cuda.get_device_name(i) for i in range(n_dev)})
+    else:
+        n_dev = 1
+        out["platform"] = "cpu"
+        out["device_kinds"] = ["cpu"]
+    out["local_device_count"] = n_dev
+    out["device_count"] = n_dev
+    out["process_index"] = 0
+    out["process_count"] = 1
+    out["ok"] = n_dev > 0
+    mem = []         # report surface: devices exposing at least one stat
+    mem_graded = []  # grading surface: EVERY local device, so a card whose
+                     # memory query raises is graded as a None-limit entry
+    for i in range(n_dev if on_card else 0):
+        try:
+            free, total = torch.cuda.mem_get_info(i)
+            in_use, limit = total - free, torch.cuda.get_device_properties(i).total_memory
+        except RuntimeError:
+            in_use, limit = None, None
+        entry = {"id": i,
+                 "bytes_in_use": int(in_use) if in_use is not None else None,
+                 "bytes_limit": int(limit) if limit is not None else None}
+        mem_graded.append(entry)
+        if in_use is not None or limit is not None:
+            mem.append(entry)
+    if mem:
+        out["memory"] = mem
+    # bytes_in_use is the card's whole use (every process on it, per
+    # mem_get_info); bytes_limit grades capacity where a table exists (the
+    # built-in one knows TPUs only, so on a card it is stamped skipped).
+    from tpu_node_checker_torch.probe.floors import grade_hbm_capacity
+    _hcf = os.environ.get("TNC_HBM_CAPACITY_FLOOR")
+    try:
+        _kw = {"fraction": float(_hcf)} if _hcf else {}
+    except ValueError:
+        raise ValueError(f"TNC_HBM_CAPACITY_FLOOR {_hcf!r} is not a number")
+    cap = grade_hbm_capacity(out.get("device_kinds"), out.get("platform"), mem_graded, **_kw)
+    out["hbm_capacity"] = cap
+    if "skipped" not in cap and not cap["ok"]:
+        bad = ", ".join(f"device {f['id']}: {f['gb']} GB" for f in cap["failed_devices"])
+        hbm_capacity_error = (
+            f"hbm_capacity: {bad} < "
+            f"{round(cap['fraction'] * cap['expected_gb'], 1)} GB "
+            f"({cap['fraction']:.0%} of {cap['generation']} nominal "
+            f"{cap['expected_gb']} GB)"
+        )
+    # Full-stack chaos hooks, read UNCONDITIONALLY whatever the level: a
+    # chaos var set with a level that never runs the injected surface fails
+    # loudly, or the rehearsal "passes" while testing nothing.  Stamped
+    # before validating, so a malformed injection shows in the report.
+    _CHAOS_VARS = {
+        "collective_leg": ("TNC_CHAOS_COLLECTIVE_LEG", ("collective", "mesh", "workload")),
+        "ring_link": ("TNC_CHAOS_RING_LINK", ("collective", "mesh", "workload")),
+        "axis": ("TNC_CHAOS_AXIS", ("collective", "mesh", "workload")),
+        "slices": ("TNC_CHAOS_SLICES", ("collective", "mesh", "workload")),
+        "slow_link": ("TNC_CHAOS_SLOW_LINK", ("mesh", "workload")),
+        "throttle": ("TNC_CHAOS_THROTTLE", ("compute", "collective", "mesh", "workload")),
+    }
+    chaos = {}
+    for key, (var, _lv) in _CHAOS_VARS.items():
+        if os.environ.get(var):
+            chaos[key] = os.environ[var]
+    if chaos:
+        out["chaos_injected"] = chaos
+        bad = sorted(_CHAOS_VARS[k][0] for k in chaos if level not in _CHAOS_VARS[k][1])
+        if bad:
+            raise ValueError(
+                f"{', '.join(bad)} set but probe level {level!r} never runs "
+                "the injected surface (collective legs need --probe-level "
+                "collective+, the mesh link sweep needs mesh+, the throttle "
+                "needs compute+) — the injection would silently test "
+                "nothing; raise the level or unset the chaos vars"
+            )
+    if level == "compute" and out["ok"]:
+        from tpu_node_checker_torch import ops
+        if on_card:
+            # Build the three kernels at once, one nvcc each, before timing.
+            from tpu_node_checker_torch.ops import _build
+            _build.build_all()
+        # Round-trip overhead of one trivial launch plus its scalar fetch:
+        # telemetry for triage, and the gate deciding whether wall-clock
+        # figures may be floor-graded.
+        _x = torch.zeros((), device=dev)
+        float((_x + 1.0).item())
+        _t0 = time.perf_counter()
+        for _ in range(3):
+            float((_x + 1.0).item())
+        out["dispatch_overhead_ms"] = round((time.perf_counter() - _t0) / 3 * 1e3, 2)
+        # Card sizing, as the JAX child sizes for its accelerator: on-device
+        # time must dominate launch overhead.
+        burn = ops.matmul_burn(iters=64, device=dev) if on_card else ops.matmul_burn(device=dev)
+        out["matmul_tflops"] = round(burn.tflops, 3)
+        out["matmul_ok"] = burn.ok
+        hbm = ops.hbm_bandwidth_probe(device=dev)
+        out["hbm_gbps"] = round(hbm.gbps, 2)
+        out["hbm_ok"] = hbm.ok
+        pallas = ops.pallas_matmul_probe(device=dev)
+        out["pallas_ok"] = pallas.ok
+        i8_gate = True
+        if os.environ.get("TNC_SKIP_INT8") == "1":
+            # Operator escape hatch; skipping is visible, never silent.
+            out["int8_skipped"] = True
+        else:
+            i8 = (
+                ops.int8_matmul_probe(m=1024, k=1024, n=1024, iters=128, device=dev)
+                if on_card
+                else ops.int8_matmul_probe(device=dev)
+            )
+            out["int8_ok"] = i8.ok
+            out["int8_tops"] = round(i8.tops, 3)
+            i8_gate = i8.ok
+            if not i8.ok:
+                out["int8_err"] = i8.error
+        fa_gate = True
+        if os.environ.get("TNC_SKIP_FLASH_ATTENTION") == "1":
+            # Operator escape hatch; skipping is visible, never silent.
+            out["flash_attention_skipped"] = True
+        else:
+            fa = ops.flash_attention_probe(seq=256, device=dev)
+            out["flash_attention_ok"] = fa.ok
+            fa_gate = fa.ok
+            if not fa.ok:
+                out["flash_attention_err"] = fa.error
+                out["flash_attention_max_abs_err"] = fa.max_abs_err
+        dma = ops.dma_stream_probe(device=dev)
+        out["dma_ok"] = dma.ok
+        out["dma_gbps"] = round(dma.gbps, 2)
+        mt = ops.hbm_pattern_probe(device=dev)
+        out["memtest_ok"] = mt.ok
+        if not mt.ok:
+            out["memtest_err"] = mt.error
+            out["memtest_mismatches"] = mt.mismatches
+        # Which hand-written kernels ran (all 0 on the CPU, where the plain
+        # versions stand in for them).
+        out["kernel_launches"] = ops.launch_counts()
+        out["ok"] = (
+            out["ok"] and burn.ok and hbm.ok and pallas.ok and i8_gate
+            and fa_gate and dma.ok and mt.ok
+        )
+        soak_s = float(os.environ.get("TNC_SOAK_S") or 0)
+        if soak_s > 0 and out["ok"]:
+            soak = ops.soak_burn(
+                soak_s,
+                device=dev,
+                min_sustained_ratio=float(os.environ.get("TNC_SOAK_MIN_RATIO") or 0.5),
+                hbm_mib=int(os.environ.get("TNC_SOAK_HBM_MIB") or 128),
+            )
+            out["soak"] = soak.to_dict()
+            out["ok"] = out["ok"] and soak.ok
+    if level == "compute":
+        # Performance floors: grade the measured figures against what this
+        # device kind should deliver.  Runs whatever the flat verdict; a
+        # skipped grading is stamped, never silent.
+        from tpu_node_checker_torch.probe.floors import (
+            DEFAULT_FLOOR_FRACTION,
+            FLOOR_METRICS,
+            floor_failure_message,
+            grade_floors,
+            max_dispatch_from_env,
+        )
+        frac = DEFAULT_FLOOR_FRACTION
+        if os.environ.get("TNC_PERF_FLOOR"):
+            try:
+                frac = float(os.environ["TNC_PERF_FLOOR"])
+            except ValueError:
+                raise ValueError(
+                    f"TNC_PERF_FLOOR {os.environ['TNC_PERF_FLOOR']!r} is not a number"
+                )
+        expect = None
+        if os.environ.get("TNC_PERF_EXPECT"):
+            expect = json.loads(os.environ["TNC_PERF_EXPECT"])
+        max_disp = max_dispatch_from_env(os.environ.get("TNC_PERF_FLOOR_MAX_DISPATCH_MS"))
+        measured = {m: out.get(m) for m in FLOOR_METRICS}
+        if isinstance(out.get("soak"), dict):
+            _med = out["soak"].get("tflops_median")
+            if isinstance(_med, (int, float)) and _med > 0:
+                measured["sustained_tflops"] = _med
+        if any(v is not None for v in measured.values()) or chaos.get("throttle"):
+            kw = {}
+            if max_disp is not None:
+                kw["max_dispatch_ms"] = max_disp
+            verdict = grade_floors(
+                out.get("device_kinds"),
+                out.get("platform"),
+                measured,
+                fraction=frac,
+                expectations=expect,
+                throttle=chaos.get("throttle"),
+                dispatch_overhead_ms=out.get("dispatch_overhead_ms"),
+                **kw,
+            )
+            out["perf_floor"] = verdict
+            if not verdict.get("ok", True):
+                _append_error(floor_failure_message(verdict))
+    if hbm_capacity_error:
+        _append_error(hbm_capacity_error)
+except Exception as exc:  # the whole point is to catch anything
+    # ok may already be True from a completed earlier stage; a crash anywhere
+    # is a failed probe.
+    out["ok"] = False
+    out["error"] = f"{type(exc).__name__}: {exc}"
+out["elapsed_ms"] = round((time.perf_counter() - t0) * 1e3, 1)
+print(json.dumps(out, default=lambda o: o.item() if hasattr(o, "item") else str(o)))
+"""
+
+
+@dataclass
+class ProbeResult:
+    """Outcome of one local probe run; ``to_dict()`` feeds the JSON payload."""
+
+    ok: bool
+    level: str
+    hostname: str
+    elapsed_ms: float
+    device_count: int = 0
+    platform: Optional[str] = None
+    device_kinds: List[str] = field(default_factory=list)
+    error: Optional[str] = None
+    details: dict = field(default_factory=dict)
+
+    def to_dict(self) -> dict:
+        d = {
+            "ok": self.ok,
+            "level": self.level,
+            "hostname": self.hostname,
+            "elapsed_ms": self.elapsed_ms,
+            "device_count": self.device_count,
+            "platform": self.platform,
+            "device_kinds": self.device_kinds,
+        }
+        if self.error:
+            d["error"] = self.error
+        d.update(self.details)
+        return d
+
+
+def run_local_probe(
+    level: str = "enumerate",
+    timeout_s: Optional[float] = None,
+    expected_devices: Optional[int] = None,
+    device: str = "cuda:0",
+) -> ProbeResult:
+    """Probe this host's cards in a child process; never raises on a probe
+    failure.
+
+    ``device`` is ``cuda:0`` unless the caller asks for ``cpu`` (the tests
+    do); a missing card fails the probe and the error names CUDA.
+    ``expected_devices`` (e.g. a node's ``nvidia.com/gpu`` allocatable count)
+    turns a *partial* enumeration into a failure.  ``timeout_s=None`` picks
+    the per-level budget from :data:`LEVEL_TIMEOUTS_S`.  The child reads the
+    JAX child's ``TNC_*`` settings (floors, chaos, skips, soak) from the
+    environment.  The levels above ``compute`` and ``TNC_PROBE_DISTRIBUTED=1``
+    are not ported yet and fail as such.
+    """
+    if level not in LEVELS:
+        raise ValueError(f"unknown probe level {level!r}; expected one of {LEVELS}")
+    if timeout_s is None:
+        timeout_s = LEVEL_TIMEOUTS_S[level]
+    hostname = os.environ.get("NODE_NAME") or os.uname().nodename
+    t0 = time.perf_counter()
+    child_env = {**os.environ, "PYTHONPATH": _pythonpath()}
+    try:
+        proc = subprocess.run(
+            [sys.executable, "-c", _CHILD_SCRIPT, level, str(device)],
+            capture_output=True,
+            text=True,
+            timeout=timeout_s,
+            env=child_env,
+        )
+    except subprocess.TimeoutExpired:
+        return ProbeResult(
+            ok=False,
+            level=level,
+            hostname=hostname,
+            elapsed_ms=round((time.perf_counter() - t0) * 1e3, 1),
+            error=f"probe timed out after {timeout_s}s (CUDA init or kernel hang?)",
+        )
+    elapsed_ms = round((time.perf_counter() - t0) * 1e3, 1)
+    line = proc.stdout.strip().splitlines()[-1] if proc.stdout.strip() else ""
+    try:
+        data = json.loads(line)
+    except (json.JSONDecodeError, ValueError):
+        return ProbeResult(
+            ok=False,
+            level=level,
+            hostname=hostname,
+            elapsed_ms=elapsed_ms,
+            error=(
+                f"probe subprocess exited {proc.returncode} without a report: "
+                f"{(proc.stderr or '').strip()[-500:]}"
+            ),
+        )
+    known = {"ok", "level", "platform", "device_count", "device_kinds", "error", "elapsed_ms"}
+    result = ProbeResult(
+        ok=bool(data.get("ok")),
+        level=level,
+        hostname=hostname,
+        elapsed_ms=elapsed_ms,
+        device_count=int(data.get("device_count") or 0),
+        platform=data.get("platform"),
+        device_kinds=list(data.get("device_kinds") or []),
+        error=data.get("error"),
+        details={k: v for k, v in data.items() if k not in known},
+    )
+    if result.ok and expected_devices is not None and result.device_count < expected_devices:
+        result.ok = False
+        result.error = (
+            f"only {result.device_count}/{expected_devices} expected devices enumerated"
+        )
+    return result
+
+
+def _pythonpath() -> str:
+    """The child must import this package for the compute level."""
+    pkg_root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    existing = os.environ.get("PYTHONPATH", "")
+    return f"{pkg_root}{os.pathsep}{existing}" if existing else pkg_root
