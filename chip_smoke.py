@@ -12,7 +12,12 @@ Phases, one line each (any failure exits non-zero and prints no result):
    one process per source, all at once;
 3. kernels: each kernel at the shapes the compute probe gives it, held against
    its plain PyTorch version on the card, and timed beside its plain version,
-   one PyTorch library call computing the same function, and the card's bound;
+   one PyTorch library call computing the same function, and the card's bound,
+   with the device time of the kernel and of the library call side by side;
+   then the tiled matmul at 4096^3 (each tile it is built for) and flash
+   attention at (1, 16, 4096, 128) (each query row held to its own size,
+   the limit shown to catch a dropped K/V tile), each held against its plain
+   version, with its share of the bound;
 4. main path: the compute-level probe through its entry point
    (``python -m tpu_node_checker_torch --emit-probe - --probe-level compute``),
    which must report healthy, validate against the report schema and show
@@ -86,30 +91,80 @@ def timed_turns(torch, kernel, plain, library) -> tuple:
     return min(times[1], times[4]), min(times[0], times[5]), min(times[2], times[3])
 
 
-def device_ms(torch, fn, kernel_symbol: str, reps: int = 20):
-    """Mean device time of the kernel named ``kernel_symbol`` per call of
-    ``fn``, from torch.profiler's CUDA trace; None when the trace holds no
-    such kernel (the timed loops above then stand alone)."""
+def device_ms(torch, fn, kernel_symbol=None, reps: int = 20, sessions: int = 3):
+    """Device time per call of ``fn``, from torch.profiler's CUDA trace.
+
+    With ``kernel_symbol``: the mean time of the kernels whose name holds it.
+    Without: the sum of every kernel (and copy or fill) the call launches,
+    per call, as for a library call that launches several.  Only the trace's
+    device events count: the profiler also books each kernel's time on the
+    CPU op that launched it, so summing those too would count it twice.
+    A trace can come back without the kernel's events, so up to
+    ``sessions`` traces are taken.  None when none holds such a kernel
+    (the timed loops above then stand alone)."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total_us, count = 0.0, 0
-    for evt in prof.key_averages():
-        if kernel_symbol in evt.key:
-            total_us += getattr(evt, "self_device_time_total", 0.0)
-            count += evt.count
-    return total_us / count / 1e3 if count else None
+    for _ in range(sessions):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        picked = [
+            e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and not e.is_user_annotation
+            and (kernel_symbol is None or kernel_symbol in e.key)
+        ]
+        total_us = sum(e.self_device_time_total for e in picked)
+        calls = reps if kernel_symbol is None else sum(e.count for e in picked)
+        if total_us and calls:
+            return total_us / calls / 1e3
+    return None
 
 
 def bound(bytes_moved: float, flops: float, peak_flops: float) -> tuple:
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
     t_ops = flops / peak_flops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def matmul_bound(m: int, k: int, n: int) -> tuple:
+    """bf16 A and B read once, f32 C written once; 2mnk tensor-core operations."""
+    return bound(2 * (m * k + k * n) + 4 * m * n, 2 * m * n * k, BF16_FLOPS)
+
+
+def flash_bound(shape) -> tuple:
+    """q, k, v read once and out written once in bf16; QK^T and PV over the
+    causal lower triangle, diagonal included."""
+    B, H, S, D = shape
+    return bound(4 * B * H * S * D * 2, 4 * B * H * (S * (S + 1) // 2) * D, BF16_FLOPS)
+
+
+def matmul_rel_err(out, ref) -> float:
+    return float(((out - ref).abs() / ref.abs().clamp_min(1.0)).max().item())
+
+
+def row_rel_err(out, ref) -> float:
+    """Max over query rows of max|out - ref| / rms(ref) along the row.
+
+    Under a causal mask with random inputs, row n's output shrinks as
+    1/sqrt(n), so an absolute limit that suits the first rows is blind to
+    a fault in the late ones; each row is held to its own size here."""
+    d = (out.float() - ref.float()).abs().amax(-1)
+    return float((d / ref.float().pow(2).mean(-1).sqrt().clamp_min(1e-30)).max().item())
+
+
+def attention_dropping_keys(torch, q, k, v, k0: int, k1: int):
+    """Causal attention in f32, output in q's dtype, with keys k0..k1-1
+    dropped for every query row past them: a flash kernel that skips one
+    K/V tile, as a planted fault for the check above to catch."""
+    S, D = q.shape[-2:]
+    s = (q.float() @ k.float().transpose(-1, -2)) * D ** -0.5
+    i = torch.arange(S, device=q.device)
+    mask = (i[None, :] > i[:, None]) | (((i >= k0) & (i < k1))[None, :] & (i[:, None] >= k1))
+    return (s.masked_fill_(mask, -1e30).softmax(-1) @ v.float()).to(q.dtype)
 
 
 def main() -> int:
@@ -123,7 +178,7 @@ def main() -> int:
     sys.path.insert(0, root)
     try:
         from tpu_node_checker_torch import ops
-        from tpu_node_checker_torch.ops import _build
+        from tpu_node_checker_torch.ops import _build, pallas_probe
         from tpu_node_checker_torch.ops.dma_probe import dma_stream_reference
         from tpu_node_checker_torch.ops.flash_attention import causal_attention_reference
         from tpu_node_checker_torch.ops.pallas_probe import tiled_matmul_reference
@@ -160,6 +215,12 @@ def main() -> int:
     gen = torch.Generator(device=dev).manual_seed(0)
     rows = []
 
+    def mm_library(a, b):
+        return torch.mm(a, b, out_dtype=torch.float32) * 0.5
+
+    def sdpa(q, k, v):
+        return F.scaled_dot_product_attention(q, k, v, is_causal=True)
+
     m = k = n = 512
     a = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
     b = torch.randn((k, n), generator=gen, device=dev).to(torch.bfloat16)
@@ -167,24 +228,25 @@ def main() -> int:
     torch.cuda.synchronize()
     ref = tiled_matmul_reference(a, b, 0.5)
     err = float((out - ref).abs().max().item())
-    rel = float(((out - ref).abs() / ref.abs().clamp_min(1.0)).max().item())
+    rel = matmul_rel_err(out, ref)
     # f32 accumulation in another order (bf16 products are exact in f32).
-    tol = 1e-3
+    mm_tol = 1e-3
     ms, plain_ms, lib_ms = timed_turns(
         torch,
         lambda: ops.tiled_matmul(a, b, 0.5),
         lambda: tiled_matmul_reference(a, b, 0.5),
-        lambda: torch.mm(a, b, out_dtype=torch.float32) * 0.5,
+        lambda: mm_library(a, b),
     )
     dev_ms = device_ms(torch, lambda: ops.tiled_matmul(a, b, 0.5), "tiled_matmul_kernel")
-    bms, by = bound(2 * (m * k + k * n) + 4 * m * n, 2 * m * n * k, BF16_FLOPS)
+    lib_dev_ms = device_ms(torch, lambda: mm_library(a, b))
+    bms, by = matmul_bound(m, k, n)
     rows.append(dict(
         name="tiled_matmul", route="cuda",
         source="tpu_node_checker_torch/ops/csrc/tiled_matmul.cu",
         replaces="tpu_node_checker/ops/pallas_probe.py:54",
-        max_abs_err=err, check=f"max|d|/max(|ref|,1) = {rel:.3e} < {tol}", ok=rel < tol,
+        max_abs_err=err, check=f"max|d|/max(|ref|,1) = {rel:.3e} < {mm_tol}", ok=rel < mm_tol,
         ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=lib_ms,
-        device_ms=dev_ms, shape=[m, k, n],
+        device_ms=dev_ms, library_device_ms=lib_dev_ms, shape=[m, k, n],
     ))
 
     r_, c_, chunk = 4096, 512, 256
@@ -200,6 +262,7 @@ def main() -> int:
         lambda: x.mul(2).add_(1),
     )
     dev_ms = device_ms(torch, lambda: ops.dma_stream(x, chunk), "dma_stream_kernel")
+    lib_dev_ms = device_ms(torch, lambda: x.mul(2).add_(1))
     bms, by = bound(8 * r_ * c_, 2 * r_ * c_, F32_FLOPS)
     rows.append(dict(
         name="dma_stream", route="cuda",
@@ -207,7 +270,7 @@ def main() -> int:
         replaces="tpu_node_checker/ops/dma_probe.py:105",
         max_abs_err=float((out - ref).abs().max().item()), check="torch.equal (exact)",
         ok=exact, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=lib_ms,
-        device_ms=dev_ms, shape=[r_, c_, chunk],
+        device_ms=dev_ms, library_device_ms=lib_dev_ms, shape=[r_, c_, chunk],
     ))
 
     shape = (1, 2, 256, 128)
@@ -216,32 +279,105 @@ def main() -> int:
     torch.cuda.synchronize()
     ref = causal_attention_reference(q, kk, v)
     err = float((out.float() - ref.float()).abs().max().item())
-    tol = 2e-2  # the probe's own tolerance; one bf16 step at |x| < 4 is <= 1.6e-2
+    # The probe's own tolerance.  The kernel rounds P to bf16 before P.V and
+    # the output to bf16 once: one bf16 step at |x| < 4 is <= 1.6e-2.
+    flash_tol = 2e-2
     ms, plain_ms, lib_ms = timed_turns(
         torch,
         lambda: ops.flash_forward(q, kk, v),
         lambda: causal_attention_reference(q, kk, v),
-        lambda: F.scaled_dot_product_attention(q, kk, v, is_causal=True),
+        lambda: sdpa(q, kk, v),
     )
-    B, H, S, D = shape
-    causal_flops = 4 * B * H * (S * (S + 1) // 2) * D  # QK^T and PV over the lower triangle
     dev_ms = device_ms(torch, lambda: ops.flash_forward(q, kk, v), "flash_forward_kernel")
-    bms, by = bound(4 * B * H * S * D * 2, causal_flops, BF16_FLOPS)
+    lib_dev_ms = device_ms(torch, lambda: sdpa(q, kk, v))
+    bms, by = flash_bound(shape)
     rows.append(dict(
         name="flash_attention", route="cuda",
         source="tpu_node_checker_torch/ops/csrc/flash_attention.cu",
         replaces="tpu_node_checker/ops/flash_attention.py:108",
-        max_abs_err=err, check=f"max|d| = {err:.3e} < {tol}", ok=err < tol,
+        max_abs_err=err, check=f"max|d| = {err:.3e} < {flash_tol}", ok=err < flash_tol,
         ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=lib_ms,
-        device_ms=dev_ms, shape=list(shape),
+        device_ms=dev_ms, library_device_ms=lib_dev_ms, shape=list(shape),
     ))
     for r in rows:
         phase(3, f"kernel {r['name']}", **{k2: r[k2] for k2 in (
-            "ok", "check", "max_abs_err", "ms", "device_ms", "plain_ms", "library_ms", "bound_ms",
-            "bound_by")})
+            "ok", "check", "max_abs_err", "ms", "device_ms", "plain_ms", "library_ms",
+            "library_device_ms", "bound_ms", "bound_by")})
     bad = [r["name"] for r in rows if not r["ok"]]
     if bad:
         fail(f"kernels disagree with their plain versions: {bad}")
+
+    # One large shape per tensor-core kernel, where the card and not the
+    # launch sets the time: each held against its plain version first, then
+    # its device time beside the library's and the share of its bound.
+    large = {}
+    m = k = n = 4096
+    a = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+    b = torch.randn((k, n), generator=gen, device=dev).to(torch.bfloat16)
+    out = ops.tiled_matmul(a, b, 0.5)
+    torch.cuda.synchronize()
+    ref = tiled_matmul_reference(a, b, 0.5)
+    rel = matmul_rel_err(out, ref)
+    dev_ms = device_ms(torch, lambda: ops.tiled_matmul(a, b, 0.5), "tiled_matmul_kernel")
+    bms, by = matmul_bound(m, k, n)
+    large["tiled_matmul"] = dict(
+        shape=[m, k, n], ok=rel < mm_tol, check=f"max|d|/max(|ref|,1) = {rel:.3e} < {mm_tol}",
+        device_ms=dev_ms, library_device_ms=device_ms(torch, lambda: mm_library(a, b)),
+        bound_ms=bms, bound_by=by, share_of_bound=bms / dev_ms if dev_ms else None,
+    )
+    # Every tile the kernel is built for, at this shape, through its C entry
+    # (the wrapper picks one): the device time that the wrapper's choice
+    # rests on, each tile held against the plain version.  A tree from
+    # before the tile dispatch has no tiles to compare.
+    entry = _build.kernel("tiled_matmul")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    tiles = {}
+    for bm, bn in getattr(pallas_probe, "KERNEL_TILES", ()):
+        def run_tile(bm=bm, bn=bn):
+            code = entry(a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k, bm, bn, 0.5, stream)
+            _build.check("tiled_matmul", code)
+
+        out.zero_()
+        run_tile()
+        torch.cuda.synchronize()
+        tiles[f"{bm}x{bn}"] = dict(
+            ok=matmul_rel_err(out, ref) < mm_tol,
+            device_ms=device_ms(torch, run_tile, "tiled_matmul_kernel"),
+        )
+    large["tiled_matmul"]["tiles"] = tiles
+    large["tiled_matmul"]["ok"] &= all(t["ok"] for t in tiles.values())
+    del a, b, out, ref
+
+    shape = (1, 16, 4096, 128)
+    q, kk, v = (torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16) for _ in range(3))
+    out = ops.flash_forward(q, kk, v)
+    torch.cuda.synchronize()
+    ref = causal_attention_reference(q, kk, v)
+    err = float((out.float() - ref.float()).abs().max().item())
+    row = row_rel_err(out, ref)
+    # The same check on a planted fault: the last 64-key tile before the
+    # diagonal (keys 3968..4031) dropped from the rows past it, where the
+    # outputs are smallest.  The limit must sit between the two readings.
+    row_tol = 0.1
+    faulty = attention_dropping_keys(torch, q, kk, v, 3968, 4032)
+    fault = row_rel_err(faulty, ref)
+    fault_abs = float((faulty.float() - ref.float()).abs().max().item())
+    del faulty
+    dev_ms = device_ms(torch, lambda: ops.flash_forward(q, kk, v), "flash_forward_kernel")
+    bms, by = flash_bound(shape)
+    large["flash_attention"] = dict(
+        shape=list(shape), ok=row < row_tol < fault and err < flash_tol,
+        check=(f"max over rows of max|d|/rms(ref row) = {row:.3e} < {row_tol} < {fault:.3e} "
+               f"(one K/V tile dropped, max|d| {fault_abs:.3e}); max|d| = {err:.3e} < {flash_tol}"),
+        device_ms=dev_ms, library_device_ms=device_ms(torch, lambda: sdpa(q, kk, v)),
+        bound_ms=bms, bound_by=by, share_of_bound=bms / dev_ms if dev_ms else None,
+    )
+    del q, kk, v, out, ref
+    torch.cuda.empty_cache()
+    phase(3, "large shapes", **large)
+    bad = [name for name, r in large.items() if not r["ok"]]
+    if bad:
+        fail(f"kernels disagree with their plain versions at the large shapes: {bad}")
 
     # -- 4. the main path through its entry point, then the probes in-process
     ops.reset_launches()
@@ -318,7 +454,8 @@ def main() -> int:
 
     # -- 5. the kernels line, the card line, the result line
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
-            "plain_ms", "bound_ms", "bound_by", "library_ms", "device_ms", "ok", "check")
+            "plain_ms", "bound_ms", "bound_by", "library_ms", "device_ms", "library_device_ms",
+            "ok", "check")
     print(json.dumps({"kernels": [{k2: r[k2] for k2 in keys} for r in rows]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

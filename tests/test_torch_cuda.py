@@ -34,18 +34,28 @@ def cuda_device():
 class TestKernelsOnCard:
     """Each kernel against its plain version on the card (run on the chip)."""
 
-    @pytest.mark.parametrize("m,k,n", [(512, 512, 512), (256, 1024, 384)])
+    @pytest.mark.parametrize("m,k,n", [
+        (512, 512, 512), (256, 1024, 384), (384, 1024, 640), (4096, 4096, 4096),
+    ])
     def test_tiled_matmul(self, cuda_device, m, k, n):
-        g = torch.Generator(device=cuda_device).manual_seed(0)
-        a = torch.randn((m, k), generator=g, device=cuda_device).to(torch.bfloat16)
-        b = torch.randn((k, n), generator=g, device=cuda_device).to(torch.bfloat16)
-        before = port_matmul.tiled_matmul.launches
-        out = port_matmul.tiled_matmul(a, b, 0.5)
-        torch.cuda.synchronize()
-        assert port_matmul.tiled_matmul.launches == before + 1
-        ref = port_matmul.tiled_matmul_reference(a, b, 0.5)
-        # f32 accumulation in another order.
-        assert float(((out - ref).abs() / ref.abs().clamp_min(1.0)).max()) < 1e-3
+        _check_tiled_matmul(cuda_device, m, k, n)
+
+    @pytest.mark.parametrize("tile", port_matmul.KERNEL_TILES)
+    def test_tiled_matmul_every_tile(self, cuda_device, tile):
+        # An (m, n) that makes the wrapper pick `tile` on this card.
+        sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+        m, n = {
+            (128, 128): (128 * sms, 128),
+            (64, 64): (128, 128),
+        }[tile]
+        assert port_matmul.matmul_tile(m, n, sms) == tile
+        _check_tiled_matmul(cuda_device, m, 256, n)
+
+    def test_tiled_matmul_rejects_k_off_the_slice(self, cuda_device):
+        a = torch.zeros((128, 96), dtype=torch.bfloat16, device=cuda_device)
+        b = torch.zeros((96, 128), dtype=torch.bfloat16, device=cuda_device)
+        with pytest.raises(ValueError, match="K of 64"):
+            port_matmul.tiled_matmul(a, b, 0.5)
 
     @pytest.mark.parametrize("rows,cols,chunk", [(4096, 512, 256), (12, 7, 3), (130, 33, 13)])
     def test_dma_stream_exact(self, cuda_device, rows, cols, chunk):
@@ -62,8 +72,25 @@ class TestKernelsOnCard:
         out = port_flash.flash_forward(q, k, v)
         torch.cuda.synchronize()
         ref = port_flash.causal_attention_reference(q, k, v)
-        # f32 arithmetic on both sides; bf16 output rounds once.
+        # f32: f32 arithmetic on both sides.  bf16: P rounds to bf16 before
+        # P.V, and the output to bf16 once.
         assert float((out.float() - ref.float()).abs().max()) < tol
+
+    @pytest.mark.parametrize("shape", [(2, 3, 384, 64), (1, 16, 4096, 128)])
+    def test_flash_forward_bf16_shapes(self, cuda_device, shape):
+        g = torch.Generator(device=cuda_device).manual_seed(1)
+        q, k, v = (torch.randn(shape, generator=g, device=cuda_device).to(torch.bfloat16)
+                   for _ in range(3))
+        out = port_flash.flash_forward(q, k, v)
+        torch.cuda.synchronize()
+        ref = port_flash.causal_attention_reference(q, k, v).float()
+        # P rounds to bf16 before P.V, and the output to bf16 once.
+        d = (out.float() - ref).abs()
+        assert float(d.max()) < 2e-2
+        # Row n's output shrinks as 1/sqrt(n), so hold each row to its own
+        # size too: 0.1 sits between a sound kernel and one that drops a K/V
+        # tile (tests/test_torch_ops.py, chip_smoke.py).
+        assert float((d.amax(-1) / ref.pow(2).mean(-1).sqrt()).max()) < 0.1
 
     def test_flash_rejects_other_dtypes(self, cuda_device):
         q = torch.zeros((1, 1, 128, 64), dtype=torch.float16, device=cuda_device)
@@ -81,6 +108,19 @@ class TestKernelsOnCard:
         for a, b in zip(leaves, plain):
             # Same backward; the forwards differ only in f32 summation order.
             torch.testing.assert_close(a.grad, b.grad, atol=1e-5, rtol=1e-4)
+
+
+def _check_tiled_matmul(device, m, k, n):
+    g = torch.Generator(device=device).manual_seed(0)
+    a = torch.randn((m, k), generator=g, device=device).to(torch.bfloat16)
+    b = torch.randn((k, n), generator=g, device=device).to(torch.bfloat16)
+    before = port_matmul.tiled_matmul.launches
+    out = port_matmul.tiled_matmul(a, b, 0.5)
+    torch.cuda.synchronize()
+    assert port_matmul.tiled_matmul.launches == before + 1
+    ref = port_matmul.tiled_matmul_reference(a, b, 0.5)
+    # f32 accumulation in another order.
+    assert float(((out - ref).abs() / ref.abs().clamp_min(1.0)).max()) < 1e-3
 
 
 @pytest.mark.cuda

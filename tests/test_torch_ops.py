@@ -47,6 +47,47 @@ def _normal(seed, shape):
     return np.random.default_rng(seed).standard_normal(shape).astype(np.float32)
 
 
+def _flash_bf16_emulation(q, k, v, tile=64, skip=None):
+    """The bf16 flash kernel's arithmetic on the CPU: 64-row query and K/V
+    tiles, scores from the bf16 inputs in f32 scaled by log2(e)/sqrt(D), an
+    online softmax in base 2 masked on the diagonal tile only, the row sum of
+    the f32 P, and P rounded to bf16 before P.V (f32 accumulation).
+
+    ``skip``: the first key of one K/V tile that every later query tile
+    leaves out, as a kernel that drops a stage of its ring would."""
+    B, H, S, D = q.shape
+    c = math.log2(math.e) / math.sqrt(D)
+    qf, kf, vf = q.float(), k.float(), v.float()
+    above = torch.ones((tile, tile), dtype=torch.bool).triu(1)
+    out = torch.empty_like(qf)
+    for q0 in range(0, S, tile):
+        m = torch.full((B, H, tile, 1), -1e30)
+        l = torch.zeros((B, H, tile, 1))
+        o = torch.zeros((B, H, tile, D))
+        for k0 in range(0, q0 + tile, tile):
+            if k0 == skip and k0 != q0:
+                continue
+            s = qf[:, :, q0:q0 + tile] @ kf[:, :, k0:k0 + tile].transpose(-1, -2) * c
+            if k0 == q0:
+                s = s.masked_fill(above, -1e30)
+            m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+            corr = torch.exp2(m - m_new)
+            p = torch.exp2(s - m_new)
+            l = l * corr + p.sum(-1, keepdim=True)
+            o = o * corr + p.to(torch.bfloat16).float() @ vf[:, :, k0:k0 + tile]
+            m = m_new
+        out[:, :, q0:q0 + tile] = o / l
+    return out.to(torch.bfloat16)
+
+
+def _row_rel_err(out, ref):
+    """Max over query rows of max|out - ref| / rms(ref) along the row: each
+    row held to its own size, which shrinks as 1/sqrt(row) under the mask."""
+    ref = torch.from_numpy(np.array(ref, dtype=np.float32))
+    d = (out.float() - ref).abs().amax(-1)
+    return float((d / ref.pow(2).mean(-1).sqrt()).max())
+
+
 def _both(x_np, dtype=jnp.float32):
     """(JAX array, port CPU tensor) holding the same values."""
     xj = jnp.asarray(x_np, dtype)
@@ -92,6 +133,16 @@ class TestTiledMatmul:
         assert r.ok, r.error
         assert r.interpreted is True
         assert r.max_rel_err == 0.0  # the plain version against itself
+
+    @pytest.mark.parametrize("m,n,sms,tile", [
+        (4096, 4096, 132, (128, 128)),   # 1024 blocks of 128 x 128
+        (2048, 1024, 132, (64, 64)),     # 128 x 128 gives 128 blocks, 64 x 64 gives 512
+        (512, 512, 132, (64, 64)),       # the probe: 64 blocks, the most any tile gives
+        (384, 640, 132, (64, 64)),
+        (256, 256, 1, (128, 128)),
+    ])
+    def test_kernel_tile_follows_the_grid(self, m, n, sms, tile):
+        assert port_matmul.matmul_tile(m, n, sms) == tile
 
     @pytest.mark.parametrize("shape", [(100, 128, 128), (0, 128, 128), (128, 128, 64)])
     def test_invalid_shape_is_usage_error(self, shape):
@@ -175,6 +226,33 @@ class TestFlashAttention:
         out_b = port_flash.flash_attention(qt, k2, v2)
         torch.testing.assert_close(out_a[:, :, :block], out_b[:, :, :block], rtol=1e-5, atol=0)
         assert not torch.allclose(out_a[:, :, block:], out_b[:, :, block:])
+
+    @pytest.mark.parametrize("head_dim", [32, 64, 128])
+    def test_bf16_kernel_rounding_point_within_probe_tolerance(self, head_dim):
+        shape = (1, 2, 256, head_dim)
+        pairs = [_both(_normal(90 + i, shape), jnp.bfloat16) for i in range(3)]
+        ref = np.asarray(_xla_causal_attention(*(j.astype(jnp.float32) for j, _ in pairs)))
+        out = _flash_bf16_emulation(*(t for _, t in pairs))
+        # Rounding P to bf16 before P.V moves the output by 2e-3 to 3e-3
+        # against the f32 reference, and 5e-3 to 8e-3 after the output's own
+        # rounding to bf16 (measured at D = 32, 64, 128 and S = 256, 1024):
+        # within the probe's 2e-2.
+        assert float(np.abs(out.float().numpy() - ref).max()) < 2e-2
+
+    @pytest.mark.parametrize("head_dim", [32, 64, 128])
+    def test_bf16_row_relative_limit_catches_a_dropped_tile(self, head_dim):
+        # The limit chip_smoke.py and tests/test_torch_cuda.py hold the
+        # kernel to at long sequences, where an absolute limit that suits
+        # the first rows is blind to the late ones.  At (1, 1, 1024, D) the
+        # emulation reads 0.012 to 0.015 sound and 2.1 to 2.3 with one K/V
+        # tile left out of the later rows: 0.1 sits well between the two.
+        shape = (1, 1, 1024, head_dim)
+        pairs = [_both(_normal(100 + i, shape), jnp.bfloat16) for i in range(3)]
+        ref = _xla_causal_attention(*(j.astype(jnp.float32) for j, _ in pairs))
+        tensors = [t for _, t in pairs]
+        sound = _row_rel_err(_flash_bf16_emulation(*tensors), ref)
+        fault = _row_rel_err(_flash_bf16_emulation(*tensors, skip=512), ref)
+        assert sound < 0.1 < fault, (sound, fault)
 
     def test_probe_on_cpu(self):
         r = port_flash.flash_attention_probe(seq=256, head_dim=32, device="cpu")
@@ -307,6 +385,17 @@ class TestKernelWrappersOnCpu:
         # launches the kernel (cuda) or raises.
         with pytest.raises(ValueError, match="runs on cuda"):
             call("meta")
+
+    def test_library_path_follows_shared_headers(self, monkeypatch, tmp_path):
+        # A source that includes a csrc/*.cuh header must rebuild when only
+        # the header changes: its library path hashes every header too.
+        monkeypatch.setattr(port_build, "CSRC", tmp_path)
+        (tmp_path / "k.cu").write_text('#include "shared.cuh"\n')
+        (tmp_path / "shared.cuh").write_text("#define TILE 64\n")
+        first = port_build.library_path("k")
+        assert port_build.library_path("k") == first
+        (tmp_path / "shared.cuh").write_text("#define TILE 128\n")
+        assert port_build.library_path("k") != first
 
     def test_kernel_build_without_nvcc_fails_loudly(self, monkeypatch, tmp_path):
         monkeypatch.setattr(port_build, "BUILD_DIR", tmp_path)

@@ -6,8 +6,9 @@ C interface (no PyTorch headers, so one source builds in seconds)::
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
          -Xcompiler -fPIC -o build/lib<name>-<hash>.so csrc/<name>.cu
 
-The library name carries a hash of the source and the flags, so an edited
-source is rebuilt and concurrent processes never load a half-written file
+The library name carries a hash of the source, of every shared header
+(``csrc/*.cuh``) and of the flags, so an edited source or header is rebuilt
+and concurrent processes never load a half-written file
 (each writes a private temporary and renames it into place).  A kernel builds
 at its first use; :func:`build_all` builds every source at once, one ``nvcc``
 process per source, all started together.
@@ -42,7 +43,7 @@ _F = ctypes.c_float
 # C entry of each library: (symbol, argtypes).  Every pointer and the stream
 # are c_void_p, or ctypes would pass them as 32-bit ints and cut them.
 SIGNATURES = {
-    "tiled_matmul": ("tnc_tiled_matmul", [_P, _P, _P, _I, _I, _I, _F, _P]),
+    "tiled_matmul": ("tnc_tiled_matmul", [_P, _P, _P, _I, _I, _I, _I, _I, _F, _P]),
     "dma_stream": ("tnc_dma_stream", [_P, _P, _LL, _LL, _LL, _I, _P]),
     "flash_attention": ("tnc_flash_forward", [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P]),
 }
@@ -67,9 +68,14 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """Where the library of ``csrc/<name>.cu`` lives: named by a hash of the
+    source, every ``csrc/*.cuh`` header (any source may include one) and the
+    flags."""
+    h = hashlib.sha256()
+    for path in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
+        h.update(path.name.encode() + b"\0" + path.read_bytes() + b"\0")
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def _start(name: str) -> tuple:

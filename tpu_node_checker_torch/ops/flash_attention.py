@@ -3,10 +3,11 @@
 Attention dominates the workload-level probes, and on serving and training
 stacks it is the operator most often replaced by a custom kernel.  This
 module provides that kernel for the probe suite (``csrc/flash_attention.cu``):
-a blockwise causal forward with an online softmax, one program per 128-row
-query block, a K/V loop that stops at the diagonal block, f32 arithmetic
-throughout and the output in the input's dtype.  The probe cross-checks it
-against the plain attention.
+a blockwise causal forward with an online softmax, a K/V loop that stops at
+the diagonal block, the softmax state and accumulators in f32 and the output
+in the input's dtype.  bf16 inputs run both products on the tensor cores,
+with P rounded to bf16 before P.V; f32 inputs run on the CUDA cores.  The
+probe cross-checks it against the plain attention.
 
 * :func:`flash_forward` is the forward alone (CUDA tensors launch the
   kernel, CPU tensors take the plain version);
@@ -80,6 +81,8 @@ def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Te
     if D not in KERNEL_HEAD_DIMS:
         raise ValueError(f"flash attention kernel takes head_dim in {KERNEL_HEAD_DIMS}, got {D}")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash attention kernel needs 16-byte aligned q/k/v")
     out = torch.empty_like(q)
     fn = _build.kernel("flash_attention")
     stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -114,7 +117,7 @@ class _FlashAttention(torch.autograd.Function):
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """Differentiable causal flash attention over (B, H, S, D).
 
-    Same shape and dtype as ``q``; accumulation is f32 throughout.
+    Same shape and dtype as ``q``; the softmax state and accumulators are f32.
     """
     return _FlashAttention.apply(q, k, v)
 
@@ -128,8 +131,8 @@ def flash_attention_probe(
     device: DeviceLike = None,
 ) -> FlashAttentionProbeResult:
     """Run the flash-attention kernel and cross-check it against the plain
-    attention (max absolute difference; the tolerance allows for bf16
-    inputs, accumulation is f32 on both sides)."""
+    attention (max absolute difference; the tolerance allows for the bf16
+    rounding of P and of the output, accumulation is f32 on both sides)."""
     interpreted = is_cpu(device)
     try:
         if seq <= 0 or seq % BLOCK:

@@ -4,9 +4,9 @@ Library products (cuBLAS behind ``torch.matmul``) and hand-written kernels
 reach the card through different compilers and code paths.  A card can run
 every library product correctly and still fault on custom kernels, which
 serving stacks with fused kernels hit exactly.  This probe runs a tiled bf16
-matmul written for Hopper (``csrc/tiled_matmul.cu``: tensor-core products,
-f32 accumulation, a fused x scale epilogue) and checks it against the plain
-f32 product.
+matmul written for Hopper (``csrc/tiled_matmul.cu``: wgmma tensor-core
+products fed by a TMA ring, f32 accumulation, a fused x scale epilogue) and
+checks it against the plain f32 product.
 
 The module keeps the JAX package's names (``pallas_matmul_probe``,
 ``PallasProbeResult``) so each finds its counterpart; ``interpreted`` now
@@ -25,6 +25,9 @@ from tpu_node_checker_torch.ops import _build
 from tpu_node_checker_torch.ops._harness import DeviceLike, is_cpu, resolve_device, timed_run
 
 TILE = 128
+K_SLICE = 64  # the kernel's K slice: 64 bf16, one 128-byte swizzled row
+# Output tiles the kernel is built for, largest first: (rows, cols).
+KERNEL_TILES = ((128, 128), (64, 64))
 
 
 @dataclass
@@ -41,11 +44,21 @@ def tiled_matmul_reference(a: torch.Tensor, b: torch.Tensor, scale: float) -> to
     return torch.matmul(a.float(), b.float()) * scale
 
 
+def matmul_tile(m: int, n: int, sms: int) -> tuple:
+    """The kernel's output tile for an (m, n) result on a card with ``sms``
+    SMs: the largest of :data:`KERNEL_TILES` that still gives every SM a
+    block, else the smallest.  Each tile sums over K in the same order."""
+    for bm, bn in KERNEL_TILES:
+        if (m // bm) * (n // bn) >= sms:
+            return bm, bn
+    return KERNEL_TILES[-1]
+
+
 def tiled_matmul(a: torch.Tensor, b: torch.Tensor, scale: float) -> torch.Tensor:
     """``scale * (a @ b)`` for bf16 ``a`` (M, K) and ``b`` (K, N), f32 out.
 
     CUDA tensors launch the tensor-core kernel (M and N multiples of 128, K of
-    32); CPU tensors take the plain version.  Nothing falls back.
+    64); CPU tensors take the plain version.  Nothing falls back.
     """
     if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
         raise ValueError(f"tiled_matmul needs (M,K) @ (K,N), got {tuple(a.shape)} @ {tuple(b.shape)}")
@@ -58,19 +71,20 @@ def tiled_matmul(a: torch.Tensor, b: torch.Tensor, scale: float) -> torch.Tensor
     if a.dtype != torch.bfloat16 or b.dtype != torch.bfloat16:
         raise TypeError(f"tiled_matmul kernel takes bf16, got {a.dtype} and {b.dtype}")
     (M, K), N = a.shape, b.shape[1]
-    if min(M, N, K) <= 0 or M % TILE or N % TILE or K % 32:
+    if min(M, N, K) <= 0 or M % TILE or N % TILE or K % K_SLICE:
         raise ValueError(
             f"tiled_matmul kernel shape ({M},{K},{N}): M and N must be positive "
-            f"multiples of {TILE}, K of 32"
+            f"multiples of {TILE}, K of {K_SLICE}"
         )
     a, b = a.contiguous(), b.contiguous()
     out = torch.empty((M, N), dtype=torch.float32, device=a.device)
     for t in (a, b):
         if t.data_ptr() % 16:
             raise ValueError("tiled_matmul kernel needs 16-byte aligned inputs")
+    bm, bn = matmul_tile(M, N, torch.cuda.get_device_properties(a.device).multi_processor_count)
     fn = _build.kernel("tiled_matmul")
     stream = torch.cuda.current_stream(a.device).cuda_stream
-    code = fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), M, N, K, float(scale), stream)
+    code = fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), M, N, K, bm, bn, float(scale), stream)
     _build.check("tiled_matmul", code)
     tiled_matmul.launches += 1
     return out
