@@ -23,7 +23,21 @@ Phases, one line each (any failure exits non-zero and prints no result):
    which must report healthy, validate against the report schema and show
    every kernel launched; then the three kernel probes in this process, with
    their launch counts;
-5. the ``kernels`` line, then the ``nvidia-smi`` line, then the result line.
+5. workload path: in this process, at the full ``BurninConfig()``, the flash
+   kernel against its plain version at the training step's shape
+   (8, 4, 128, 32) bf16, one training step with ``attention="flash"``
+   against the same step with ``attention="xla"`` from the same weights
+   (the loss and every gradient), the step's time, and the flash forward's
+   device time beside the plain backward's; then the level's blocks over a
+   rank group (one rank per card), each timed, in this process and in a
+   fresh one; then the workload-level probe through its entry point
+   (``--probe-level workload``), which must report healthy with every
+   fabric and workload verdict true, a strictly falling loss, and the flash
+   kernel launched ``n_layers × steps`` more times than at the compute
+   level;
+6. the ``kernels`` line (each kernel at the compute probe's shapes, its
+   launches counted on the workload path, flash also at the training
+   step's shape), then the ``nvidia-smi`` line, then the result line.
 
 Bounds use the H100 SXM data sheet: 3.35 TB/s of device memory, 989 TFLOP/s
 bf16 on the tensor cores.  Times are steady-state CUDA-event times over many
@@ -54,8 +68,64 @@ torch.mm(a, a, out_dtype=torch.float32).sum().item()
 t3 = time.perf_counter()
 import tpu_node_checker_torch.ops
 t4 = time.perf_counter()
+import tpu_node_checker_torch.models, tpu_node_checker_torch.meshprobe
+t5 = time.perf_counter()
 print(json.dumps({"import_torch_s": t1 - t0, "cuda_context_s": t2 - t1,
-                  "first_mm_s": t3 - t2, "import_port_s": t4 - t3}))
+                  "first_mm_s": t3 - t2, "import_port_s": t4 - t3,
+                  "import_fabric_and_model_s": t5 - t4}))
+"""
+
+# The workload level's blocks in a fresh interpreter, each on the host clock:
+# what they cost the probe child, which meets each of them cold.
+FRESH_BLOCKS_SCRIPT = """
+import dataclasses, json, time
+t = [time.perf_counter()]
+import torch
+from tpu_node_checker_torch.meshprobe import mesh_link_sweep
+from tpu_node_checker_torch.models.burnin import (
+    BurninConfig, _loss, make_train_step, workload_probe)
+from tpu_node_checker_torch.parallel import (
+    RankGroup, collective_probe, fold, ring_attention_probe, ring_probe)
+t.append(time.perf_counter())
+torch.zeros(1, device="cuda").add_(1).item()
+t.append(time.perf_counter())
+group = RankGroup(1, "cuda", timeout_s=120)
+group.start()
+t.append(time.perf_counter())
+ok = [fold(group.run(collective_probe)).ok]
+t.append(time.perf_counter())
+ok.append(fold(group.run(ring_probe)).ok)
+t.append(time.perf_counter())
+ok.append(fold(group.run(mesh_link_sweep)).ok)
+t.append(time.perf_counter())
+# The first training step of the process, in parts, then the probe itself.
+cfg = dataclasses.replace(BurninConfig(), attention="flash")
+_, init_fn = make_train_step(cfg)
+model, opt = init_fn(0)
+tokens = torch.randint(0, cfg.vocab, (cfg.batch, cfg.seq)).cuda()
+torch.cuda.synchronize()
+t.append(time.perf_counter())
+loss = _loss(model, tokens)
+loss.item()
+t.append(time.perf_counter())
+loss.backward()
+torch.cuda.synchronize()
+t.append(time.perf_counter())
+opt.step()
+torch.cuda.synchronize()
+t.append(time.perf_counter())
+wl = workload_probe(cfg)
+ok.append(wl.ok)
+t.append(time.perf_counter())
+ok.append(fold(group.run(ring_attention_probe, seq_per_device=16)).ok)
+t.append(time.perf_counter())
+group.close()
+t.append(time.perf_counter())
+names = ["imports", "cuda_context", "rank_group_start", "collective", "ring", "mesh",
+         "model_init", "first_forward", "first_backward", "first_adam_step",
+         "workload_probe_after", "ring_attention", "rank_group_close"]
+print(json.dumps({"ok": all(ok), "workload_step_ms": wl.step_time_ms,
+                  "seconds": {n: b - a for n, a, b in zip(names, t, t[1:])}}))
 """
 
 
@@ -165,6 +235,12 @@ def attention_dropping_keys(torch, q, k, v, k0: int, k1: int):
     i = torch.arange(S, device=q.device)
     mask = (i[None, :] > i[:, None]) | (((i >= k0) & (i < k1))[None, :] & (i[:, None] >= k1))
     return (s.masked_fill_(mask, -1e30).softmax(-1) @ v.float()).to(q.dtype)
+
+
+def rel_l2(a, b) -> float:
+    """||a - b|| / ||b||, in f32."""
+    a, b = a.float(), b.float()
+    return float((a - b).norm() / b.norm().clamp_min(1e-30))
 
 
 def main() -> int:
@@ -452,11 +528,207 @@ def main() -> int:
     if bad:
         fail(f"in-process probes failed or never launched their kernel: {bad}")
 
-    # -- 5. the kernels line, the card line, the result line
-    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
-            "plain_ms", "bound_ms", "bound_by", "library_ms", "device_ms", "library_device_ms",
-            "ok", "check")
-    print(json.dumps({"kernels": [{k2: r[k2] for k2 in keys} for r in rows]}), flush=True)
+    # -- 5. the workload path: the training step in this process, then the
+    # workload-level probe through its entry point.
+    import dataclasses
+
+    from tpu_node_checker_torch.meshprobe import mesh_link_sweep
+    from tpu_node_checker_torch.models.burnin import (
+        BurninConfig, _loss, make_train_step, workload_probe,
+    )
+    from tpu_node_checker_torch.parallel import (
+        RankGroup, collective_probe, fold, ring_attention_probe, ring_probe,
+    )
+
+    cfg = BurninConfig()
+    steps = 3  # the workload probe's default
+    shape = (cfg.batch, cfg.n_heads, cfg.seq, cfg.head_dim)
+    q, kk, v = (torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16) for _ in range(3))
+    out = ops.flash_forward(q, kk, v)
+    torch.cuda.synchronize()
+    ref = causal_attention_reference(q, kk, v)
+    err = float((out.float() - ref.float()).abs().max().item())
+    row = row_rel_err(out, ref)
+    qg, kg, vg = (t.detach().clone().requires_grad_(True) for t in (q, kk, v))
+    gout = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    def plain_backward():
+        # What the step's backward runs: autograd over the plain version on
+        # the saved q/k/v, its forward recomputed.
+        return torch.autograd.grad(causal_attention_reference(qg, kg, vg), (qg, kg, vg), gout)
+
+    grads = plain_backward()
+    ms, plain_ms, lib_ms = timed_turns(
+        torch,
+        lambda: ops.flash_forward(q, kk, v),
+        lambda: causal_attention_reference(q, kk, v),
+        lambda: sdpa(q, kk, v),
+    )
+    kernel_d32 = dict(
+        shape=list(shape), ok=err < flash_tol, max_abs_err=err,
+        ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+        check=f"max|d| = {err:.3e} < {flash_tol}; max over rows of max|d|/rms(ref row) = {row:.3e}",
+        device_ms=device_ms(torch, lambda: ops.flash_forward(q, kk, v), "flash_forward_kernel"),
+        plain_forward_device_ms=device_ms(torch, lambda: causal_attention_reference(q, kk, v)),
+        plain_backward_device_ms=device_ms(torch, plain_backward),
+        library_device_ms=device_ms(torch, lambda: sdpa(q, kk, v)),
+        grad_dtypes=sorted({str(g.dtype) for g in grads}),
+    )
+    kernel_d32["bound_ms"], kernel_d32["bound_by"] = flash_bound(shape)
+    phase(5, "flash kernel at the training step's shape", **kernel_d32)
+    if not kernel_d32["ok"]:
+        fail(f"flash kernel disagrees with its plain version at {shape}: {kernel_d32['check']}")
+    del q, kk, v, out, ref, qg, kg, vg, gout, grads
+
+    # One step from the same weights, flash kernel against plain attention.
+    # The two paths round to bf16 at different points (the kernel rounds P
+    # before P.V, the plain path the normalised probabilities; the flash
+    # backward runs the plain version in f32), so the loss is held to 1e-3
+    # relative and each gradient to 5e-2 in relative L2 norm (the plain
+    # version of both paths on the CPU agree within 1.1e-2).
+    loss_rtol, grad_rtol = 1e-3, 5e-2
+    tokens = torch.randint(0, cfg.vocab, (cfg.batch, cfg.seq),
+                           generator=torch.Generator().manual_seed(1)).to(dev)
+    state = None
+    step_out = {}
+    for att in ("xla", "flash"):
+        c = dataclasses.replace(cfg, attention=att)
+        train_step, init_fn = make_train_step(c, device=dev)
+        model, opt = init_fn(seed=0, state=state)
+        state = state or {n: t.detach().clone() for n, t in model.state_dict().items()}
+        before = ops.flash_forward.launches
+        loss = _loss(model, tokens)
+        loss.backward()
+        torch.cuda.synchronize()
+        step_out[att] = dict(
+            loss=float(loss.detach()), launches=ops.flash_forward.launches - before,
+            grads={n: p.grad.detach().clone() for n, p in model.named_parameters()},
+        )
+        # The whole step (forward, backward, Adam) on the host clock, each
+        # step ending in a fetch of its loss, as the probe times it.
+        float(train_step(model, opt, tokens))
+        t0 = time.perf_counter()
+        for _ in range(10):
+            float(train_step(model, opt, tokens))
+        step_out[att]["step_ms"] = (time.perf_counter() - t0) / 10 * 1e3
+        step_out[att]["step_device_ms"] = device_ms(
+            torch, lambda: train_step(model, opt, tokens), reps=5)
+        del model, opt
+    fl, xl = step_out["flash"], step_out["xla"]
+    loss_rel = abs(fl["loss"] - xl["loss"]) / abs(xl["loss"])
+    grad_rel = {n: rel_l2(fl["grads"][n], g) for n, g in xl["grads"].items()}
+    step_ok = (loss_rel < loss_rtol and max(grad_rel.values()) < grad_rtol
+               and fl["launches"] == cfg.n_layers and xl["launches"] == 0)
+    phase(5, "training step, flash against plain attention", ok=step_ok,
+          check=(f"|loss_flash - loss_xla|/loss_xla = {loss_rel:.3e} < {loss_rtol}; "
+                 f"max over parameters of ||g_flash - g_xla||/||g_xla|| = "
+                 f"{max(grad_rel.values()):.3e} < {grad_rtol}"),
+          loss_flash=fl["loss"], loss_xla=xl["loss"], grad_rel_l2=grad_rel,
+          flash_launches_per_step=fl["launches"],
+          step_ms_flash=fl["step_ms"], step_ms_xla=xl["step_ms"],
+          step_device_ms_flash=fl["step_device_ms"], step_device_ms_xla=xl["step_device_ms"])
+    if not step_ok:
+        fail("the flash training step disagrees with the plain-attention step")
+    del step_out, fl, xl
+
+    # The workload level's blocks in this (warm) process, each on the host
+    # clock: where the level's time goes after the child's start-up.  The
+    # group holds one rank per card; on one card none is spawned (rank 0 is
+    # the caller), and a spawned rank would pay phase 4's child start-up.
+    seconds, block_ok = {}, {}
+    t0 = time.perf_counter()
+    with RankGroup(torch.cuda.device_count(), "cuda", timeout_s=120) as group:
+        seconds["rank_group_start"] = time.perf_counter() - t0
+        for name, fn, kw in (
+            ("collective", collective_probe, {}),
+            ("ring", ring_probe, {}),
+            ("mesh", mesh_link_sweep, {}),
+            ("ring_attention", ring_attention_probe, {"seq_per_device": 16}),
+        ):
+            t1 = time.perf_counter()
+            block_ok[name] = fold(group.run(fn, **kw)).ok
+            seconds[name] = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        wl_in = workload_probe(dataclasses.replace(cfg, attention="flash"), device=dev)
+        seconds["workload"] = time.perf_counter() - t1
+        block_ok["workload"] = wl_in.ok
+        t1 = time.perf_counter()
+    seconds["rank_group_close"] = time.perf_counter() - t1
+    phase(5, "in-process workload blocks", ranks=group.world_size,
+          spawned_ranks=group.world_size - 1, ok=block_ok,
+          seconds={k: round(v, 4) for k, v in seconds.items()},
+          workload_step_ms=wl_in.step_time_ms, workload_losses=list(wl_in.losses))
+    bad = [name for name, ok_ in block_ok.items() if not ok_]
+    if bad:
+        fail(f"workload blocks failed in-process: {bad}")
+    fresh = subprocess.run(
+        [sys.executable, "-c", FRESH_BLOCKS_SCRIPT], capture_output=True, text=True,
+        cwd=root, timeout=300,
+    )
+    try:
+        fresh_blocks = json.loads(fresh.stdout.strip().splitlines()[-1])
+    except (IndexError, json.JSONDecodeError):
+        fail(f"the fresh-process workload blocks printed nothing (exit {fresh.returncode}): "
+             f"{fresh.stderr[-2000:]}")
+    phase(5, "fresh-process workload blocks", **fresh_blocks)
+    if not fresh_blocks["ok"]:
+        fail("workload blocks failed in a fresh process")
+
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "tpu_node_checker_torch", "--emit-probe", "-",
+         "--probe-level", "workload"],
+        capture_output=True, text=True, cwd=root, timeout=900,
+        env={**os.environ, "TNC_SCHEMA_STRICT": "1"},
+    )
+    wl_s = time.perf_counter() - t0
+    try:
+        wl = json.loads(proc.stdout)
+    except json.JSONDecodeError:
+        fail(f"the workload entry point printed no report (exit {proc.returncode}): "
+             f"{proc.stderr[-2000:]}")
+    wl_launches = wl.get("kernel_launches") or {}
+    violations = validate_report(wl)
+    losses = wl.get("workload_losses") or []
+    verdicts = {key: wl.get(key) for key in (
+        "collective_ok", "ring_ok", "mesh_ok", "workload_ok", "ring_attention_ok")}
+    extra_flash = wl_launches.get("flash_attention", 0) - launches.get("flash_attention", 0)
+    phase(5, "workload path", exit_code=proc.returncode, seconds=round(wl_s, 2),
+          ok=wl.get("ok"), error=wl.get("error"), child_elapsed_ms=wl.get("elapsed_ms"),
+          **verdicts, workload_losses=losses, workload_step_ms=wl.get("workload_step_ms"),
+          workload_devices=wl.get("workload_devices"),
+          collective_latency_us=wl.get("collective_latency_us"),
+          collective_legs_ok=wl.get("collective_legs_ok"),
+          ring_link_gbps=wl.get("ring_link_gbps"), mesh_n_links=wl.get("mesh_n_links"),
+          kernel_launches=wl_launches, flash_launches_over_compute=extra_flash,
+          schema_violations=violations)
+    if proc.returncode != 0 or not wl.get("ok"):
+        fail(f"workload-level probe not healthy: {wl.get('error')}")
+    if violations:
+        fail(f"workload report violates the schema: {violations}")
+    bad = [key for key, val in verdicts.items() if val is not True]
+    if bad:
+        fail(f"workload report verdicts not true: {bad}")
+    if len(losses) != steps or not all(b < a for a, b in zip(losses, losses[1:])):
+        fail(f"workload losses do not strictly fall: {losses}")
+    if extra_flash < cfg.n_layers * steps:
+        fail(f"the training step launched the flash kernel {extra_flash} times, "
+             f"fewer than n_layers x steps = {cfg.n_layers * steps}")
+    missed = [r["name"] for r in rows if not wl_launches.get(r["name"])]
+    if missed:
+        fail(f"the workload path never launched: {missed}")
+    for r in rows:
+        r["compute_launches"] = r["launches"]
+        r["launches"] = wl_launches[r["name"]]
+    # The flash kernel's second shape on the main path: the training step's.
+    next(r for r in rows if r["name"] == "flash_attention")["training_step"] = kernel_d32
+
+    # -- 6. the kernels line, the card line, the result line
+    keys = ("name", "route", "source", "replaces", "launches", "compute_launches",
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "device_ms",
+            "library_device_ms", "ok", "check", "training_step")
+    print(json.dumps({"kernels": [{k2: r[k2] for k2 in keys if k2 in r} for r in rows]}),
+          flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

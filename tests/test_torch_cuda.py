@@ -19,6 +19,9 @@ port_dma = importlib.import_module("tpu_node_checker_torch.ops.dma_probe")
 port_flash = importlib.import_module("tpu_node_checker_torch.ops.flash_attention")
 port_matmul = importlib.import_module("tpu_node_checker_torch.ops.pallas_probe")
 port_liveness = importlib.import_module("tpu_node_checker_torch.probe.liveness")
+port_burnin = importlib.import_module("tpu_node_checker_torch.models.burnin")
+port_parallel = importlib.import_module("tpu_node_checker_torch.parallel")
+port_sweep = importlib.import_module("tpu_node_checker_torch.meshprobe.sweep")
 
 
 @pytest.fixture()
@@ -76,7 +79,7 @@ class TestKernelsOnCard:
         # P.V, and the output to bf16 once.
         assert float((out.float() - ref.float()).abs().max()) < tol
 
-    @pytest.mark.parametrize("shape", [(2, 3, 384, 64), (1, 16, 4096, 128)])
+    @pytest.mark.parametrize("shape", [(2, 3, 384, 64), (1, 16, 4096, 128), (8, 4, 128, 32)])
     def test_flash_forward_bf16_shapes(self, cuda_device, shape):
         g = torch.Generator(device=cuda_device).manual_seed(1)
         q, k, v = (torch.randn(shape, generator=g, device=cuda_device).to(torch.bfloat16)
@@ -131,3 +134,83 @@ def test_compute_probe_on_card(cuda_device):
     d = r.to_dict()
     assert d["pallas_ok"] and d["dma_ok"] and d["flash_attention_ok"]
     assert all(n > 0 for n in d["kernel_launches"].values()), d["kernel_launches"]
+
+
+@pytest.fixture()
+def nccl_group(cuda_device):
+    # One rank on this card: the group the probe child opens on a one-card host.
+    with port_parallel.RankGroup(1, "cuda", timeout_s=120) as group:
+        yield group
+
+
+@pytest.mark.cuda
+class TestOneRankNccl:
+    """The fabric probes over a world-size-1 NCCL group (run on the chip)."""
+
+    def test_collective_probe(self, nccl_group):
+        (r,) = nccl_group.run(port_parallel.collective_probe)
+        assert r.ok, r.error
+        assert r.n_devices == 1 and r.details["busbw_gbps"] is None
+
+    def test_collective_leg_injection_named(self, nccl_group):
+        (r,) = nccl_group.run(port_parallel.collective_probe, inject_fault_leg="reduce_scatter")
+        assert not r.ok
+        assert [r.details[k] for k in ("psum_ok", "all_gather_ok", "reduce_scatter_ok")] == [
+            True, True, False]
+
+    def test_ring_probe(self, nccl_group):
+        (r,) = nccl_group.run(port_parallel.ring_probe)
+        assert r.ok, r.error
+        assert r.details == {"hops": 1, "link_gbps": None}
+
+    def test_ring_link_injection_named(self, nccl_group):
+        (r,) = nccl_group.run(port_parallel.ring_probe, inject_fault_link=0)
+        assert not r.ok and r.details["bad_links"] == ["0->0"]
+
+    def test_sweep_has_no_links(self, nccl_group):
+        (r,) = nccl_group.run(port_sweep.mesh_link_sweep)
+        assert r.ok and r.n_links == 0 and r.links == {}
+
+    def test_ring_attention_probe(self, nccl_group):
+        (r,) = nccl_group.run(port_parallel.ring_attention_probe, seq_per_device=16)
+        assert r.ok, r.error
+
+
+@pytest.mark.cuda
+def test_full_width_step_flash_matches_plain_attention(cuda_device):
+    """One step at the full BurninConfig(), flash kernel against plain
+    attention from the same weights.  The two paths round to bf16 at
+    different points, so the loss is held to 1e-3 relative and each gradient
+    to 5e-2 in relative L2 norm (chip_smoke.py phase 5 holds the same)."""
+    import dataclasses
+
+    cfg = port_burnin.BurninConfig()
+    tokens = torch.randint(0, cfg.vocab, (cfg.batch, cfg.seq),
+                           generator=torch.Generator().manual_seed(1)).to(cuda_device)
+    out, state = {}, None
+    for att in ("xla", "flash"):
+        _, init_fn = port_burnin.make_train_step(
+            dataclasses.replace(cfg, attention=att), device=cuda_device)
+        model, _ = init_fn(seed=0, state=state)
+        state = state or model.state_dict()
+        before = port_flash.flash_forward.launches
+        loss = port_burnin._loss(model, tokens)
+        loss.backward()
+        out[att] = (float(loss.detach()), port_flash.flash_forward.launches - before,
+                    {n: p.grad.float() for n, p in model.named_parameters()})
+    (lx, nx, gx), (lf, nf, gf) = out["xla"], out["flash"]
+    assert (nx, nf) == (0, cfg.n_layers)
+    assert abs(lf - lx) / lx < 1e-3
+    for name, g in gx.items():
+        assert float((gf[name] - g).norm() / g.norm()) < 5e-2, name
+
+
+@pytest.mark.cuda
+def test_workload_probe_on_card(cuda_device):
+    import dataclasses
+
+    before = port_flash.flash_forward.launches
+    r = port_burnin.workload_probe(
+        dataclasses.replace(port_burnin.BurninConfig(), attention="flash"), device=cuda_device)
+    assert r.ok, r.error
+    assert port_flash.flash_forward.launches - before == 2 * 3  # n_layers x steps

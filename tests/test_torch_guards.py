@@ -1,7 +1,8 @@
 """Guards on the PyTorch/CUDA port's boundaries.
 
 * No module of ``tpu_node_checker_torch`` (its probe child script included)
-  and not ``chip_smoke.py`` imports ``jax`` or the JAX package: checked by an
+  and neither ``chip_smoke.py`` nor ``fabric_smoke.py`` imports ``jax`` or
+  the JAX package: checked by an
   AST scan and by a fresh interpreter that imports every port module.
 * Every port module imports on a box without CUDA, nvcc or triton.
 
@@ -36,7 +37,7 @@ def _imported_roots(tree: ast.AST) -> set:
 
 
 def _port_sources() -> list:
-    paths = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    paths = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py", REPO / "fabric_smoke.py"]
     assert len(paths) > 15, "found too few port sources: the scan itself broke"
     return paths
 

@@ -1,10 +1,13 @@
-"""The PyTorch/CUDA port's compute-level probe, held against the JAX probe.
+"""The PyTorch/CUDA port's probe child, held against the JAX probe child.
 
-The slice as a whole: the port's probe child at ``--probe-level compute``
-runs on the CPU (``device="cpu"``: every kernel wrapper takes its plain
-version there) beside the JAX child on the CPU mesh.  Both must be healthy,
-emit the same report keys, and satisfy the JAX package's report schema.  The
-port's copies of the JAX package's jax-free modules must stay equal to them.
+The slices as a whole: the port's probe child at ``--probe-level compute``
+and ``workload`` runs on the CPU (``device="cpu"``: every kernel wrapper
+takes its plain version there, the rank group is one gloo rank) beside the
+JAX child on the CPU (the 8-device mesh at compute level, one device at
+workload level, as a one-card host runs it).  Both must be healthy, emit the
+same report keys, and satisfy the JAX package's report schema.  The port's
+copies of the JAX package's jax-free modules must stay equal to them, and
+what is not ported yet must fail as such.
 
 torch and the port are reached through ``importlib.import_module``:
 tests/test_dependency_surface.py rejects any other ``import`` in tests/, and
@@ -23,9 +26,13 @@ import pytest
 from tpu_node_checker import generations as jax_generations
 from tpu_node_checker.probe import floors as jax_floors
 from tpu_node_checker.probe import levels as jax_levels
+from tpu_node_checker.probe import liveness as jax_liveness
 from tpu_node_checker.probe import schema as jax_schema
 
+torch = importlib.import_module("torch")
 port_liveness = importlib.import_module("tpu_node_checker_torch.probe.liveness")
+port_burnin = importlib.import_module("tpu_node_checker_torch.models.burnin")
+port_mesh = importlib.import_module("tpu_node_checker_torch.parallel.mesh")
 port_schema = importlib.import_module("tpu_node_checker_torch.probe.schema")
 port_floors = importlib.import_module("tpu_node_checker_torch.probe.floors")
 port_levels = importlib.import_module("tpu_node_checker_torch.probe.levels")
@@ -51,6 +58,57 @@ def port_compute_report():
         # slow link.
         mp.setenv("OMP_NUM_THREADS", "2")
         return port_liveness.run_local_probe(level="compute", timeout_s=300, device="cpu")
+
+
+@pytest.fixture(scope="module")
+def workload_reports():
+    """(port, JAX) workload-level children on the CPU, one device each."""
+    with pytest.MonkeyPatch.context() as mp:
+        for k in [k for k in os.environ if k.startswith("TNC_")]:
+            mp.delenv(k)
+        # One thread each, one child at a time: the suite runs files in
+        # parallel, and timing-graded tests elsewhere (the JAX mesh link
+        # sweep) read CPU contention as a slow link.
+        mp.setenv("OMP_NUM_THREADS", "1")
+        port = port_liveness.run_local_probe(level="workload", timeout_s=300, device="cpu")
+        mp.setenv("XLA_FLAGS", "--xla_force_host_platform_device_count=1 "
+                  "--xla_cpu_multi_thread_eigen=false")
+        ref = jax_liveness.run_local_probe(level="workload", timeout_s=300)
+    return port, ref
+
+
+class TestWorkloadSlice:
+    def test_both_healthy(self, workload_reports):
+        port, ref = workload_reports
+        assert ref.ok, ref.error
+        assert port.ok, port.error
+        d = port.to_dict()
+        for key in ("collective_ok", "ring_ok", "mesh_ok", "workload_ok", "ring_attention_ok"):
+            assert d[key] is True, key
+        losses = d["workload_losses"]
+        assert len(losses) == 3 and all(b < a for a, b in zip(losses, losses[1:]))
+        assert d["workload_devices"] == 1 and d["mesh_n_links"] == 0
+        assert d["collective_legs_ok"]["links"] == {}
+
+    def test_same_keys_as_jax_child(self, workload_reports):
+        port, ref = workload_reports
+        port_keys = set(port.to_dict()) - PORT_ONLY_KEYS - PLATFORM_KEYS
+        assert port_keys == set(ref.to_dict()) - PLATFORM_KEYS
+        assert set(port.details["collective_legs_ok"]) == set(ref.details["collective_legs_ok"])
+
+    def test_report_passes_jax_schema(self, workload_reports):
+        doc = {**workload_reports[0].to_dict(), "schema": 1, "written_at": 0.0}
+        assert jax_schema.validate_report(doc) == []
+        assert port_schema.validate_report(doc) == []
+
+    def test_one_rank_fabric_reads_as_jax(self, workload_reports):
+        # One device: no bus or link bandwidth to measure (None, never 0.0).
+        port, ref = (r.to_dict() for r in workload_reports)
+        for key in ("collective_busbw_gbps", "ring_link_gbps"):
+            assert port[key] is None and ref[key] is None, key
+        assert port["kernel_launches"] == {
+            "tiled_matmul": 0, "dma_stream": 0, "flash_attention": 0,
+        }
 
 
 class TestComputeSlice:
@@ -127,12 +185,34 @@ class TestProbeFailures:
         assert not r.ok
         assert "CUDA" in r.error
 
-    @pytest.mark.parametrize("level", ["collective", "mesh", "workload"])
-    def test_levels_above_compute_not_yet_ported(self, level):
+    @pytest.mark.parametrize("level,env,needle", [
+        ("collective", {"TNC_TOPOLOGY": "2x4"}, "multi-dim TNC_TOPOLOGY"),
+        ("mesh", {"TNC_TOPOLOGY": "1x1"}, "multi-dim TNC_TOPOLOGY"),
+        ("collective", {"TNC_CHAOS_SLICES": "2"}, "TNC_CHAOS_SLICES"),
+        ("workload", {"TNC_CHAOS_AXIS": "t0"}, "TNC_CHAOS_AXIS"),
+    ], ids=["topology-2x4", "topology-1x1", "chaos-slices", "chaos-axis"])
+    def test_still_not_ported_child(self, monkeypatch, level, env, needle):
+        for k, v in env.items():
+            monkeypatch.setenv(k, v)
         r = port_liveness.run_local_probe(level=level, device="cpu")
         assert not r.ok
-        assert "not yet ported" in r.error and level in r.error
-        assert "matmul_ok" not in r.details  # never ran silently at compute level
+        assert "not yet ported" in r.error and needle in r.error
+        assert "matmul_ok" not in r.details  # failed before any work, never silently lower
+
+    def test_multi_card_workload_not_yet_ported(self):
+        # The rule the child applies on a host with more than one card.
+        msg = port_liveness.not_yet_ported("workload", 4, {})
+        assert "not yet ported" in msg and "4 cards" in msg
+        assert port_liveness.not_yet_ported("mesh", 4, {}) is None
+        assert port_liveness.not_yet_ported("workload", 1, {}) is None
+        # Below the fabric levels a topology label changes nothing, as in JAX.
+        assert port_liveness.not_yet_ported("compute", 4, {"TNC_TOPOLOGY": "2x4"}) is None
+
+    def test_sharded_workload_not_yet_ported(self):
+        r = port_burnin.workload_probe(mesh=port_mesh.MeshSpec((("data", 2), ("model", 2))),
+                                       steps=1, device="cpu")
+        assert not r.ok
+        assert "not yet ported" in r.error and "sharded" in r.error
 
     def test_distributed_not_yet_ported(self, monkeypatch):
         monkeypatch.setenv("TNC_PROBE_DISTRIBUTED", "1")
@@ -151,6 +231,17 @@ class TestProbeFailures:
         assert "TNC_CHAOS_RING_LINK" in r.error
         assert r.details["chaos_injected"] == {"ring_link": "0"}
 
+    def test_chaos_ring_link_named_and_stamped_as_set(self, monkeypatch):
+        monkeypatch.setenv("TNC_CHAOS_RING_LINK", "0")
+        r = port_liveness.run_local_probe(level="collective", device="cpu")
+        assert not r.ok and r.details["ring_ok"] is False
+        assert r.details["ring_bad_links"] == ["0->0"]  # one rank: its link to itself
+        # Stamped as the variable was set; the report stays schema-valid.
+        assert r.details["chaos_injected"] == {"ring_link": "0"}
+        doc = {**r.to_dict(), "schema": 1, "written_at": 0.0}
+        assert port_schema.validate_report(doc) == []
+        assert jax_schema.validate_report(doc) == []
+
     def test_partial_enumeration_fails(self):
         r = port_liveness.run_local_probe(level="enumerate", device="cpu", expected_devices=2)
         assert not r.ok
@@ -159,6 +250,22 @@ class TestProbeFailures:
     def test_kill_timer(self):
         r = port_liveness.run_local_probe(level="enumerate", device="cpu", timeout_s=0.001)
         assert not r.ok and "timed out" in r.error
+
+
+class TestRankGroupLifecycle:
+    """The rank group the fabric levels run on, where a rank dies.  Here and
+    not in tests/test_torch_collectives.py, whose module-wide group holds
+    this process's default process group."""
+
+    def test_a_dead_rank_is_reported_not_waited_for(self):
+        with port_mesh.RankGroup(2, "cpu", timeout_s=60) as group:
+            (spawned,) = group._procs
+            spawned.kill()
+            spawned.join(timeout=10)
+            results = group.run(torch.distributed.get_rank)
+        assert results[0] == 0
+        assert isinstance(results[1], port_mesh.RankFailure)
+        assert results[1].error == f"rank 1 exited with code {spawned.exitcode}"
 
 
 class TestEmitCli:

@@ -3,7 +3,8 @@
 ::
 
     python -m tpu_node_checker_torch --emit-probe FILE|- \
-        [--probe-level {enumerate,compute}] [--probe-timeout S] [--device cpu]
+        [--probe-level {enumerate,compute,collective,mesh,workload}]
+        [--probe-timeout S] [--device cpu]
 
 Exit codes: 0 when the report is healthy, 3 when it is not, 1 on an error
 that left no report, 2 on a usage error.
@@ -28,8 +29,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--emit-probe", metavar="FILE", required=True,
                    help="write the probe report to FILE atomically ('-' for stdout)")
     p.add_argument("--probe-level", choices=LEVELS, default="enumerate",
-                   help="enumerate or compute; the higher levels are not ported yet "
-                   "and report as such")
+                   help="enumerate, compute, collective, mesh or workload (each "
+                   "includes the previous); collective and up run one rank per card")
     p.add_argument("--probe-timeout", type=float, default=None, metavar="S",
                    help="kill the probe child after S seconds (default: the level's budget)")
     p.add_argument("--device", default="cuda:0",

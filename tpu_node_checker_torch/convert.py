@@ -1,8 +1,8 @@
 """Carry the JAX package's probe inputs across to this package's tensors.
 
-The system has no weights: the state that crosses between the two packages
-is probe inputs and outputs, as numpy arrays (``np.asarray`` of a JAX array).
-Two numpy dtypes need care:
+The state that crosses between the two packages is probe inputs and
+outputs, and the burn-in model's parameters, as numpy arrays (``np.asarray``
+of a JAX array).  Two numpy dtypes need care:
 
 * bfloat16 arrives as ``ml_dtypes.bfloat16``, which ``torch.from_numpy``
   refuses: its bits are viewed as uint16, then int16, then reinterpreted as
@@ -34,3 +34,15 @@ def to_torch(array, device: DeviceLike = "cpu") -> torch.Tensor:
         t = torch.from_numpy(np.array(a, copy=True))
     return t.to(device)
 
+
+def burnin_state(params: dict) -> dict:
+    """The burn-in model's state dict, on the CPU, from the JAX package's
+    parameter pytree (``models.burnin.init_params``: nested dicts of arrays,
+    the layers stacked on a leading axis), keys joined with ``.``."""
+    state = {}
+    for key, value in params.items():
+        if isinstance(value, dict):
+            state.update({f"{key}.{k}": v for k, v in burnin_state(value).items()})
+        else:
+            state[key] = to_torch(value)
+    return state

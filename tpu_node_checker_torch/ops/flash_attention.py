@@ -107,11 +107,15 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad_out):
         # Differentiate the plain version on the saved activations: forward =
-        # kernel, backward = autograd of the same function.
+        # kernel, backward = autograd of the same function.  The gradient of
+        # sum(out * grad_out) is the vector-Jacobian product with grad_out;
+        # handing grad_out to autograd.grad instead would have torch check
+        # its shape through sympy, whose first import costs a fresh process
+        # seconds on the card's machine (PERF.md).
         q, k, v = (t.detach().requires_grad_(True) for t in ctx.saved_tensors)
         with torch.enable_grad():
             out = causal_attention_reference(q, k, v)
-        return torch.autograd.grad(out, (q, k, v), grad_out)
+            return torch.autograd.grad((out * grad_out).sum(), (q, k, v))
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:

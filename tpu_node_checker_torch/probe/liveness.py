@@ -15,12 +15,24 @@ Probe levels (each includes the previous):
   bandwidth sample + data-integrity pattern memtest, and the three kernels
   written by hand for Hopper (tiled matmul, bulk-copy stream, flash
   attention), each held against its plain version, on one card
-  (:mod:`tpu_node_checker_torch.ops`).
+  (:mod:`tpu_node_checker_torch.ops`);
+* ``collective``: all_reduce, all_gather and reduce-scatter and a ring walk
+  over one rank per local card (:mod:`tpu_node_checker_torch.parallel`;
+  NCCL on the cards, gloo on the CPU);
+* ``mesh``: the link doctor (:mod:`tpu_node_checker_torch.meshprobe`), every
+  link leg of the rank ring timed on its own with an ``OK | SLOW | DEAD``
+  verdict; SLOW legs degrade the node (``mesh_degraded``) without failing
+  it;
+* ``workload``: a training step on one card with the flash-attention kernel
+  in its forward pass (:mod:`tpu_node_checker_torch.models`), plus ring
+  attention over the ranks.
 
-The JAX package's ``collective``, ``mesh`` and ``workload`` levels, and
-distributed probing (``TNC_PROBE_DISTRIBUTED=1``), are not ported yet: asked
-for, they fail with a structured "not yet ported" error and never run
-silently at a lower level.
+Still not ported, and failing with a structured "not yet ported" error
+rather than running silently at a lower level (:func:`not_yet_ported`): a
+multi-dim ``TNC_TOPOLOGY`` label, ``TNC_CHAOS_AXIS`` and
+``TNC_CHAOS_SLICES`` (the per-axis and multislice probes), the workload
+level on a host with more than one card (the sharded step, pipeline and
+expert parallelism), and distributed probing (``TNC_PROBE_DISTRIBUTED=1``).
 """
 
 from __future__ import annotations
@@ -31,7 +43,7 @@ import subprocess
 import sys
 import time
 from dataclasses import dataclass, field
-from typing import List, Optional
+from typing import List, Mapping, Optional
 
 from tpu_node_checker_torch.probe.levels import (  # noqa: F401 — re-exported API
     DEFAULT_TIMEOUT_S,
@@ -46,8 +58,8 @@ import json, os, sys, time
 level = sys.argv[1]
 device = sys.argv[2]
 out = {"ok": False, "level": level}
-# The levels this package runs; the others are the JAX package's alone so far.
-PORTED_LEVELS = ("enumerate", "compute")
+# The levels this package runs.
+PORTED_LEVELS = ("enumerate", "compute", "collective", "mesh", "workload")
 
 
 def _append_error(msg):
@@ -59,6 +71,7 @@ def _append_error(msg):
 
 t0 = time.perf_counter()
 hbm_capacity_error = None
+group = None
 try:
     if os.environ.get("TNC_PROBE_DISTRIBUTED") == "1":
         raise NotImplementedError(
@@ -141,7 +154,9 @@ try:
         if os.environ.get(var):
             chaos[key] = os.environ[var]
     if chaos:
-        out["chaos_injected"] = chaos
+        # A copy: the ring link is parsed to an int below, and the report
+        # keeps the variable as it was set (a string, per the schema).
+        out["chaos_injected"] = dict(chaos)
         bad = sorted(_CHAOS_VARS[k][0] for k in chaos if level not in _CHAOS_VARS[k][1])
         if bad:
             raise ValueError(
@@ -151,7 +166,11 @@ try:
                 "needs compute+) — the injection would silently test "
                 "nothing; raise the level or unset the chaos vars"
             )
-    if level == "compute" and out["ok"]:
+    from tpu_node_checker_torch.probe.liveness import not_yet_ported
+    _unported = not_yet_ported(level, n_dev, os.environ)
+    if _unported:
+        raise NotImplementedError(_unported)
+    if level in ("compute", "collective", "mesh", "workload") and out["ok"]:
         from tpu_node_checker_torch import ops
         if on_card:
             # Build the three kernels at once, one nvcc each, before timing.
@@ -210,9 +229,6 @@ try:
         if not mt.ok:
             out["memtest_err"] = mt.error
             out["memtest_mismatches"] = mt.mismatches
-        # Which hand-written kernels ran (all 0 on the CPU, where the plain
-        # versions stand in for them).
-        out["kernel_launches"] = ops.launch_counts()
         out["ok"] = (
             out["ok"] and burn.ok and hbm.ok and pallas.ok and i8_gate
             and fa_gate and dma.ok and mt.ok
@@ -227,7 +243,68 @@ try:
             )
             out["soak"] = soak.to_dict()
             out["ok"] = out["ok"] and soak.ok
-    if level == "compute":
+    if level in ("collective", "mesh", "workload") and out["ok"]:
+        from tpu_node_checker_torch.parallel import RankGroup, collective_probe, fold, ring_probe
+        from tpu_node_checker_torch.probe.levels import LEVEL_TIMEOUTS_S
+        if "ring_link" in chaos:
+            try:
+                chaos["ring_link"] = int(chaos["ring_link"])
+            except ValueError:
+                raise ValueError(
+                    f"TNC_CHAOS_RING_LINK {chaos['ring_link']!r} is not an "
+                    "integer link index"
+                )
+        # One rank per card, rank 0 this process; the ranks serve the mesh
+        # and workload blocks too.  Half the level's budget bounds every
+        # collective, so a hung one fails inside the kill-timer.
+        group = RankGroup(n_dev if on_card else 1, dev.type, timeout_s=LEVEL_TIMEOUTS_S[level] / 2)
+        group.start()
+        coll = fold(group.run(collective_probe, inject_fault_leg=chaos.get("collective_leg")))
+        out["collective_ok"] = coll.ok
+        out["collective_latency_us"] = round(coll.latency_us, 1)
+        out["collective_busbw_gbps"] = (coll.details or {}).get("busbw_gbps")
+        # Per-leg verdicts and timings: on any failure, and always at mesh
+        # level and above, where the links sub-block rides in it.
+        _legs_block = {
+            k: (coll.details or {}).get(k)
+            for k in ("psum_ok", "all_gather_ok", "reduce_scatter_ok")
+        }
+        for _lk, _lv in ((coll.details or {}).get("leg_latency_us") or {}).items():
+            _legs_block[f"{_lk}_latency_us"] = _lv
+        if not coll.ok or level in ("mesh", "workload"):
+            out["collective_legs_ok"] = _legs_block
+        if not coll.ok:
+            out["collective_err"] = coll.error
+        ring = fold(group.run(ring_probe, inject_fault_link=chaos.get("ring_link")))
+        out["ring_ok"] = ring.ok
+        out["ring_link_gbps"] = (ring.details or {}).get("link_gbps")
+        if not ring.ok:
+            out["ring_bad_links"] = (ring.details or {}).get("bad_links") or []
+            out["ring_err"] = ring.error
+        out["ok"] = out["ok"] and coll.ok and ring.ok
+    if level in ("mesh", "workload") and out["ok"]:
+        # The link doctor: a DEAD leg fails the probe; a SLOW one degrades
+        # it, ok stays True and mesh_degraded carries the evidence.
+        from tpu_node_checker_torch.meshprobe import mesh_link_sweep
+        sweep = fold(group.run(
+            mesh_link_sweep,
+            topology=os.environ.get("TNC_TOPOLOGY"),
+            inject_slow_link=chaos.get("slow_link"),
+        ))
+        out["mesh_ok"] = sweep.ok
+        out["mesh_degraded"] = sweep.degraded
+        out["mesh_n_links"] = sweep.n_links
+        out["mesh_latency_us"] = round(sweep.latency_us, 1)
+        if sweep.slow:
+            out["mesh_slow_links"] = sweep.slow
+        if sweep.dead:
+            out["mesh_dead_links"] = sweep.dead
+        out.setdefault("collective_legs_ok", {})["links"] = sweep.links
+        if sweep.error:
+            out["mesh_err"] = sweep.error
+        if not sweep.ok:
+            _append_error(sweep.error or "mesh link sweep failed")
+    if level in ("compute", "collective", "mesh", "workload"):
         # Performance floors: grade the measured figures against what this
         # device kind should deliver.  Runs whatever the flat verdict; a
         # skipped grading is stamped, never silent.
@@ -272,6 +349,27 @@ try:
             out["perf_floor"] = verdict
             if not verdict.get("ok", True):
                 _append_error(floor_failure_message(verdict))
+    if level == "workload" and out["ok"]:
+        import dataclasses as _dc
+        from tpu_node_checker_torch.models import BurninConfig, workload_probe
+        from tpu_node_checker_torch.ops.flash_attention import BLOCK as _FA_BLOCK
+        from tpu_node_checker_torch.parallel import ring_attention_probe
+        # One card (more fail above as not yet ported): the flash-attention
+        # kernel runs inside the training step, forward and backward.
+        cfg = BurninConfig()
+        if cfg.seq % _FA_BLOCK == 0 and os.environ.get("TNC_SKIP_FLASH_ATTENTION") != "1":
+            cfg = _dc.replace(cfg, attention="flash")
+        wl = workload_probe(cfg, device=dev)
+        out["workload_ok"] = wl.ok
+        out["workload_devices"] = 1
+        out["workload_losses"] = [round(l, 4) for l in wl.losses]
+        out["workload_step_ms"] = round(wl.step_time_ms, 1)
+        if not wl.ok:
+            _append_error(f"workload: {wl.error}")
+        ra = fold(group.run(ring_attention_probe, seq_per_device=16))
+        out["ring_attention_ok"] = ra.ok
+        if not ra.ok:
+            _append_error(ra.error)
     if hbm_capacity_error:
         _append_error(hbm_capacity_error)
 except Exception as exc:  # the whole point is to catch anything
@@ -279,6 +377,13 @@ except Exception as exc:  # the whole point is to catch anything
     # is a failed probe.
     out["ok"] = False
     out["error"] = f"{type(exc).__name__}: {exc}"
+finally:
+    if group is not None:
+        group.close()
+if level != "enumerate" and "tpu_node_checker_torch.ops" in sys.modules:
+    # Which hand-written kernels ran, the training step's included (all 0 on
+    # the CPU, where the plain versions stand in for them).
+    out["kernel_launches"] = sys.modules["tpu_node_checker_torch.ops"].launch_counts()
 out["elapsed_ms"] = round((time.perf_counter() - t0) * 1e3, 1)
 print(json.dumps(out, default=lambda o: o.item() if hasattr(o, "item") else str(o)))
 """
@@ -328,9 +433,8 @@ def run_local_probe(
     ``expected_devices`` (e.g. a node's ``nvidia.com/gpu`` allocatable count)
     turns a *partial* enumeration into a failure.  ``timeout_s=None`` picks
     the per-level budget from :data:`LEVEL_TIMEOUTS_S`.  The child reads the
-    JAX child's ``TNC_*`` settings (floors, chaos, skips, soak) from the
-    environment.  The levels above ``compute`` and ``TNC_PROBE_DISTRIBUTED=1``
-    are not ported yet and fail as such.
+    JAX child's ``TNC_*`` settings (floors, chaos, skips, soak, topology)
+    from the environment.  What :func:`not_yet_ported` names fails as such.
     """
     if level not in LEVELS:
         raise ValueError(f"unknown probe level {level!r}; expected one of {LEVELS}")
@@ -388,6 +492,36 @@ def run_local_probe(
             f"only {result.device_count}/{expected_devices} expected devices enumerated"
         )
     return result
+
+
+def not_yet_ported(level: str, n_devices: int, env: Mapping[str, str]) -> Optional[str]:
+    """Why this probe cannot run ``level`` here, or None when it can.
+
+    The JAX child's per-axis and multislice probes (a multi-dim
+    ``TNC_TOPOLOGY`` label, ``TNC_CHAOS_AXIS``, ``TNC_CHAOS_SLICES``) and its
+    workload level on more than one device (the sharded step, pipeline and
+    expert parallelism) are not ported yet; asked for, they fail with this
+    message instead of running silently at a lower level."""
+    if level not in ("collective", "mesh", "workload"):
+        return None
+    unported = []
+    topo = env.get("TNC_TOPOLOGY")
+    if topo and "x" in topo:
+        unported.append(f"the per-axis probes of a multi-dim TNC_TOPOLOGY ({topo!r})")
+    for var in ("TNC_CHAOS_AXIS", "TNC_CHAOS_SLICES"):
+        if env.get(var):
+            unported.append(f"{var} (the per-axis and multislice probes)")
+    if level == "workload" and n_devices > 1:
+        unported.append(
+            f"the workload level on {n_devices} cards (the sharded training "
+            "step, pipeline and expert parallelism)"
+        )
+    if not unported:
+        return None
+    return (
+        f"not yet ported to the PyTorch/CUDA probe: {'; '.join(unported)}; "
+        "use the JAX package's probe"
+    )
 
 
 def _pythonpath() -> str:
