@@ -35,7 +35,16 @@ Phases, one line each (any failure exits non-zero and prints no result):
    fabric and workload verdict true, a strictly falling loss, and the flash
    kernel launched ``n_layers × steps`` more times than at the compute
    level;
-6. the ``kernels`` line (each kernel at the compute probe's shapes, its
+6. multi-axis paths on one card: TF32 off for f32 products by default (the
+   flags, and a 1024^2 f32 product against f64, both read at the script's
+   start before it sets anything); ``TNC_TOPOLOGY=1x1 --probe-level
+   workload`` through the entry point, healthy with ``ici_axis_ok`` true on
+   both torus axes and every kernel launched; ``TNC_TOPOLOGY=1x1
+   TNC_CHAOS_AXIS=t1 --probe-level collective``, which must exit 3 naming
+   t1 alone; then in a one-rank NCCL group the sharded step at data 1 ×
+   model 1 against the one-card step from the same weights, the pipeline
+   and MoE probes and their stage-0 and expert-0 drills, each timed;
+7. the ``kernels`` line (each kernel at the compute probe's shapes, its
    launches counted on the workload path, flash also at the training
    step's shape), then the ``nvidia-smi`` line, then the result line.
 
@@ -243,6 +252,126 @@ def rel_l2(a, b) -> float:
     return float((a - b).norm() / b.norm().clamp_min(1e-30))
 
 
+def entry_point(root: str, level: str, timeout: int = 900, **env) -> tuple:
+    """``--emit-probe - --probe-level level`` under ``env`` (schema strict):
+    (exit code, report, seconds).  Fails when no report comes back."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "tpu_node_checker_torch", "--emit-probe", "-",
+         "--probe-level", level],
+        capture_output=True, text=True, cwd=root, timeout=timeout,
+        env={**os.environ, **env, "TNC_SCHEMA_STRICT": "1"},
+    )
+    seconds = time.perf_counter() - t0
+    try:
+        return proc.returncode, json.loads(proc.stdout), seconds
+    except json.JSONDecodeError:
+        fail(f"{level} {env} printed no report (exit {proc.returncode}): {proc.stderr[-2000:]}")
+
+
+def phase6_paths(torch, root, dev, cfg, rows, tf32_default, validate_report) -> None:
+    """Phase 6: a two-axis topology label, its per-axis drill, and the
+    workload level's multi-card blocks in a one-rank NCCL group."""
+    from tpu_node_checker_torch.models.burnin import train_steps
+    from tpu_node_checker_torch.parallel import (
+        MeshSpec, RankGroup, fold, moe_probe, pipeline_probe,
+    )
+
+    # TF32 off for f32 products by default, as the probe child runs them:
+    # the flags and the product error main() read before it set anything.
+    tf32_off = (not tf32_default["cuda.matmul.allow_tf32"]
+                and tf32_default["float32_matmul_precision"] == "highest"
+                and tf32_default["f32_product_rel_err"] < 1e-5)
+    phase(6, "tf32", off=tf32_off, default=tf32_default)
+    if not tf32_off:
+        fail(f"TF32 is on for f32 products by default: {tf32_default}")
+
+    # A 1x1 label on one card: both torus axes, one all_reduce each, through
+    # the entry point at the workload level; the counts start at 0 in the
+    # fresh child and are read from its report.
+    rc, rep, seconds = entry_point(root, "workload", TNC_TOPOLOGY="1x1")
+    launches = rep.get("kernel_launches") or {}
+    fields = {k: rep.get(k) for k in (
+        "ok", "error", "ici_axis_ok", "ici_topology", "ici_axis_busbw_gbps", "collective_ok",
+        "ring_ok", "mesh_ok", "mesh_n_links", "workload_ok", "workload_devices",
+        "workload_losses", "ring_attention_ok", "pipeline_ok", "moe_ok")}
+    violations = validate_report(rep)
+    phase(6, "workload path, TNC_TOPOLOGY=1x1", exit_code=rc, seconds=round(seconds, 2),
+          **fields, kernel_launches=launches, schema_violations=violations)
+    if rc != 0 or not rep.get("ok") or violations:
+        fail(f"the 1x1 workload level is not healthy: {rep.get('error')} {violations}")
+    if rep.get("ici_axis_ok") != {"t0": True, "t1": True} or rep.get("ici_topology") != "1x1":
+        fail(f"the 1x1 per-axis block read {rep.get('ici_axis_ok')} on {rep.get('ici_topology')}")
+    missed = [r["name"] for r in rows if not launches.get(r["name"])]
+    if missed:
+        fail(f"the 1x1 workload path never launched: {missed}")
+
+    rc, rep, seconds = entry_point(root, "collective", TNC_TOPOLOGY="1x1", TNC_CHAOS_AXIS="t1")
+    violations = validate_report(rep)
+    phase(6, "drill TNC_CHAOS_AXIS=t1 on 1x1", exit_code=rc, seconds=round(seconds, 2),
+          ok=rep.get("ok"), error=rep.get("error"), ici_axis_ok=rep.get("ici_axis_ok"),
+          chaos_injected=rep.get("chaos_injected"), schema_violations=violations)
+    if (rc != 3 or violations or rep.get("ici_axis_ok") != {"t0": True, "t1": False}
+            or "fault localized to mesh axis t1=1" not in (rep.get("error") or "")):
+        fail(f"the t1 drill was not caught and named t1 alone: {rep.get('error')}")
+
+    # The sharded step at data 1 x model 1 against the one-card step from
+    # the same weights and tokens (plain attention on both), then the
+    # pipeline and MoE probes with their first stage's and expert's drills.
+    from tpu_node_checker_torch.models.burnin import Burnin
+    state = {n: t.detach().clone() for n, t in
+             Burnin(cfg, torch.Generator().manual_seed(0)).state_dict().items()}
+    tokens = torch.randint(0, cfg.vocab, (cfg.batch, cfg.seq),
+                           generator=torch.Generator().manual_seed(1))
+    seconds, results = {}, {}
+    t0 = time.perf_counter()
+    one_losses, _, one_grads = train_steps(cfg, None, 2, state=state, tokens=tokens,
+                                           device=dev, keep_grads=True)
+    seconds["one_card_step_x2"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with RankGroup(1, "cuda", timeout_s=120) as group:
+        seconds["rank_group_start"] = time.perf_counter() - t0
+        for name, fn, args, kw in (
+            ("sharded_step_x2", train_steps, (cfg, MeshSpec((("data", 1), ("model", 1))), 2),
+             {"state": state, "tokens": tokens, "keep_grads": True}),
+            ("pipeline", pipeline_probe, (), {}),
+            ("pipeline_stage0_drill", pipeline_probe, (), {"inject_fault_stage": 0}),
+            ("moe", moe_probe, (), {}),
+            ("moe_expert0_drill", moe_probe, (), {"inject_fault_expert": 0}),
+        ):
+            t1 = time.perf_counter()
+            (results[name],) = group.run(fn, *args, **kw)
+            seconds[name] = time.perf_counter() - t1
+        t1 = time.perf_counter()
+    seconds["rank_group_close"] = time.perf_counter() - t1
+    sharded = results.pop("sharded_step_x2")
+    if not isinstance(sharded, tuple):
+        fail(f"the sharded step failed: {sharded}")
+    loss_rel = max(abs(a_ - b_) / abs(b_) for a_, b_ in zip(sharded[0], one_losses))
+    grad_rel = max(rel_l2(g, one_grads[n]) for n, g in sharded[2].items())
+    pp, pp0, ep, ep0 = (results[k] for k in (
+        "pipeline", "pipeline_stage0_drill", "moe", "moe_expert0_drill"))
+    checks = {
+        "sharded_step": loss_rel < 1e-3 and grad_rel < 5e-2,
+        "pipeline": pp.ok and pp.max_abs_err < 1e-3,
+        "pipeline_stage0_drill": not pp0.ok and (pp0.details or {}).get("first_bad_stage") == 0,
+        "moe": ep.ok and ep.max_abs_err < 1e-3,
+        "moe_expert0_drill": not ep0.ok and (ep0.details or {}).get("bad_experts") == [0],
+    }
+    phase(6, "one-rank NCCL group: sharded step, pipeline, MoE", ok=checks,
+          sharded_losses=sharded[0], one_card_losses=one_losses,
+          check=(f"max |loss_sharded - loss_one_card|/loss_one_card = {loss_rel:.3e} < 1e-3; "
+                 f"max over parameters of ||g_sharded - g_one_card||/||g_one_card|| = "
+                 f"{grad_rel:.3e} < 5e-2"),
+          pipeline_max_abs_err=pp.max_abs_err, pipeline_latency_ms=pp.latency_ms,
+          pipeline_drill_error=pp0.error, moe_max_abs_err=ep.max_abs_err,
+          moe_latency_ms=ep.latency_ms, moe_drill_error=ep0.error,
+          seconds={k: round(v, 4) for k, v in seconds.items()})
+    bad = [k for k, ok_ in checks.items() if not ok_]
+    if bad:
+        fail(f"one-rank NCCL group checks failed: {bad}")
+
+
 def main() -> int:
     try:
         import torch
@@ -265,10 +394,21 @@ def main() -> int:
         fail(f"imported {ops.__file__}, not the package beside this script in {root}")
     import torch.nn.functional as F
 
-    # The plain f32 products must run in full f32, not TF32.
+    # The probes' f32 products (the pipeline's and the MoE layer's, the
+    # plain versions) need full f32; TF32 is off unless a caller turns it on,
+    # and the default is what the probe child runs with (held in phase 6).
+    # Read here, before this script sets anything: the flags, and a 1024^2
+    # f32 product against f64 (TF32 keeps 10 mantissa bits, about 1e-3).
+    dev = torch.device("cuda:0")
+    a, b = (torch.randn((1024, 1024), device=dev) for _ in range(2))
+    exact = a.double() @ b.double()
+    tf32_default = {"cuda.matmul.allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+                    "float32_matmul_precision": torch.get_float32_matmul_precision(),
+                    "f32_product_rel_err": float(((a @ b).double() - exact).abs().max()
+                                                 / exact.abs().max())}
+    del a, b, exact
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    dev = torch.device("cuda:0")
 
     # -- 1. environment
     smi = subprocess.run(
@@ -723,7 +863,12 @@ def main() -> int:
     # The flash kernel's second shape on the main path: the training step's.
     next(r for r in rows if r["name"] == "flash_attention")["training_step"] = kernel_d32
 
-    # -- 6. the kernels line, the card line, the result line
+    # -- 6. the multi-axis paths, on one card: the per-axis block through the
+    # entry point, then the sharded step, pipeline and MoE in a one-rank
+    # NCCL group (NCCL takes a send to and a receive from its own rank).
+    phase6_paths(torch, root, dev, cfg, rows, tf32_default, validate_report)
+
+    # -- 7. the kernels line, the card line, the result line
     keys = ("name", "route", "source", "replaces", "launches", "compute_launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "device_ms",
             "library_device_ms", "ok", "check", "training_step")

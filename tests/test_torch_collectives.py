@@ -226,8 +226,12 @@ class TestMeshLinkSweep:
         assert port.dead == ref.dead == ["t0/5"]
 
     def test_multi_dim_topology_not_yet_ported(self, group):
-        port = _on_ranks(group, port_sweep.mesh_link_sweep, topology="2x4", payload=16)
-        assert not port.ok and "not yet ported" in port.error
+        # Ported: every leg of both axes, named as JAX names them.
+        port = _on_ranks(group, port_sweep.mesh_link_sweep, topology="2x4", payload=16,
+                         hop_iters=1)
+        assert port.ok and port.dead == [], port.error
+        assert list(port.links) == jax_sweep.link_names("2x4", N)
+        assert port.n_links == jax_sweep.expected_link_count("2x4", N) == 6
 
 
 class TestSweepHelpersEqualJax:

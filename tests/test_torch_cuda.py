@@ -175,6 +175,31 @@ class TestOneRankNccl:
         (r,) = nccl_group.run(port_parallel.ring_attention_probe, seq_per_device=16)
         assert r.ok, r.error
 
+    def test_per_axis_probe_on_1x1_and_its_drill(self, nccl_group):
+        (r,) = nccl_group.run(port_parallel.per_axis_probe, topology="1x1")
+        assert r.ok and r.details == {"topology": "1x1", "axis_ok": {"t0": True, "t1": True}}
+        (r,) = nccl_group.run(port_parallel.per_axis_probe, topology="1x1", inject_fault_axis="t1")
+        assert not r.ok and r.error == "fault localized to mesh axis t1=1"
+
+    def test_pipeline_probe_and_stage_drill(self, nccl_group):
+        (r,) = nccl_group.run(port_parallel.pipeline_probe)
+        assert r.ok and r.n_stages == 1 and r.max_abs_err < 1e-5, r.error
+        (r,) = nccl_group.run(port_parallel.pipeline_probe, inject_fault_stage=0)
+        assert not r.ok and r.details["first_bad_stage"] == 0
+
+    def test_moe_probe_and_expert_drill(self, nccl_group):
+        (r,) = nccl_group.run(port_parallel.moe_probe)
+        assert r.ok and r.n_experts == 1 and r.max_abs_err < 1e-5, r.error
+        (r,) = nccl_group.run(port_parallel.moe_probe, inject_fault_expert=0)
+        assert not r.ok and r.details["bad_experts"] == [0]
+
+    def test_sharded_step_at_one_by_one_is_the_one_card_step(self, nccl_group, cuda_device):
+        cfg = port_burnin.BurninConfig(vocab=64, d_model=32, n_heads=2, d_ff=64, seq=16)
+        spec = port_parallel.MeshSpec((("data", 1), ("model", 1)))
+        (sharded,) = nccl_group.run(port_burnin.train_steps, cfg, spec, 2)
+        one = port_burnin.train_steps(cfg, None, 2, device=cuda_device)
+        assert sharded[0] == pytest.approx(one[0], rel=1e-6)
+
 
 @pytest.mark.cuda
 def test_full_width_step_flash_matches_plain_attention(cuda_device):

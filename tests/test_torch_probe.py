@@ -6,8 +6,9 @@ takes its plain version there, the rank group is one gloo rank) beside the
 JAX child on the CPU (the 8-device mesh at compute level, one device at
 workload level, as a one-card host runs it).  Both must be healthy, emit the
 same report keys, and satisfy the JAX package's report schema.  The port's
-copies of the JAX package's jax-free modules must stay equal to them, and
-what is not ported yet must fail as such.
+copies of the JAX package's jax-free modules must stay equal to them; the
+per-axis and multislice blocks must read as the JAX package's on one device,
+and what is not ported yet (distributed probing) must fail as such.
 
 torch and the port are reached through ``importlib.import_module``:
 tests/test_dependency_surface.py rejects any other ``import`` in tests/, and
@@ -21,9 +22,12 @@ import subprocess
 import sys
 from pathlib import Path
 
+import jax
 import pytest
 
 from tpu_node_checker import generations as jax_generations
+from tpu_node_checker.parallel import collectives as jax_collectives
+from tpu_node_checker.parallel import mesh as jax_mesh
 from tpu_node_checker.probe import floors as jax_floors
 from tpu_node_checker.probe import levels as jax_levels
 from tpu_node_checker.probe import liveness as jax_liveness
@@ -185,34 +189,75 @@ class TestProbeFailures:
         assert not r.ok
         assert "CUDA" in r.error
 
-    @pytest.mark.parametrize("level,env,needle", [
-        ("collective", {"TNC_TOPOLOGY": "2x4"}, "multi-dim TNC_TOPOLOGY"),
-        ("mesh", {"TNC_TOPOLOGY": "1x1"}, "multi-dim TNC_TOPOLOGY"),
-        ("collective", {"TNC_CHAOS_SLICES": "2"}, "TNC_CHAOS_SLICES"),
-        ("workload", {"TNC_CHAOS_AXIS": "t0"}, "TNC_CHAOS_AXIS"),
+    @pytest.mark.parametrize("level,env", [
+        ("collective", {"TNC_TOPOLOGY": "2x4"}),
+        ("mesh", {"TNC_TOPOLOGY": "1x1"}),
+        ("collective", {"TNC_CHAOS_SLICES": "2"}),
+        ("collective", {"TNC_CHAOS_AXIS": "t0"}),
     ], ids=["topology-2x4", "topology-1x1", "chaos-slices", "chaos-axis"])
-    def test_still_not_ported_child(self, monkeypatch, level, env, needle):
+    def test_still_not_ported_child(self, monkeypatch, level, env):
+        # Once "not yet ported"; now the per-axis and multislice block runs,
+        # on one CPU rank as the JAX child runs it on one device.
         for k, v in env.items():
             monkeypatch.setenv(k, v)
         r = port_liveness.run_local_probe(level=level, device="cpu")
-        assert not r.ok
-        assert "not yet ported" in r.error and needle in r.error
-        assert "matmul_ok" not in r.details  # failed before any work, never silently lower
+        d = r.to_dict()
+        assert port_schema.validate_report({**d, "schema": 1, "written_at": 0.0}) == []
+        one_device = jax.devices()[:1]
+        if "TNC_TOPOLOGY" in env:
+            # A label that does not match the rank count falls back to the
+            # flat axis; 1x1 matches one card.
+            ref = jax_collectives.per_axis_probe(
+                mesh=jax_mesh.mesh_from_topology(env["TNC_TOPOLOGY"], devices=one_device))
+            assert r.ok, r.error
+            assert d["ici_axis_ok"] == ref.details["axis_ok"]
+            assert d["ici_topology"] == ref.details["topology"]
+            assert set(d["ici_axis_busbw_gbps"]) == set(ref.details["axis_ok"])
+            assert "matmul_ok" in d  # the levels below ran too
+        elif "TNC_CHAOS_SLICES" in env:
+            # One card does not split into two slices: JAX's own error.
+            with pytest.raises(ValueError) as ref:
+                jax_mesh.hybrid_mesh(devices=one_device, num_slices=2)
+            assert not r.ok and r.error == f"ValueError: {ref.value}"
+            assert d["chaos_injected"] == {"slices": "2"}
+        else:
+            # An axis with no multi-dim mesh to inject into fails loudly,
+            # with the JAX child's words.
+            assert not r.ok
+            assert r.error.startswith("ValueError: TNC_CHAOS_AXIS='t0' requested but no "
+                                      "multi-dim topology is set (TNC_TOPOLOGY=None)")
+            for words in ('{chaos[\'axis\']!r} requested but no "',
+                          '"multi-dim topology is set (TNC_TOPOLOGY={topo!r}); "'):
+                assert words in jax_liveness._CHILD_SCRIPT
+        if level == "mesh":
+            assert d["mesh_ok"] is True and d["mesh_n_links"] == 0
 
     def test_multi_card_workload_not_yet_ported(self):
-        # The rule the child applies on a host with more than one card.
-        msg = port_liveness.not_yet_ported("workload", 4, {})
-        assert "not yet ported" in msg and "4 cards" in msg
-        assert port_liveness.not_yet_ported("mesh", 4, {}) is None
-        assert port_liveness.not_yet_ported("workload", 1, {}) is None
-        # Below the fabric levels a topology label changes nothing, as in JAX.
-        assert port_liveness.not_yet_ported("compute", 4, {"TNC_TOPOLOGY": "2x4"}) is None
+        # The rule the child applies on a host with more than one card,
+        # as the JAX child applies it: model 2 on an even count, data the
+        # rest, when the batch of 8 splits data ways; else one card's step.
+        rule = port_burnin.workload_mesh
+        assert rule(4, 8) == port_mesh.MeshSpec((("data", 2), ("model", 2)))
+        assert rule(8, 8) == port_mesh.MeshSpec((("data", 4), ("model", 2)))
+        assert rule(2, 8) == port_mesh.MeshSpec((("data", 1), ("model", 2)))
+        assert rule(3, 8) is None and rule(1, 8) is None
+        assert rule(6, 8) is None  # data 3 does not split a batch of 8
+        # Nothing but distributed probing is left unported.
+        assert port_liveness.not_yet_ported({"TNC_TOPOLOGY": "2x4", "TNC_CHAOS_AXIS": "t0",
+                                             "TNC_CHAOS_SLICES": "2"}) is None
 
     def test_sharded_workload_not_yet_ported(self):
-        r = port_burnin.workload_probe(mesh=port_mesh.MeshSpec((("data", 2), ("model", 2))),
-                                       steps=1, device="cpu")
-        assert not r.ok
-        assert "not yet ported" in r.error and "sharded" in r.error
+        # The sharded step at data 1 x model 1 in a one-rank gloo group is
+        # the one-card step: the same losses from the same seed.
+        spec = port_mesh.MeshSpec((("data", 1), ("model", 1)))
+        one_card = port_burnin.workload_probe(steps=2, device="cpu")
+        with port_mesh.RankGroup(1, "cpu", timeout_s=60) as group:
+            (sharded,) = group.run(port_burnin.workload_probe, mesh=spec, steps=2)
+            (too_big,) = group.run(port_burnin.workload_probe, steps=1,
+                                   mesh=port_mesh.MeshSpec((("data", 2), ("model", 2))))
+        assert one_card.ok and sharded.ok, (one_card.error, sharded.error)
+        assert sharded.losses == one_card.losses
+        assert not too_big.ok and "needs 4 devices, got 1" in too_big.error
 
     def test_distributed_not_yet_ported(self, monkeypatch):
         monkeypatch.setenv("TNC_PROBE_DISTRIBUTED", "1")

@@ -12,6 +12,9 @@ of a JAX array).  Two numpy dtypes need care:
 
 Arrays from JAX are read-only, so every conversion copies before
 ``torch.from_numpy``.
+
+:func:`burnin_shard` cuts a one-card burn-in state dict into one rank's
+shard of the data × model sharded step.
 """
 
 from __future__ import annotations
@@ -19,7 +22,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from tpu_node_checker_torch.models.burnin import BurninConfig, shard_state
 from tpu_node_checker_torch.ops._harness import DeviceLike
+from tpu_node_checker_torch.parallel.mesh import MeshSpec
 
 
 def to_torch(array, device: DeviceLike = "cpu") -> torch.Tensor:
@@ -46,3 +51,12 @@ def burnin_state(params: dict) -> dict:
         else:
             state[key] = to_torch(value)
     return state
+
+
+def burnin_shard(state: dict, cfg: BurninConfig, mesh: MeshSpec, coords) -> dict:
+    """The shard of a one-card burn-in state dict (:func:`burnin_state`)
+    that the rank at ``coords`` of a ``("data", "model")`` mesh holds, by
+    ``models.burnin.param_specs``: its block of every sharded parameter
+    (the same on every ``data`` coordinate), the replicated ones whole."""
+    model = mesh.axis_names.index("model")
+    return shard_state(state, cfg, coords[model], mesh.shape[model])

@@ -1,11 +1,12 @@
-"""Per-link sweep: one timed single-pair P2P per link leg of the rank ring.
+"""Per-link sweep: one timed single-pair P2P per link leg of the rank mesh.
 
 The port of the JAX package's ``meshprobe/sweep.py``.  The collective probes
-grade the whole fabric at once; this sweep takes the rank ring apart into
-its link legs: for every hop ``h -> (h+1) mod n`` ONE single-pair
-``batch_isend_irecv`` moves a payload across exactly that leg, verified
-against a host-side oracle, and its wall time is sampled ``hop_iters``
-times into a per-link p50/p99.
+grade the whole fabric at once; this sweep takes the rank mesh apart into
+its link legs: for every axis and every hop ``h -> (h+1) mod s`` along it,
+ONE ``batch_isend_irecv`` moves a payload across that leg in every line of
+the axis at once (the rank at coordinate ``h`` of each line sends to the
+rank at ``h+1``), verified on the receivers against a host-side oracle, and
+its wall time is sampled ``hop_iters`` times into a per-link p50/p99.
 
 Grading is the JAX package's relative ladder: the sweep's own median p50 is
 the baseline, the per-link budget is ``max(BUDGET_FLOOR_US, SLOW_FACTOR ×
@@ -14,10 +15,10 @@ delivered payload is wrong or its p50 passes the hop deadline.  A DEAD leg
 fails the probe; a SLOW one degrades it (``ok`` stays True, ``degraded``
 set).
 
-The ranks form one flat axis.  Link names are ``axis/hop``, the axis named
-as the JAX package names it for the same device count and topology label
-(``d`` for a flat ring); a label with more than one dimension is not yet
-ported and fails as such.
+The mesh is the one a topology label describes
+(:func:`~tpu_node_checker_torch.parallel.mesh.mesh_from_topology`: ``"2x4"``
+gives axes t0 and t1, anything that does not match the rank count one flat
+axis ``d``), and link names are ``axis/hop``, as the JAX package names them.
 
 The constants and the helpers up to :func:`_parse_link_spec` are copies of
 the JAX package's (which this package does not import); tests hold them
@@ -36,7 +37,13 @@ import torch
 import torch.distributed as dist
 
 from tpu_node_checker_torch.ops._harness import sync
-from tpu_node_checker_torch.parallel.mesh import local_device
+from tpu_node_checker_torch.parallel.collectives import _row_major_strides
+from tpu_node_checker_torch.parallel.mesh import (
+    local_device,
+    mesh_from_topology,
+    parse_topology,
+    topology_spec,
+)
 
 OK = "OK"
 SLOW = "SLOW"
@@ -76,17 +83,6 @@ class MeshLinkReport:
     error: Optional[str] = None
 
 
-def parse_topology(topology: Optional[str]) -> Optional[Tuple[int, ...]]:
-    """Parse a GKE topology label value like ``"2x2x1"`` or ``"16x16"``."""
-    if not topology or not isinstance(topology, str):
-        return None
-    try:
-        dims = tuple(int(d) for d in topology.lower().split("x"))
-    except ValueError:
-        return None
-    return dims if dims and all(d > 0 for d in dims) else None
-
-
 def qualify_link(domain: Optional[str], link: str) -> str:
     """``slice/axis/hop``: the link's name inside the budget-domain
     namespace (``domain`` is ``_domain_name(slice_group_key(node))``)."""
@@ -98,10 +94,7 @@ def _axis_dims(topology: Optional[str], n_devices: int,
     """(axis name, size) pairs exactly as ``mesh_from_topology`` would build
     them — shared by the host-side expectation helpers so a bench assertion
     and the live sweep can never disagree about the link set."""
-    dims = parse_topology(topology)
-    if dims is not None and math.prod(dims) == n_devices:
-        return [(f"{axis_prefix}{i}", d) for i, d in enumerate(dims)]
-    return [("d", n_devices)]
+    return list(topology_spec(topology, n_devices, axis_prefix).axes)
 
 
 def link_names(topology: Optional[str], n_devices: int) -> List[str]:
@@ -159,38 +152,40 @@ def mesh_link_sweep(
     slow_inflation: float = CHAOS_SLOW_INFLATION,
     hop_deadline_us: float = HOP_DEADLINE_US,
 ) -> MeshLinkReport:
-    """Time every link leg of the rank ring on its own; never raises.
+    """Time every link leg of the rank mesh on its own; never raises.
 
-    Collective: every rank of the group calls it.  Rank ``i``'s payload
-    element ``j`` is ``i + j`` (exact in f32).  Each leg's first transfer is
-    held against the host oracle (the receiver holds the sender's payload
-    verbatim, every other rank zeros) and the mismatch counts are summed
-    over the group; then ``hop_iters`` samples, each begun after a barrier,
-    whose per-sample maximum over the ranks is the leg's time, so every rank
-    grades the same numbers.
+    Collective: every rank of the group calls it.  The rank at linear index
+    ``i`` (its rank) sends element ``j`` as ``i + j`` (exact in f32).  Each
+    leg's first transfer is held against the host oracle (every receiver
+    holds its sender's payload verbatim, every other rank zeros) and the
+    mismatch counts are summed over the group; then ``hop_iters`` samples,
+    each begun after a barrier, whose per-sample maximum over the ranks is
+    the leg's time, so every rank grades the same numbers.
 
     ``inject_slow_link="axis:hop"`` scales that leg's samples by
     ``slow_inflation`` (nothing sleeps); ``inject_dead_link`` corrupts the
-    payload the leg delivers, on the receiver.  Both validate against the
-    live ring and fail loudly on typos.
+    payload the leg delivers, on the receivers.  Both validate against the
+    live mesh and fail loudly on typos.
     """
     t_sweep = time.perf_counter()
     try:
-        n, rank = dist.get_world_size(), dist.get_rank()
-        dims = _axis_dims(topology, n)
-        if len(dims) > 1:
-            raise NotImplementedError(
-                f"the link sweep over a multi-dim topology ({topology!r}) is not "
-                "yet ported to the PyTorch/CUDA probe; only the flat rank ring is"
-            )
-        ((axis, size),) = dims
-        sizes = {axis: size}
+        mesh = mesh_from_topology(topology)
+        rank = dist.get_rank()
+        axis_names, shape = mesh.axis_names, mesh.shape
+        sizes = dict(zip(axis_names, shape))
+        strides = _row_major_strides(shape)
+        n = math.prod(shape)
         slow = dead = None
         if inject_slow_link is not None:
             slow = _parse_link_spec(inject_slow_link, sizes, "inject_slow_link")
         if inject_dead_link is not None:
             dead = _parse_link_spec(inject_dead_link, sizes, "inject_dead_link")
-        legs = [(axis, h) for h in range(size)] if size > 1 else []
+        legs = [
+            (nm, h, pos)
+            for pos, nm in enumerate(axis_names)
+            if sizes[nm] > 1
+            for h in range(sizes[nm])
+        ]
         report = MeshLinkReport(
             ok=True,
             degraded=False,
@@ -206,26 +201,29 @@ def mesh_link_sweep(
         col_np = np.arange(payload, dtype=np.float32)
         local = torch.from_numpy(col_np + rank).to(dev)[None, :]
         measured: Dict[str, dict] = {}
-        for nm, h in legs:
-            h_next = (h + 1) % size
+        for nm, h, pos in legs:
+            h_next = (h + 1) % sizes[nm]
+            coord = mesh.coords[pos]
+            # The peers along this axis, in this rank's line.
+            step = (h_next - h) * strides[pos]
 
-            def hop(nm=nm, h=h, h_next=h_next):
+            def hop(nm=nm, h=h, h_next=h_next, coord=coord, step=step):
                 out = torch.zeros_like(local)
-                if rank == h:
-                    op = dist.P2POp(dist.isend, local, h_next)
-                elif rank == h_next:
-                    op = dist.P2POp(dist.irecv, out, h)
+                if coord == h:
+                    op = dist.P2POp(dist.isend, local, rank + step)
+                elif coord == h_next:
+                    op = dist.P2POp(dist.irecv, out, rank - step)
                 else:
                     return out
                 for req in dist.batch_isend_irecv([op]):
                     req.wait()
-                if dead == (nm, h) and rank == h_next:
+                if dead == (nm, h) and coord == h_next:
                     out = out + 1.0
                 return out
 
-            # Host-side oracle for this rank's row: the receiver holds the
+            # Host-side oracle for this rank's row: a receiver holds its
             # sender's payload verbatim, every other rank zeros.
-            expect = col_np + h if rank == h_next else np.zeros_like(col_np)
+            expect = col_np + (rank - step) if coord == h_next else np.zeros_like(col_np)
             dist.barrier()
             first = hop()
             bad = (torch.abs(first - torch.from_numpy(expect).to(dev)) > 1e-3).sum()

@@ -1,10 +1,11 @@
 """Workload-level health probe: a real training step as the final grade.
 
 A small but structurally realistic transformer
-(:mod:`tpu_node_checker_torch.models.burnin`) trains for a few steps on one
-card, with the hand-written flash-attention kernel in its forward pass;
-healthy means a finite, strictly decreasing loss.  The sharded (data ×
-tensor parallel) step of the JAX package is not ported yet.
+(:mod:`tpu_node_checker_torch.models.burnin`) trains for a few steps,
+sharded data × tensor parallel over the cards of a rank group
+(:func:`workload_mesh` picks the layout), or on one card with the
+hand-written flash-attention kernel in its forward pass; healthy means a
+finite, strictly decreasing loss.
 """
 
 from tpu_node_checker_torch.models.burnin import (
@@ -12,6 +13,10 @@ from tpu_node_checker_torch.models.burnin import (
     BurninConfig,
     WorkloadResult,
     make_train_step,
+    param_specs,
+    shard_state,
+    train_steps,
+    workload_mesh,
     workload_probe,
 )
 
@@ -20,5 +25,9 @@ __all__ = [
     "BurninConfig",
     "WorkloadResult",
     "make_train_step",
+    "param_specs",
+    "shard_state",
+    "train_steps",
+    "workload_mesh",
     "workload_probe",
 ]

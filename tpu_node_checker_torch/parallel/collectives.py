@@ -10,7 +10,12 @@ runs the JAX ``shard_map`` program.
   closed-form expected value;
 * :func:`ring_probe`: the ring walked one hop at a time with
   ``batch_isend_irecv``, every link individually, with a single-hop
-  diagnostic that names a bad link ``i->i+1``.
+  diagnostic that names a bad link ``i->i+1``;
+* :func:`per_axis_probe`: one ``all_reduce`` along each axis of a rank mesh
+  (:class:`~tpu_node_checker_torch.parallel.mesh.RankMesh`), so a fault names
+  the torus axis, or the DCN slice boundary, it lies on;
+* :func:`axis_bandwidth_probe`: the bus bandwidth of an ``all_reduce``
+  along one mesh axis.
 
 Payloads vary by position: rank ``i``'s element ``j`` is ``i + j`` in f32, so
 a link that reorders elements inside a payload fails the exact compare, and
@@ -25,6 +30,7 @@ identity that JAX's ``ppermute`` over one device is.
 
 from __future__ import annotations
 
+import math
 import time
 from dataclasses import dataclass
 from typing import Optional
@@ -33,7 +39,12 @@ import torch
 import torch.distributed as dist
 
 from tpu_node_checker_torch.ops._harness import sync
-from tpu_node_checker_torch.parallel.mesh import local_device
+from tpu_node_checker_torch.parallel.mesh import (
+    MeshSpec,
+    build_mesh,
+    local_device,
+    mesh_from_topology,
+)
 
 
 @dataclass
@@ -56,6 +67,19 @@ def _row_major_strides(shape) -> list:
     return strides
 
 
+def _linear_index(coords, strides) -> tuple:
+    """(per-axis indices, this rank's linear index as a float)."""
+    return list(coords), float(sum(c * s for c, s in zip(coords, strides)))
+
+
+def _expected_axis_psum(lin, idxs, a, shape, strides, col):
+    """Closed form for Σ over axis ``a`` of ``(lin + col)``:
+    ``s_a·(lin − c_a·stride_a) + stride_a·s_a(s_a−1)/2 + s_a·col``, shared by
+    the per-axis and axis-bandwidth probes."""
+    s_a, st_a = shape[a], strides[a]
+    return s_a * (lin - idxs[a] * st_a) + st_a * s_a * (s_a - 1) / 2.0 + s_a * col
+
+
 def _mismatches(out: torch.Tensor, expect: torch.Tensor) -> torch.Tensor:
     return (torch.abs(out - expect) > 1e-3).sum()
 
@@ -67,15 +91,21 @@ def _replicated(counts) -> list:
     return [int(c) for c in t.tolist()]
 
 
-def ring_shift(x: torch.Tensor) -> torch.Tensor:
-    """One ring hop: send ``x`` to rank i+1, return what rank i-1 sent."""
-    n, i = dist.get_world_size(), dist.get_rank()
-    if n == 1 and dist.get_backend() == "gloo":
+def ring_shift(x: torch.Tensor, group=None) -> torch.Tensor:
+    """One ring hop along ``group`` (default: every rank): send ``x`` to the
+    next rank, return what the previous one sent."""
+    n, i = dist.get_world_size(group), dist.get_rank(group)
+    if n == 1 and dist.get_backend(group) == "gloo":
         return x.clone()
+
+    def peer(r):
+        return r if group is None else dist.get_global_rank(group, r)
+
+    x = x.contiguous()
     out = torch.empty_like(x)
     for req in dist.batch_isend_irecv([
-        dist.P2POp(dist.isend, x.contiguous(), (i + 1) % n),
-        dist.P2POp(dist.irecv, out, (i - 1) % n),
+        dist.P2POp(dist.isend, x, peer((i + 1) % n), group),
+        dist.P2POp(dist.irecv, out, peer((i - 1) % n), group),
     ]):
         req.wait()
     return out
@@ -278,6 +308,142 @@ def ring_probe(
             error = f"ring walk did not return payloads to origin; {where}"
         return CollectiveResult(
             ok=ok, n_devices=n, latency_us=latency_us, error=error, details=details,
+        )
+    except Exception as exc:  # probes report, never raise
+        return CollectiveResult(
+            ok=False, n_devices=0, latency_us=0.0, error=f"{type(exc).__name__}: {exc}"
+        )
+
+
+def per_axis_probe(
+    mesh: Optional[MeshSpec] = None,
+    topology: Optional[str] = None,
+    payload: int = 256,
+    inject_fault_axis: Optional[str] = None,
+) -> CollectiveResult:
+    """An ``all_reduce`` along EACH axis of a rank mesh: fault localisation
+    to a torus dimension, or to the DCN slice boundary of a hybrid mesh.
+
+    The mesh is ``mesh`` (a spec, see :func:`~tpu_node_checker_torch.parallel.mesh.hybrid_spec`)
+    or the one ``topology`` describes (one flat ``d`` axis when it describes
+    no other).  Rank ``(c0, c1, …)`` contributes its linear index plus the
+    element position, and each axis's sum has a closed form, so a wrong sum
+    names its axis.  Each rank checks its own sums; the per-axis mismatch
+    counts are summed over the group, so the verdict is replicated.
+
+    ``inject_fault_axis`` perturbs the sum along that axis, so a run on
+    healthy cards shows that a fault on axis X is reported as X alone.
+    """
+    try:
+        rm = build_mesh(mesh) if mesh is not None else mesh_from_topology(topology)
+        axis_names, shape = rm.axis_names, rm.shape
+        n = math.prod(shape)
+        if payload <= 0:
+            raise ValueError(f"payload must be positive, got {payload}")
+        if inject_fault_axis is not None and inject_fault_axis not in axis_names:
+            # A chaos run that injects nothing would "validate" the harness
+            # without testing it (e.g. after a flat-mesh fallback).
+            raise ValueError(
+                f"inject_fault_axis {inject_fault_axis!r} not in mesh axes {axis_names}"
+            )
+        strides = _row_major_strides(shape)
+        dev = local_device()
+        idxs, lin = _linear_index(rm.coords, strides)
+        col = torch.arange(payload, dtype=torch.float32, device=dev)
+        local = lin + col
+        t0 = time.perf_counter()
+        bad_counts = []
+        for a, name in enumerate(axis_names):
+            total = local.clone()
+            dist.all_reduce(total, group=rm.groups[name])
+            if name == inject_fault_axis:
+                total = total + 1.0  # simulated link corruption
+            expected = _expected_axis_psum(lin, idxs, a, shape, strides, col)
+            bad_counts.append(_mismatches(total, expected))
+        bad_counts = _replicated(bad_counts)
+        latency_us = (time.perf_counter() - t0) * 1e6
+        axis_ok = {name: bad_counts[a] == 0 for a, name in enumerate(axis_names)}
+        bad = [f"{name}={shape[a]}" for a, name in enumerate(axis_names) if not axis_ok[name]]
+        ok = not bad
+        return CollectiveResult(
+            ok=ok,
+            n_devices=n,
+            latency_us=latency_us,
+            # "dcn" (hybrid meshes) is the slice boundary, not a torus axis.
+            error=None
+            if ok
+            else (
+                "fault localized to "
+                + (
+                    "the DCN slice boundary"
+                    if all(b.startswith("dcn=") for b in bad)
+                    else f"mesh axis {', '.join(bad)}"
+                )
+            ),
+            details={"topology": "x".join(str(s) for s in shape), "axis_ok": axis_ok},
+        )
+    except Exception as exc:  # probes report, never raise
+        return CollectiveResult(
+            ok=False, n_devices=0, latency_us=0.0, error=f"{type(exc).__name__}: {exc}"
+        )
+
+
+def axis_bandwidth_probe(
+    mesh: MeshSpec,
+    axis: str,
+    payload: int = 1 << 20,
+    timed_iters: int = 4,
+) -> CollectiveResult:
+    """Bus bandwidth of an ``all_reduce`` along ONE named mesh axis.
+
+    Over a hybrid mesh with ``axis="dcn"`` the reduction crosses only the
+    slice boundary.  Elements carry ``linear index + (position mod 256)``,
+    so every sum is an integer far below 2^24 and exact in f32 even at a
+    4 MiB payload.  The first pass is checked against the closed form, with
+    the mismatch count summed over the group; the timed passes follow.
+    """
+    try:
+        rm = build_mesh(mesh)
+        axis_names, shape = rm.axis_names, rm.shape
+        if axis not in axis_names:
+            raise ValueError(f"axis {axis!r} not in mesh axes {axis_names}")
+        n = math.prod(shape)
+        a = axis_names.index(axis)
+        s_a = shape[a]
+        if payload <= 0:
+            raise ValueError(f"payload must be positive, got {payload}")
+        strides = _row_major_strides(shape)
+        dev = local_device()
+        idxs, lin = _linear_index(rm.coords, strides)
+        col = torch.arange(payload, dtype=torch.float32, device=dev) % 256.0
+        local = lin + col
+        group = rm.groups[axis]
+
+        def leg():
+            total = local.clone()
+            dist.all_reduce(total, group=group)
+            return total
+
+        expected = _expected_axis_psum(lin, idxs, a, shape, strides, col)
+        (bad,) = _replicated([_mismatches(leg(), expected)])
+        ok = bad == 0
+        sync(dev)
+        t0 = time.perf_counter()
+        for _ in range(timed_iters):
+            leg()
+        sync(dev)
+        latency_us = (time.perf_counter() - t0) / timed_iters * 1e6
+        busbw_gbps = None
+        if s_a > 1 and latency_us > 0:
+            busbw_gbps = round(
+                (2 * (s_a - 1) / s_a * payload * 4) / (latency_us * 1e-6) / 1e9, 3
+            )
+        return CollectiveResult(
+            ok=ok,
+            n_devices=n,
+            latency_us=latency_us,
+            error=None if ok else f"psum along axis {axis!r} returned wrong sums",
+            details={"axis": axis, "axis_size": s_a, "busbw_gbps": busbw_gbps},
         )
     except Exception as exc:  # probes report, never raise
         return CollectiveResult(

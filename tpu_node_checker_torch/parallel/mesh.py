@@ -1,11 +1,10 @@
-"""Rank groups: the counterpart of the JAX package's ``Mesh``.
+"""Rank groups and rank meshes: the counterpart of the JAX package's ``Mesh``.
 
 The JAX package runs its fabric probes as one SPMD program over a
 ``jax.sharding.Mesh`` of the local chips.  Here the same probes run as one
 process per card over ``torch.distributed``: a :class:`RankGroup` holds one
 rank per local card, rank 0 in the calling process (the probe child) and
-the others spawned with the ``spawn`` start method.  All ranks lie on one
-flat axis, named ``d`` as the JAX package names its flat mesh axis.
+the others spawned with the ``spawn`` start method.
 
 * Rendezvous goes through a ``FileStore`` in a private temporary directory,
   never a fixed port, so groups on one host cannot collide.
@@ -23,12 +22,22 @@ flat axis, named ``d`` as the JAX package names its flat mesh axis.
 The spawned ranks wait for commands in the store, so one group serves the
 probe child's collective, mesh and workload blocks in turn and each rank
 pays its interpreter start once.
+
+A :class:`RankMesh` lays named axes over the group's ranks, row-major over
+rank order (card order): cards carry no torus coordinates and no slice
+index, which is where the JAX package falls back to the same reshape.  Each
+rank holds its coordinates and, for every axis, the process group of the
+line through it along that axis.  :func:`build_mesh` is collective (every
+rank creates every line's group, in one order) and caches the mesh, and
+each line's group by its ranks, in the rank's process until the group
+closes.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import datetime
+import math
 import multiprocessing
 import os
 import pickle
@@ -37,8 +46,9 @@ import tempfile
 import time
 import traceback
 from dataclasses import dataclass
-from typing import Any, Callable, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -75,6 +85,180 @@ class RankFailure:
 
     ok: bool
     error: str
+
+
+def parse_topology(topology: Optional[str]) -> Optional[Tuple[int, ...]]:
+    """Parse a GKE topology label value like ``"2x2x1"`` or ``"16x16"``."""
+    if not topology or not isinstance(topology, str):
+        return None
+    try:
+        dims = tuple(int(d) for d in topology.lower().split("x"))
+    except ValueError:
+        return None
+    return dims if dims and all(d > 0 for d in dims) else None
+
+
+def topology_chip_count(topology: Optional[str]) -> Optional[int]:
+    """Total chips a topology describes: the product of its dimensions."""
+    dims = parse_topology(topology)
+    return None if dims is None else math.prod(dims)
+
+
+def mesh_layout(spec: MeshSpec) -> np.ndarray:
+    """The rank at each mesh position: row-major over rank order."""
+    return np.arange(spec.device_count).reshape(spec.shape)
+
+
+def topology_spec(topology: Optional[str], n_devices: int, axis_prefix: str = "t") -> MeshSpec:
+    """The axes :func:`mesh_from_topology` lays over ``n_devices`` ranks:
+    ``"2x4"`` gives t0=2, t1=4 when its product is the rank count, else one
+    flat axis ``d`` (enumeration health is graded separately)."""
+    dims = parse_topology(topology)
+    if dims is not None and math.prod(dims) == n_devices:
+        return MeshSpec(tuple((f"{axis_prefix}{i}", d) for i, d in enumerate(dims)))
+    return MeshSpec((("d", n_devices),))
+
+
+def hybrid_spec(
+    n_devices: int,
+    topology: Optional[str] = None,
+    num_slices: Optional[int] = None,
+    dcn_axis: str = "dcn",
+    axis_prefix: str = "t",
+) -> MeshSpec:
+    """The axes :func:`hybrid_mesh` lays over ``n_devices`` ranks: a leading
+    DCN axis over ``num_slices`` contiguous slices, then one slice's torus
+    axes when ``topology`` describes one slice, else one flat ``d`` axis.
+
+    Cards carry no slice index, so only the rehearsal partition
+    (``TNC_CHAOS_SLICES``) forms slices; it raises, with the JAX package's
+    messages, on fewer than 2 slices or an uneven split."""
+    if num_slices is None:
+        raise ValueError("devices carry no slice_index — not a multislice job")
+    if num_slices < 2:
+        raise ValueError(f"num_slices must be >= 2, got {num_slices}")
+    if n_devices % num_slices:
+        raise ValueError(
+            f"{n_devices} devices do not partition into {num_slices} equal slices"
+        )
+    per_slice = n_devices // num_slices
+    dims = parse_topology(topology)
+    if dims is not None and topology_chip_count(topology) == per_slice:
+        inner = tuple((f"{axis_prefix}{i}", d) for i, d in enumerate(dims))
+    else:
+        inner = (("d", per_slice),)
+    return MeshSpec(((dcn_axis, num_slices),) + inner)
+
+
+@dataclass(frozen=True, eq=False)
+class RankMesh:
+    """This rank's place in a mesh over the live process group.
+
+    ``coords`` are its coordinates; ``groups[axis]`` is the process group of
+    the line through it along ``axis`` and ``lines[axis]`` that line's
+    global ranks, by coordinate along the axis."""
+
+    spec: MeshSpec
+    coords: Tuple[int, ...]
+    groups: Dict[str, Any]
+    lines: Dict[str, Tuple[int, ...]]
+
+    @property
+    def axis_names(self) -> Tuple[str, ...]:
+        return self.spec.axis_names
+
+    @property
+    def shape(self) -> Tuple[int, ...]:
+        return self.spec.shape
+
+    def size(self, axis: str) -> int:
+        return self.shape[self.axis_names.index(axis)]
+
+    def index(self, axis: str) -> int:
+        return self.coords[self.axis_names.index(axis)]
+
+    def __reduce__(self):
+        # Process groups belong to their rank's process: a mesh sent to
+        # another process (a rank's result) carries no groups.
+        return (RankMesh, (self.spec, self.coords, {}, self.lines))
+
+
+# Each rank's meshes, by axes, and its lines' process groups, by ranks: built
+# once per process group, forgotten when it is destroyed, so a set of ranks
+# costs one communicator however many meshes have a line over it.
+_MESHES: Dict[tuple, RankMesh] = {}
+_LINE_GROUPS: Dict[tuple, Any] = {}
+
+
+def build_mesh(spec: MeshSpec) -> RankMesh:
+    """This rank's :class:`RankMesh` for ``spec`` over the live group.
+
+    Collective on first use: every rank creates the process group of every
+    line of every axis, in one order, as NCCL requires.  A line that covers
+    every rank uses the whole group, and a line over the same ranks as one
+    of an earlier mesh reuses that line's group.  Raises when the rank
+    count does not match the spec, and when a line's group fails to form
+    (never falls back to a flatter mesh)."""
+    cached = _MESHES.get(spec.axes)
+    if cached is not None:
+        return cached
+    n, rank = dist.get_world_size(), dist.get_rank()
+    if n != spec.device_count:
+        raise ValueError(
+            f"mesh spec {spec.axes} needs {spec.device_count} devices, got {n}"
+        )
+    layout = mesh_layout(spec)
+    coords = tuple(int(c) for c in np.unravel_index(rank, spec.shape))
+    groups, lines = {}, {}
+    for a, name in enumerate(spec.axis_names):
+        for line in np.moveaxis(layout, a, -1).reshape(-1, spec.shape[a]).tolist():
+            if len(line) == n:
+                group = dist.group.WORLD
+            elif tuple(line) in _LINE_GROUPS:
+                group = _LINE_GROUPS[tuple(line)]
+            else:
+                try:
+                    group = dist.new_group(line)
+                except Exception as exc:  # named, never a silent flat fallback
+                    raise RuntimeError(
+                        f"the process group of mesh axis {name!r} over ranks {line} "
+                        f"failed to form: {type(exc).__name__}: {exc}"
+                    ) from exc
+                _LINE_GROUPS[tuple(line)] = group
+            if rank in line:
+                groups[name], lines[name] = group, tuple(line)
+    mesh = RankMesh(spec=spec, coords=coords, groups=groups, lines=lines)
+    _MESHES[spec.axes] = mesh
+    return mesh
+
+
+def flat_mesh(axis: str = "d") -> RankMesh:
+    """Every rank on one axis named ``axis`` (the single-axis probes' ring)."""
+    return build_mesh(MeshSpec(((axis, dist.get_world_size()),)))
+
+
+def mesh_from_topology(topology: Optional[str], axis_prefix: str = "t") -> RankMesh:
+    """The mesh shaped like a topology label over the live group
+    (:func:`topology_spec`)."""
+    return build_mesh(topology_spec(topology, dist.get_world_size(), axis_prefix))
+
+
+def hybrid_mesh(
+    topology: Optional[str] = None,
+    num_slices: Optional[int] = None,
+    dcn_axis: str = "dcn",
+    axis_prefix: str = "t",
+) -> RankMesh:
+    """The DCN × per-slice mesh over the live group (:func:`hybrid_spec`)."""
+    return build_mesh(
+        hybrid_spec(dist.get_world_size(), topology, num_slices, dcn_axis, axis_prefix)
+    )
+
+
+def _forget_meshes() -> None:
+    """Drop this process's meshes; their groups die with the default group."""
+    _MESHES.clear()
+    _LINE_GROUPS.clear()
 
 
 def local_device() -> torch.device:
@@ -162,10 +346,11 @@ def _rank_main(path: str, rank: int, world_size: int, device_type: str,
             store.set(f"res/{seq}/{rank}", pickle.dumps(_call(fn, args, kwargs)))
     finally:
         dist.destroy_process_group()
+        _forget_meshes()
 
 
 class RankGroup:
-    """One rank per device on the flat axis: rank 0 here, the rest spawned.
+    """One rank per device: rank 0 here, the rest spawned.
 
     ``device_type`` is ``cuda`` (NCCL, rank r on card r) or ``cpu`` (gloo).
     Use as a context manager; :meth:`close` stops the spawned ranks and
@@ -233,6 +418,7 @@ class RankGroup:
             if self._store is not None:
                 self._store.set(f"cmd/{self._seq + 1}", pickle.dumps(None))
                 dist.destroy_process_group()
+                _forget_meshes()
                 self._store = None
         finally:
             for p in self._procs:

@@ -18,21 +18,23 @@ Probe levels (each includes the previous):
   (:mod:`tpu_node_checker_torch.ops`);
 * ``collective``: all_reduce, all_gather and reduce-scatter and a ring walk
   over one rank per local card (:mod:`tpu_node_checker_torch.parallel`;
-  NCCL on the cards, gloo on the CPU);
+  NCCL on the cards, gloo on the CPU); with a multi-dim ``TNC_TOPOLOGY``
+  label, one all_reduce and its bandwidth per torus axis of the rank mesh
+  the label describes; with ``TNC_CHAOS_SLICES=N``, the same over a DCN ×
+  per-slice mesh, so a fault names the slice boundary or a torus axis;
 * ``mesh``: the link doctor (:mod:`tpu_node_checker_torch.meshprobe`), every
-  link leg of the rank ring timed on its own with an ``OK | SLOW | DEAD``
+  link leg of every mesh axis timed on its own with an ``OK | SLOW | DEAD``
   verdict; SLOW legs degrade the node (``mesh_degraded``) without failing
   it;
-* ``workload``: a training step on one card with the flash-attention kernel
-  in its forward pass (:mod:`tpu_node_checker_torch.models`), plus ring
-  attention over the ranks.
+* ``workload``: a training step, sharded data × model over the cards where
+  the batch splits (else on one card, with the flash-attention kernel in
+  its forward pass; :mod:`tpu_node_checker_torch.models`), ring attention
+  over the ranks, and on more than one card a pipeline and an
+  expert-parallel layer.
 
-Still not ported, and failing with a structured "not yet ported" error
-rather than running silently at a lower level (:func:`not_yet_ported`): a
-multi-dim ``TNC_TOPOLOGY`` label, ``TNC_CHAOS_AXIS`` and
-``TNC_CHAOS_SLICES`` (the per-axis and multislice probes), the workload
-level on a host with more than one card (the sharded step, pipeline and
-expert parallelism), and distributed probing (``TNC_PROBE_DISTRIBUTED=1``).
+Distributed probing (``TNC_PROBE_DISTRIBUTED=1``) is not ported yet and
+fails as such (:func:`not_yet_ported`), rather than running on one host
+silently.
 """
 
 from __future__ import annotations
@@ -73,11 +75,10 @@ t0 = time.perf_counter()
 hbm_capacity_error = None
 group = None
 try:
-    if os.environ.get("TNC_PROBE_DISTRIBUTED") == "1":
-        raise NotImplementedError(
-            "distributed probing (TNC_PROBE_DISTRIBUTED=1) is not yet ported "
-            "to the PyTorch/CUDA probe; use the JAX package's probe"
-        )
+    from tpu_node_checker_torch.probe.liveness import not_yet_ported
+    _unported = not_yet_ported(os.environ)
+    if _unported:
+        raise NotImplementedError(_unported)
     if level not in PORTED_LEVELS:
         raise NotImplementedError(
             f"probe level {level!r} is not yet ported to the PyTorch/CUDA "
@@ -166,10 +167,6 @@ try:
                 "needs compute+) — the injection would silently test "
                 "nothing; raise the level or unset the chaos vars"
             )
-    from tpu_node_checker_torch.probe.liveness import not_yet_ported
-    _unported = not_yet_ported(level, n_dev, os.environ)
-    if _unported:
-        raise NotImplementedError(_unported)
     if level in ("compute", "collective", "mesh", "workload") and out["ok"]:
         from tpu_node_checker_torch import ops
         if on_card:
@@ -282,6 +279,92 @@ try:
             out["ring_bad_links"] = (ring.details or {}).get("bad_links") or []
             out["ring_err"] = ring.error
         out["ok"] = out["ok"] and coll.ok and ring.ok
+        topo = os.environ.get("TNC_TOPOLOGY")
+        n_slices = 0
+        if "slices" in chaos:
+            # Rehearsal partition: the local cards as N DCN-joined slices,
+            # so the whole fault-domain path runs on one host.
+            try:
+                chaos["slices"] = int(chaos["slices"])
+            except ValueError:
+                raise ValueError(
+                    f"TNC_CHAOS_SLICES {chaos['slices']!r} is not an integer "
+                    "slice count"
+                )
+            if chaos["slices"] < 2:
+                # One slice is not a multislice: the DCN block would be
+                # skipped and the rehearsal would pass testing nothing.
+                raise ValueError(
+                    f"TNC_CHAOS_SLICES={chaos['slices']} cannot rehearse a "
+                    "slice boundary — need at least 2"
+                )
+            n_slices = chaos["slices"]
+        multislice = n_slices > 1
+        from tpu_node_checker_torch.parallel import (
+            axis_bandwidth_probe, hybrid_spec, per_axis_probe, topology_spec,
+        )
+
+        def _axis_bw_sweep(spec_):
+            # Per-axis all_reduce bandwidth over every axis of the mesh: an
+            # axis can be correct but slow, which the exact compare cannot see.
+            bw_, errs_ = {}, {}
+            for nm in spec_.axis_names:
+                leg = fold(group.run(axis_bandwidth_probe, spec_, nm))
+                bw_[nm] = (leg.details or {}).get("busbw_gbps")
+                if not leg.ok:
+                    errs_[nm] = leg.error
+            return bw_, errs_
+
+        if "axis" in chaos:
+            # The requested axis must belong to a mesh a probe below builds,
+            # never inject nothing silently.
+            if chaos["axis"] == "dcn":
+                if not multislice:
+                    raise ValueError(
+                        "TNC_CHAOS_AXIS=dcn requested but this is not a "
+                        "multislice job (one slice; set TNC_CHAOS_SLICES=N "
+                        "to rehearse) — the DCN fault-domain probe will "
+                        "not run"
+                    )
+            elif not multislice and not (topo and "x" in topo):
+                raise ValueError(
+                    f"TNC_CHAOS_AXIS={chaos['axis']!r} requested but no "
+                    f"multi-dim topology is set (TNC_TOPOLOGY={topo!r}); "
+                    "the per-axis probe will not run"
+                )
+        if multislice:
+            # The slice boundary is its own fault domain: the per-axis legs
+            # over a DCN x per-slice mesh name "dcn" or a torus axis, and an
+            # all_reduce along dcn alone gives the cross-slice bandwidth.
+            # (The label describes ONE slice, so the flat path is skipped.)
+            hspec = hybrid_spec(group.world_size, topology=topo, num_slices=n_slices)
+            dom = fold(group.run(per_axis_probe, mesh=hspec, inject_fault_axis=chaos.get("axis")))
+            out["fault_domain_ok"] = (dom.details or {}).get("axis_ok")
+            out["fault_domain_topology"] = (dom.details or {}).get("topology")
+            if not dom.ok:
+                _append_error(dom.error)
+            bw, bw_err = _axis_bw_sweep(hspec)
+            out["fault_domain_busbw_gbps"] = bw
+            out["dcn_busbw_gbps"] = bw.get("dcn")
+            if bw_err:
+                out["ok"] = False
+                out["axis_busbw_err"] = bw_err
+                if "dcn" in bw_err:
+                    out["dcn_err"] = bw_err["dcn"]
+        elif topo and "x" in topo:
+            # A multi-dim label: one all_reduce per torus axis, whatever the
+            # flat verdict, so a fault names the sick axis.
+            tspec = topology_spec(topo, group.world_size)
+            ax = fold(group.run(per_axis_probe, mesh=tspec, inject_fault_axis=chaos.get("axis")))
+            out["ici_axis_ok"] = (ax.details or {}).get("axis_ok")
+            out["ici_topology"] = (ax.details or {}).get("topology")
+            if not ax.ok:
+                _append_error(ax.error)
+            bw, bw_err = _axis_bw_sweep(tspec)
+            out["ici_axis_busbw_gbps"] = bw
+            if bw_err:
+                out["ok"] = False
+                out["axis_busbw_err"] = bw_err
     if level in ("mesh", "workload") and out["ok"]:
         # The link doctor: a DEAD leg fails the probe; a SLOW one degrades
         # it, ok stays True and mesh_degraded carries the evidence.
@@ -351,17 +434,26 @@ try:
                 _append_error(floor_failure_message(verdict))
     if level == "workload" and out["ok"]:
         import dataclasses as _dc
-        from tpu_node_checker_torch.models import BurninConfig, workload_probe
+        from tpu_node_checker_torch.models import BurninConfig, workload_mesh, workload_probe
         from tpu_node_checker_torch.ops.flash_attention import BLOCK as _FA_BLOCK
-        from tpu_node_checker_torch.parallel import ring_attention_probe
-        # One card (more fail above as not yet ported): the flash-attention
-        # kernel runs inside the training step, forward and backward.
+        from tpu_node_checker_torch.parallel import (
+            moe_probe, pipeline_probe, ring_attention_probe,
+        )
+        # The step sharded data x model over every rank, so the strongest
+        # grade pushes its collectives across the cards; where the batch
+        # does not split (one card, or three), one card's step with the
+        # flash-attention kernel inside, forward and backward.
+        n_ranks = group.world_size
         cfg = BurninConfig()
-        if cfg.seq % _FA_BLOCK == 0 and os.environ.get("TNC_SKIP_FLASH_ATTENTION") != "1":
-            cfg = _dc.replace(cfg, attention="flash")
-        wl = workload_probe(cfg, device=dev)
+        wspec = workload_mesh(n_ranks, cfg.batch)
+        if wspec is None:
+            if cfg.seq % _FA_BLOCK == 0 and os.environ.get("TNC_SKIP_FLASH_ATTENTION") != "1":
+                cfg = _dc.replace(cfg, attention="flash")
+            wl = workload_probe(cfg, device=dev)
+        else:
+            wl = fold(group.run(workload_probe, cfg, mesh=wspec))
         out["workload_ok"] = wl.ok
-        out["workload_devices"] = 1
+        out["workload_devices"] = n_ranks if wspec is not None else 1
         out["workload_losses"] = [round(l, 4) for l in wl.losses]
         out["workload_step_ms"] = round(wl.step_time_ms, 1)
         if not wl.ok:
@@ -370,6 +462,17 @@ try:
         out["ring_attention_ok"] = ra.ok
         if not ra.ok:
             _append_error(ra.error)
+        if n_ranks > 1:
+            # The rest of the parallelism surface: pipeline neighbour hops
+            # and expert-parallel all_to_all shuffles.
+            pp = fold(group.run(pipeline_probe))
+            out["pipeline_ok"] = pp.ok
+            if not pp.ok:
+                _append_error(pp.error)
+            ep = fold(group.run(moe_probe))
+            out["moe_ok"] = ep.ok
+            if not ep.ok:
+                _append_error(ep.error)
     if hbm_capacity_error:
         _append_error(hbm_capacity_error)
 except Exception as exc:  # the whole point is to catch anything
@@ -494,34 +597,18 @@ def run_local_probe(
     return result
 
 
-def not_yet_ported(level: str, n_devices: int, env: Mapping[str, str]) -> Optional[str]:
-    """Why this probe cannot run ``level`` here, or None when it can.
+def not_yet_ported(env: Mapping[str, str]) -> Optional[str]:
+    """Why this probe cannot run here, or None when it can.
 
-    The JAX child's per-axis and multislice probes (a multi-dim
-    ``TNC_TOPOLOGY`` label, ``TNC_CHAOS_AXIS``, ``TNC_CHAOS_SLICES``) and its
-    workload level on more than one device (the sharded step, pipeline and
-    expert parallelism) are not ported yet; asked for, they fail with this
-    message instead of running silently at a lower level."""
-    if level not in ("collective", "mesh", "workload"):
-        return None
-    unported = []
-    topo = env.get("TNC_TOPOLOGY")
-    if topo and "x" in topo:
-        unported.append(f"the per-axis probes of a multi-dim TNC_TOPOLOGY ({topo!r})")
-    for var in ("TNC_CHAOS_AXIS", "TNC_CHAOS_SLICES"):
-        if env.get(var):
-            unported.append(f"{var} (the per-axis and multislice probes)")
-    if level == "workload" and n_devices > 1:
-        unported.append(
-            f"the workload level on {n_devices} cards (the sharded training "
-            "step, pipeline and expert parallelism)"
+    Distributed probing (``TNC_PROBE_DISTRIBUTED=1``, one global mesh over
+    several hosts) is not ported yet; asked for, it fails with this message
+    at any level instead of probing one host silently."""
+    if env.get("TNC_PROBE_DISTRIBUTED") == "1":
+        return (
+            "distributed probing (TNC_PROBE_DISTRIBUTED=1) is not yet ported "
+            "to the PyTorch/CUDA probe; use the JAX package's probe"
         )
-    if not unported:
-        return None
-    return (
-        f"not yet ported to the PyTorch/CUDA probe: {'; '.join(unported)}; "
-        "use the JAX package's probe"
-    )
+    return None
 
 
 def _pythonpath() -> str:
