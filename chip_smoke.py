@@ -44,9 +44,25 @@ Phases, one line each (any failure exits non-zero and prints no result):
    t1 alone; then in a one-rank NCCL group the sharded step at data 1 ×
    model 1 against the one-card step from the same weights, the pipeline
    and MoE probes and their stage-0 and expert-0 drills, each timed;
-7. the ``kernels`` line (each kernel at the compute probe's shapes, its
-   launches counted on the workload path, flash also at the training
-   step's shape), then the ``nvidia-smi`` line, then the result line.
+7. emitter: the node side as it is deployed, each line a subprocess.  The
+   DaemonSet's ``--emit-probe DIR/$NODE_NAME.json --probe-level compute
+   --watch 5 --log-jsonl L``, sent SIGTERM 2 s after its second report,
+   in its third round (every round healthy, logged and launching all
+   three kernels; each round's time, the gap between round starts and the
+   seconds from SIGTERM to exit printed); its livenessProbe
+   ``--report-fresh`` (0, and 1 with
+   ``--probe-results-max-age 0.001``); the aggregator, the JAX checker's
+   CLI ``--nodes-json N --probe-results DIR --json`` over a one-node
+   NodeList written here, which must grade that report healthy (exit 0)
+   and a ``--probe-topology 1x1`` drill report under ``TNC_CHAOS_AXIS=t1``
+   failed (exit 3, the node named); and the acceptance Job's
+   ``--emit-probe - --probe-level compute --probe-soak 20 --perf-floor
+   0.4`` (healthy, its soak and floor verdicts printed), after the soak's
+   rounds timed in-process at two sizes;
+8. the ``kernels`` line (each kernel at the compute probe's shapes, its
+   launches counted on the workload path and in each emitter round, flash
+   also at the training step's shape), then the ``nvidia-smi`` line, then
+   the result line.
 
 Bounds use the H100 SXM data sheet: 3.35 TB/s of device memory, 989 TFLOP/s
 bf16 on the tensor cores.  Times are steady-state CUDA-event times over many
@@ -57,8 +73,11 @@ from __future__ import annotations
 
 import json
 import os
+import signal
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 
 HBM_BYTES_PER_S = 3.35e12
@@ -370,6 +389,168 @@ def phase6_paths(torch, root, dev, cfg, rows, tf32_default, validate_report) -> 
     bad = [k for k, ok_ in checks.items() if not ok_]
     if bad:
         fail(f"one-rank NCCL group checks failed: {bad}")
+
+
+def port_cli(root: str, *args, env: dict, timeout: int = 900) -> subprocess.CompletedProcess:
+    return subprocess.run([sys.executable, "-m", "tpu_node_checker_torch", *args],
+                          capture_output=True, text=True, cwd=root, timeout=timeout, env=env)
+
+
+def aggregate(root: str, nodes: str, reports: str, env: dict) -> tuple:
+    """The aggregator's line: the JAX checker's CLI as a subprocess (it runs
+    on the control plane and imports no accelerator library on this path):
+    (exit code, payload)."""
+    proc = subprocess.run(
+        [sys.executable, "-m", "tpu_node_checker", "--nodes-json", nodes,
+         "--probe-results", reports, "--json"],
+        capture_output=True, text=True, cwd=root, timeout=300, env=env,
+    )
+    try:
+        return proc.returncode, json.loads(proc.stdout)
+    except json.JSONDecodeError:
+        fail(f"the fleet checker printed no payload (exit {proc.returncode}): "
+             f"{proc.stderr[-2000:]}")
+
+
+def phase7_emitter(torch, root, rows, validate_report) -> None:
+    """Phase 7: the emitter's deployed command lines, and the fleet checker
+    grading what they write."""
+    node = os.environ.get("NODE_NAME") or "gke-h100-node-0"
+    env = {k: v for k, v in os.environ.items() if not k.startswith("TNC_")}
+    env.update(NODE_NAME=node, TNC_SCHEMA_STRICT="1")
+    work = tempfile.mkdtemp(prefix="chip-smoke-emitter-")
+    reports = os.path.join(work, "reports")
+    os.mkdir(reports)
+    report, log = os.path.join(reports, f"{node}.json"), os.path.join(work, "rounds.jsonl")
+
+    # The DaemonSet's line.  A compute round takes longer than 5 s, so each
+    # round starts when the last one ends; SIGTERM, sent 2 s after the
+    # second report, lands in the third round, which still writes its report
+    # and its line before the loop stops.
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "tpu_node_checker_torch", "--emit-probe", report,
+         "--probe-level", "compute", "--watch", "5", "--log-jsonl", log],
+        stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True, cwd=root, env=env,
+    )
+    watchdog = threading.Timer(600, proc.kill)
+    watchdog.start()
+    docs = []
+    try:
+        for line in proc.stderr:
+            if "Probe report written" in line:
+                with open(report) as f:
+                    docs.append(json.load(f))
+                if len(docs) == 2:
+                    break
+        time.sleep(2.0)
+        t_term = time.perf_counter()
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=600)
+        term_s = time.perf_counter() - t_term
+        rest = proc.stderr.read()
+    finally:
+        watchdog.cancel()
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        proc.stderr.close()
+    if "Probe report written" in rest:
+        with open(report) as f:
+            docs.append(json.load(f))
+    with open(log) as f:
+        entries = [json.loads(x) for x in f.read().splitlines()]
+    # Each round's start: its log line's time less the probe's wall time.
+    starts = [e["ts"] - e["duration_ms"] / 1e3 for e in entries]
+    per_round = [{"ok": d.get("ok"), "elapsed_ms": d.get("elapsed_ms"),
+                  "kernel_launches": d.get("kernel_launches"),
+                  "schema_violations": validate_report(d)} for d in docs]
+    phase(7, "emitter --watch 5, the DaemonSet's line", exit_code=rc, rounds=per_round,
+          log_exit_codes=[e["exit_code"] for e in entries],
+          gap_between_round_starts_s=[b - a for a, b in zip(starts, starts[1:])],
+          sigterm_to_exit_s=term_s, stderr_tail=rest.strip().splitlines()[-1:])
+    if rc != 143 or len(docs) < 3 or len(entries) != len(docs):
+        fail(f"the emitter loop: exit {rc}, {len(docs)} reports, {len(entries)} log lines")
+    if any(e["exit_code"] != 0 or e["probe_level"] != "compute" for e in entries):
+        fail(f"an emitter round was not healthy at the compute level: {entries}")
+    for d in per_round:
+        missed = [r["name"] for r in rows if not (d["kernel_launches"] or {}).get(r["name"])]
+        if not d["ok"] or d["schema_violations"] or missed:
+            fail(f"an emitter round is not healthy or missed kernels {missed}: {d}")
+    for r in rows:
+        r["emitter_launches"] = [d["kernel_launches"][r["name"]] for d in per_round]
+
+    # The livenessProbe's line, on the report the loop left.
+    fresh = port_cli(root, "--report-fresh", report, env=env, timeout=120).returncode
+    aged = port_cli(root, "--report-fresh", report, "--probe-results-max-age", "0.001",
+                    env=env, timeout=120).returncode
+    phase(7, "livenessProbe --report-fresh", exit_code=fresh, exit_code_max_age_0_001=aged)
+    if (fresh, aged) != (0, 1):
+        fail(f"--report-fresh exited {fresh}, and {aged} at max age 0.001")
+
+    # The aggregator over a one-node NodeList: this host as a GKE GPU node.
+    gpus = str(torch.cuda.device_count())
+    resources = {"cpu": "8", "memory": "32Gi", "pods": "110", "nvidia.com/gpu": gpus}
+    nodes = os.path.join(work, "nodes.json")
+    with open(nodes, "w") as f:
+        json.dump({"kind": "NodeList", "apiVersion": "v1", "items": [{
+            "metadata": {"name": node, "labels": {}}, "spec": {},
+            "status": {"allocatable": resources, "capacity": dict(resources),
+                       "conditions": [{"type": "Ready", "status": "True"}]},
+        }]}, f)
+    rc, payload = aggregate(root, nodes, reports, env)
+    probe = (payload.get("nodes") or [{}])[0].get("probe") or {}
+    phase(7, "aggregator on the loop's report", exit_code=rc,
+          probe_summary=payload.get("probe_summary"), probe_ok=probe.get("ok"),
+          probe_level=probe.get("level"))
+    if rc != 0 or probe.get("ok") is not True or probe.get("hostname") != node:
+        fail(f"the fleet checker did not grade the report healthy: exit {rc}, {probe}")
+
+    drills = os.path.join(work, "drills")
+    os.mkdir(drills)
+    t0 = time.perf_counter()
+    drill = port_cli(root, "--emit-probe", os.path.join(drills, f"{node}.json"),
+                     "--probe-topology", "1x1", "--probe-level", "collective",
+                     env={**env, "TNC_CHAOS_AXIS": "t1"})
+    drill_s = time.perf_counter() - t0
+    rc, payload = aggregate(root, nodes, drills, env)
+    summary = payload.get("probe_summary") or {}
+    probe = (payload.get("nodes") or [{}])[0].get("probe") or {}
+    phase(7, "aggregator on the t1 drill's report", emit_exit_code=drill.returncode,
+          emit_seconds=drill_s, exit_code=rc, probe_summary=summary,
+          error=probe.get("error"), ici_axis_ok=probe.get("ici_axis_ok"))
+    if drill.returncode != 3 or rc != 3 or summary.get("hosts_failed") != [node]:
+        fail(f"the drill's report was not graded failed: emit {drill.returncode}, "
+             f"exit {rc}, {summary}")
+
+    # The soak's burn rounds in this process, at the JAX package's size (16
+    # products, under a millisecond here) and at the size the child runs on
+    # a card (1024): the slowest round against the median, which the soak's
+    # verdict holds to 0.5.
+    from tpu_node_checker_torch.ops import soak_burn
+    rounds = {f"iters_{it}": soak_burn(8, iters=it, device="cuda:0").to_dict()
+              for it in (16, 1024)}
+    phase(7, "soak rounds in-process, 8 s each", **rounds)
+
+    # The acceptance Job's line, with a 20 s soak.
+    t0 = time.perf_counter()
+    job = port_cli(root, "--emit-probe", "-", "--probe-level", "compute", "--probe-soak", "20",
+                   "--perf-floor", "0.4", env=env)
+    job_s = time.perf_counter() - t0
+    try:
+        doc = json.loads(job.stdout)
+    except json.JSONDecodeError:
+        fail(f"the acceptance line printed no report (exit {job.returncode}): "
+             f"{job.stderr[-2000:]}")
+    soak = doc.get("soak") or {}
+    phase(7, "acceptance --probe-soak 20 --perf-floor 0.4", exit_code=job.returncode,
+          seconds=job_s, ok=doc.get("ok"), elapsed_ms=doc.get("elapsed_ms"), soak=soak,
+          tflops_median=soak.get("tflops_median"), perf_floor=doc.get("perf_floor"),
+          kernel_launches=doc.get("kernel_launches"), schema_violations=validate_report(doc))
+    if (job.returncode != 0 or not doc.get("ok") or soak.get("ok") is not True
+            or not soak.get("tflops_median") or (doc.get("elapsed_ms") or 0) < 20000):
+        fail(f"the acceptance line: exit {job.returncode}, {doc.get('error')}, soak {soak}")
+    if "skipped" not in (doc.get("perf_floor") or {}):
+        fail(f"perf_floor graded on a card with no floor table: {doc.get('perf_floor')}")
 
 
 def main() -> int:
@@ -868,8 +1049,12 @@ def main() -> int:
     # NCCL group (NCCL takes a send to and a receive from its own rank).
     phase6_paths(torch, root, dev, cfg, rows, tf32_default, validate_report)
 
-    # -- 7. the kernels line, the card line, the result line
+    # -- 7. the emitter's deployed command lines and the fleet checker
+    phase7_emitter(torch, root, rows, validate_report)
+
+    # -- 8. the kernels line, the card line, the result line
     keys = ("name", "route", "source", "replaces", "launches", "compute_launches",
+            "emitter_launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "device_ms",
             "library_device_ms", "ok", "check", "training_step")
     print(json.dumps({"kernels": [{k2: r[k2] for k2 in keys if k2 in r} for r in rows]}),

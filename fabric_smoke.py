@@ -36,19 +36,36 @@ non-zero and prints no result):
    ``BurninConfig()``; the pipeline and MoE probes with a stage drill and
    an expert drill; each fabric probe, a dead-link drill, ring attention
    at 1024 tokens a rank, and one more run after rank 0 worked alone past
-   the store's wait slice.
+   the store's wait slice;
+6. the emitter across the cards: a workload-level round whose
+   ``--probe-timeout`` fires while the child's spawned ranks are up, after
+   which no process of its session may remain (a scan of ``/proc``, and
+   ``nvidia-smi --query-compute-apps``) and each card's memory use must be
+   back to where it stood before; then a healthy workload round; then the
+   DaemonSet's ``--watch`` loop at the workload level, sent SIGTERM
+   mid-round, which must finish that round's report and exit 143 (the
+   seconds from SIGTERM to exit printed).
 
-The last line is ``{"ok": true, "cards": n}``.
+``python3 fabric_smoke.py --only emitter`` runs check 6 alone.  The last
+line is ``{"ok": true, "cards": n}``.
 """
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import json
 import os
+import signal
 import subprocess
 import sys
+import tempfile
 import time
+
+# How long the timed-out round runs: past the child's start-up and its
+# compute level, so the ranks it spawned are up (about 12 s in), and short
+# of the 23-37 s the workload level takes on four cards (PERF.md).
+TIMED_OUT_ROUND_S = 20.0
 
 
 def fail(msg: str) -> None:
@@ -60,7 +77,150 @@ def line(name: str, **fields) -> None:
     print(f"{name}: " + json.dumps(fields, default=str), flush=True)
 
 
+def smi(query: str) -> list:
+    """One ``nvidia-smi`` CSV query, a row of fields per line."""
+    out = subprocess.run(["nvidia-smi", query, "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True).stdout
+    return [[f.strip() for f in row.split(",")] for row in out.strip().splitlines()]
+
+
+def descendants(pid: int) -> dict:
+    """Every living process under ``pid``: {pid: command line}, from /proc."""
+    parent, cmd = {}, {}
+    for entry in os.listdir("/proc"):
+        if not entry.isdigit():
+            continue
+        try:
+            with open(f"/proc/{entry}/stat") as f:
+                fields = f.read().rsplit(")", 1)[1].split()
+            if fields[0] == "Z":
+                continue
+            with open(f"/proc/{entry}/cmdline", "rb") as f:
+                cmd[int(entry)] = f.read().replace(b"\0", b" ").decode(errors="replace")[:120]
+            parent[int(entry)] = int(fields[1])
+        except (OSError, IndexError, ValueError):
+            continue  # gone while scanned
+    found, frontier = {}, [pid]
+    while frontier:
+        p = frontier.pop()
+        for child, pp in parent.items():
+            if pp == p and child not in found:
+                found[child] = cmd.get(child, "")
+                frontier.append(child)
+    return found
+
+
+def alive(pid: int) -> bool:
+    """True while ``pid`` runs (a zombie holds nothing)."""
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(")", 1)[1].split()[0] != "Z"
+    except OSError:
+        return False
+
+
+def emitter_checks(root: str, n: int) -> None:
+    """Check 6: a timed-out round leaves nothing behind, and the loop stops
+    on SIGTERM mid-round."""
+    env = {k: v for k, v in os.environ.items() if not k.startswith("TNC_")}
+    env["TNC_SCHEMA_STRICT"] = "1"
+    work = tempfile.mkdtemp(prefix="fabric-smoke-emitter-")
+    used_before = [int(r[0]) for r in smi("--query-gpu=memory.used")]
+    apps_before = smi("--query-compute-apps=pid,used_memory")
+
+    # A round killed at its timeout while the ranks it spawned are up.
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "tpu_node_checker_torch", "--emit-probe", "-",
+         "--probe-level", "workload", "--probe-timeout", str(TIMED_OUT_ROUND_S)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=root, env=env,
+    )
+    seen, apps_during, ranks_up_s = {}, [], None
+    while proc.poll() is None:
+        now = descendants(proc.pid)
+        seen.update(now)
+        if ranks_up_s is None and sum("spawn_main" in c for c in now.values()) >= n - 1:
+            ranks_up_s = time.perf_counter() - t0
+            apps_during = smi("--query-compute-apps=pid,used_memory")
+        time.sleep(0.5)
+    out, _ = proc.communicate()
+    round_s = time.perf_counter() - t0
+    try:
+        rep = json.loads(out)
+    except json.JSONDecodeError:
+        fail(f"the timed-out round printed no report (exit {proc.returncode})")
+    left = {p: c for p, c in seen.items() if alive(p)}
+    # Card memory comes back once the killed processes are reaped.
+    for _ in range(30):
+        used_after = [int(r[0]) for r in smi("--query-gpu=memory.used")]
+        if all(a <= b + 256 for a, b in zip(used_after, used_before)):
+            break
+        time.sleep(1.0)
+    apps_after = smi("--query-compute-apps=pid,used_memory")
+    line("timed-out round", exit_code=proc.returncode, seconds=round_s, error=rep.get("error"),
+         ranks_up_s=ranks_up_s, processes_seen=len(seen), processes_left=left,
+         compute_apps_before=apps_before, compute_apps_during=apps_during,
+         compute_apps_after=apps_after, memory_used_mib_before=used_before,
+         memory_used_mib_after=used_after)
+    if proc.returncode != 3 or not (rep.get("error") or "").startswith(
+            f"probe timed out after {TIMED_OUT_ROUND_S}s"):
+        fail(f"the round did not time out: exit {proc.returncode}, {rep.get('error')}")
+    if ranks_up_s is None:
+        fail(f"the ranks were not up before the timeout: {seen}")
+    if left or apps_after != apps_before:
+        fail(f"processes of the timed-out round remain: {left} {apps_after}")
+    if any(a > b + 256 for a, b in zip(used_after, used_before)):
+        fail(f"card memory not freed: {used_before} MiB before, {used_after} MiB after")
+
+    # The next round, healthy on every card.
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "tpu_node_checker_torch", "--emit-probe", "-",
+         "--probe-level", "workload"],
+        capture_output=True, text=True, cwd=root, timeout=600, env=env,
+    )
+    rep = json.loads(proc.stdout) if proc.stdout.strip() else {}
+    line("round after the timed-out one", exit_code=proc.returncode,
+         seconds=time.perf_counter() - t0, ok=rep.get("ok"), error=rep.get("error"),
+         workload_devices=rep.get("workload_devices"))
+    if proc.returncode != 0 or not rep.get("ok"):
+        fail(f"the round after the timed-out one is not healthy: {rep.get('error')}")
+
+    # The DaemonSet's loop at the workload level, SIGTERM in mid-round: the
+    # round finishes, writes its report and line, and the loop exits 143.
+    report, log = os.path.join(work, "node.json"), os.path.join(work, "rounds.jsonl")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "tpu_node_checker_torch", "--emit-probe", report,
+         "--probe-level", "workload", "--watch", "600", "--log-jsonl", log],
+        stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True, cwd=root, env=env,
+    )
+    time.sleep(TIMED_OUT_ROUND_S)
+    t_term = time.perf_counter()
+    proc.send_signal(signal.SIGTERM)
+    try:
+        rc = proc.wait(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+    term_s = time.perf_counter() - t_term
+    err = proc.stderr.read()
+    proc.stderr.close()
+    with open(log) as f:
+        entries = [json.loads(x) for x in f.read().splitlines()]
+    with open(report) as f:
+        rep = json.load(f)
+    line("--watch at the workload level, SIGTERM mid-round", exit_code=rc,
+         sigterm_after_s=t_term - t0, sigterm_to_exit_s=term_s, round_elapsed_ms=rep.get(
+             "elapsed_ms"), ok=rep.get("ok"), log=entries, stderr_tail=err.strip().splitlines())
+    if rc != 143 or len(entries) != 1 or entries[0]["exit_code"] != 0 or not rep.get("ok"):
+        fail(f"the loop did not finish its round and stop: exit {rc}, {entries}")
+
+
 def main() -> int:
+    args = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    args.add_argument("--only", choices=["emitter"], help="run only check 6, the emitter's")
+    only = args.parse_args().only
     try:
         import torch
     except ImportError as exc:
@@ -84,11 +244,15 @@ def main() -> int:
         from tpu_node_checker_torch.probe.schema import validate_report
     except ImportError as exc:
         fail(f"the tpu_node_checker_torch package is not beside this script: {exc}")
-    smi = subprocess.run(
+    cards = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()
-    line("environment", torch=torch.__version__, cards=smi)
+    line("environment", torch=torch.__version__, cards=cards)
+    if only == "emitter":
+        emitter_checks(root, n)
+        print(json.dumps({"ok": True, "cards": n}), flush=True)
+        return 0
 
     def probe(level: str, **env) -> tuple:
         t0 = time.perf_counter()
@@ -289,6 +453,9 @@ def main() -> int:
              workload_ok=wl.ok, ring_attention_ok=again.ok)
         if not (wl.ok and again.ok):
             fail("the group did not survive rank 0 working alone")
+
+    # -- 6. the emitter across the cards
+    emitter_checks(root, n)
     print(json.dumps({"ok": True, "cards": n}), flush=True)
     return 0
 

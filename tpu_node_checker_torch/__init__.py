@@ -5,7 +5,9 @@ compute-level probe, its report and its schema, with the three kernels the
 JAX package writes in Pallas for the TPU written by hand in CUDA C++ for
 ``sm_90a`` (``ops/csrc/``).  It imports torch and nothing of JAX.
 
-Entry point: ``python -m tpu_node_checker_torch --emit-probe FILE|-``.
+Entry point: ``python -m tpu_node_checker_torch`` with ``--emit-probe
+FILE|-`` (once, or every ``--watch`` seconds as the emitter DaemonSet runs
+it), ``--report-fresh FILE`` or ``--probe-report-schema``.
 """
 
 __all__ = ["__version__"]

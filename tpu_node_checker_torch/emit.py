@@ -1,17 +1,28 @@
-"""``--emit-probe``: probe this host once and write the report atomically.
+"""The node-side emitter: ``--emit-probe`` once or on a cadence, and
+``--report-fresh``.
 
 The report is the probe child's, plus the envelope the fleet checker grades
 it by: ``schema`` (the contract's major version) and ``written_at`` (its
 staleness anchor), as the JAX package's emitter writes it.  The JAX fleet
 checker reads such files through ``--probe-results DIR``; that is the only
 way the two packages meet.
+
+A DaemonSet pod runs :func:`emit_probe_loop` (``--watch``), which rewrites the
+report every interval and appends one ``--trend``-shaped line per round to
+``--log-jsonl``; its livenessProbe runs :func:`report_fresh`.  These are
+copies of the JAX checker's emitter (``checker.py`` ``_emit_probe_once``,
+``_emitter_round_entry``, ``_append_jsonl``, ``emit_probe_loop`` without the
+metrics server and the history, ``report_fresh`` and the loop's signal and
+wait seams).
 """
 
 from __future__ import annotations
 
 import json
+import math
 import os
 import sys
+import threading
 import time
 from typing import Optional, Tuple
 
@@ -20,7 +31,14 @@ from tpu_node_checker_torch.probe.schema import strict_mode, validate_report
 
 REPORT_SCHEMA_VERSION = 1
 EXIT_OK = 0
+EXIT_ERROR = 1
 EXIT_NONE_READY = 3
+EXIT_SIGTERM = 128 + 15
+
+# How far in the FUTURE a probe report's written_at may sit before it is
+# refused as clock skew (the JAX checker's own allowance, which its
+# aggregator applies to the same files).
+CLOCK_SKEW_ALLOWANCE_S = 60.0
 
 
 def emit_probe_once(
@@ -28,6 +46,9 @@ def emit_probe_once(
     level: str = "enumerate",
     timeout_s: Optional[float] = None,
     device: str = "cuda:0",
+    topology: Optional[str] = None,
+    soak_s: float = 0.0,
+    perf_floor: Optional[float] = None,
 ) -> Tuple[int, dict]:
     """One probe and one atomic report write (``-`` writes to stdout).
 
@@ -35,7 +56,10 @@ def emit_probe_once(
     A report that violates the declared schema warns on stderr, or raises
     under ``TNC_SCHEMA_STRICT``.
     """
-    probed = run_local_probe(level=level, timeout_s=timeout_s, device=device)
+    probed = run_local_probe(
+        level=level, timeout_s=timeout_s, device=device,
+        topology=topology, soak_s=soak_s, perf_floor=perf_floor,
+    )
     doc = probed.to_dict()
     doc["schema"] = REPORT_SCHEMA_VERSION
     doc["written_at"] = time.time()
@@ -47,11 +71,145 @@ def emit_probe_once(
         print(f"WARNING: {msg}", file=sys.stderr)
     payload = json.dumps(doc, ensure_ascii=False, indent=2)
     if target == "-":
-        print(payload)
+        print(payload, flush=True)
     else:
         tmp = f"{target}.tmp"
         with open(tmp, "w") as f:
             f.write(payload + "\n")
         os.replace(tmp, target)
-        print(f"Probe report written to {target} (ok={probed.ok}).", file=sys.stderr)
+        print(f"Probe report written to {target} (ok={probed.ok}).", file=sys.stderr, flush=True)
     return (EXIT_OK if probed.ok else EXIT_NONE_READY), doc
+
+
+def emitter_round_entry(rc: int, doc: dict) -> dict:
+    """One ``--trend``-compatible log line for an emission round."""
+    entry = {
+        "ts": round(time.time(), 3),
+        "exit_code": rc,
+        "probe_ok": bool(doc.get("ok")),
+        "probe_level": doc.get("level"),
+        "duration_ms": doc.get("elapsed_ms"),
+    }
+    if rc != EXIT_OK:
+        entry["causes"] = [
+            f"probe-failed: {doc.get('hostname') or 'local'}"
+            + (f" ({doc.get('error')})" if doc.get("error") else "")
+        ]
+    return entry
+
+
+def append_jsonl(path: str, entry: dict) -> None:
+    """Append one JSONL line, never raising: a full disk must not kill a
+    monitoring round."""
+    try:
+        with open(path, "a") as f:
+            f.write(json.dumps(entry, ensure_ascii=False) + "\n")
+    except OSError as exc:
+        print(f"Cannot append state log {path}: {exc}", file=sys.stderr)
+
+
+def emit_probe_loop(target: str, interval: float, log_jsonl: Optional[str] = None,
+                    **probe) -> int:
+    """``--emit-probe FILE --watch SECONDS``: the DaemonSet emitter loop.
+
+    Rewrites the report every ``interval`` seconds, measured from the start
+    of a round (a round longer than the interval starts the next one at
+    once), and appends each round to ``log_jsonl``.  Each round spawns a
+    fresh probe child.  One bad round (a shared-volume blip, a probe crash)
+    is logged as an ``EXIT_ERROR`` round and the loop goes on: a
+    crash-looping pod would let the report go stale.  Runs until SIGTERM,
+    which stops the loop after the current emission and returns 143.
+    ``probe`` is passed to :func:`emit_probe_once`.
+    """
+    stop = threading.Event()
+    prev_handler = _install_stop_signal(stop)
+    try:
+        return _emit_probe_rounds(target, interval, log_jsonl, probe, stop)
+    finally:
+        _restore_stop_signal(prev_handler)
+
+
+def _emit_probe_rounds(target, interval, log_jsonl, probe, stop) -> int:
+    while True:
+        round_start = time.monotonic()
+        try:
+            rc, doc = emit_probe_once(target, **probe)
+        except Exception as exc:  # tnc: allow-broad-except(emitter must survive a round)
+            print(f"Probe emission failed: {exc}", file=sys.stderr)
+            entry = {"ts": round(time.time(), 3), "exit_code": EXIT_ERROR, "error": str(exc)}
+        else:
+            entry = emitter_round_entry(rc, doc)
+        if log_jsonl:
+            append_jsonl(log_jsonl, entry)
+        # Fixed cadence: the probe's time comes out of the interval, so the
+        # report's age keeps the margin the aggregator's max-age assumes.
+        if _wait_for_next_round(stop, max(0.0, interval - (time.monotonic() - round_start))):
+            print(
+                "SIGTERM: emitter loop stopped cleanly (last report and "
+                "round log flushed).",
+                file=sys.stderr,
+            )
+            return EXIT_SIGTERM
+
+
+def _install_stop_signal(stop: threading.Event) -> object:
+    """SIGTERM sets ``stop``, so the loop exits at its next wait instead of
+    dying mid-round with the round unlogged.  Returns the previous handler,
+    or None where no handler can be installed (off the main thread)."""
+    import signal
+
+    def _handler(signum, frame):
+        stop.set()
+
+    try:
+        return signal.signal(signal.SIGTERM, _handler)
+    except (AttributeError, ValueError, OSError):
+        return None
+
+
+def _restore_stop_signal(prev) -> None:
+    if prev is None:
+        return
+    import signal
+
+    try:
+        signal.signal(signal.SIGTERM, prev)
+    except (AttributeError, ValueError, OSError):
+        pass
+
+
+def _wait_for_next_round(stop: threading.Event, seconds: float) -> bool:
+    """The inter-round wait: True when shutdown was asked for (at once,
+    mid-wait).  The seam the loop tests drive the loop through."""
+    return stop.wait(max(0.0, seconds))
+
+
+def report_fresh(path: str, max_age: float) -> int:
+    """``--report-fresh FILE``: the emitter's liveness verdict on its own
+    report.  0 when its ``written_at`` is younger than ``max_age`` and not
+    dated more than :data:`CLOCK_SKEW_ALLOWANCE_S` ahead; 1 when it is
+    stale, future-dated, unreadable, not a JSON object, or its ``written_at``
+    is missing or not a finite number."""
+    try:
+        with open(path) as f:
+            # AttributeError: valid JSON whose root is not an object.
+            written_at = float(json.load(f).get("written_at"))
+        if not math.isfinite(written_at):
+            # NaN passes both comparisons below; it must fail.
+            raise ValueError(f"non-finite written_at {written_at!r}")
+    except (OSError, json.JSONDecodeError, TypeError, ValueError, AttributeError) as exc:
+        print(f"probe report {path} unreadable: {exc}", file=sys.stderr)
+        return 1
+    age = time.time() - written_at
+    if age < -CLOCK_SKEW_ALLOWANCE_S:
+        print(
+            f"probe report {path} future-dated: written {-age:.0f}s ahead of "
+            f"this host's clock (skew beyond {CLOCK_SKEW_ALLOWANCE_S:.0f}s)",
+            file=sys.stderr,
+        )
+        return 1
+    if age > max_age:
+        print(f"probe report {path} stale: age {age:.0f}s > {max_age:.0f}s", file=sys.stderr)
+        return 1
+    print(f"probe report {path} fresh (age {age:.0f}s).", file=sys.stderr)
+    return 0

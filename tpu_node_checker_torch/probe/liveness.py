@@ -41,6 +41,7 @@ from __future__ import annotations
 
 import json
 import os
+import signal
 import subprocess
 import sys
 import time
@@ -232,8 +233,12 @@ try:
         )
         soak_s = float(os.environ.get("TNC_SOAK_S") or 0)
         if soak_s > 0 and out["ok"]:
+            # Card sizing again: the JAX round of 16 products takes under a
+            # millisecond on an H100, where one slow round reads as a
+            # collapse and fails a healthy card; 1024 take about 50 ms.
             soak = ops.soak_burn(
                 soak_s,
+                iters=1024 if on_card else 16,
                 device=dev,
                 min_sustained_ratio=float(os.environ.get("TNC_SOAK_MIN_RATIO") or 0.5),
                 hbm_mib=int(os.environ.get("TNC_SOAK_HBM_MIB") or 128),
@@ -527,6 +532,9 @@ def run_local_probe(
     timeout_s: Optional[float] = None,
     expected_devices: Optional[int] = None,
     device: str = "cuda:0",
+    topology: Optional[str] = None,
+    soak_s: float = 0.0,
+    perf_floor: Optional[float] = None,
 ) -> ProbeResult:
     """Probe this host's cards in a child process; never raises on a probe
     failure.
@@ -538,19 +546,39 @@ def run_local_probe(
     the per-level budget from :data:`LEVEL_TIMEOUTS_S`.  The child reads the
     JAX child's ``TNC_*`` settings (floors, chaos, skips, soak, topology)
     from the environment.  What :func:`not_yet_ported` names fails as such.
+
+    ``topology`` (a label like ``"2x2"``) sets ``TNC_TOPOLOGY``: one
+    all_reduce per torus axis at the collective level and above.
+    ``soak_s > 0`` sets ``TNC_SOAK_S`` and extends the kill-timer by as
+    much, since the soak spends its time inside the child by design.
+    ``perf_floor`` sets ``TNC_PERF_FLOOR``, the fraction of the expected
+    figures the measured ones must reach (0 disables).
+
+    On a timeout the child's whole session is killed, the ranks it spawned
+    with it (:func:`_run_child`).
     """
     if level not in LEVELS:
         raise ValueError(f"unknown probe level {level!r}; expected one of {LEVELS}")
     if timeout_s is None:
         timeout_s = LEVEL_TIMEOUTS_S[level]
+    if soak_s > 0:
+        # The soak loop spends its budget inside the child by design; the
+        # kill-timer must leave room for it on top of the level's own work.
+        timeout_s += soak_s
     hostname = os.environ.get("NODE_NAME") or os.uname().nodename
     t0 = time.perf_counter()
     child_env = {**os.environ, "PYTHONPATH": _pythonpath()}
+    if topology:
+        child_env["TNC_TOPOLOGY"] = topology
+    if soak_s > 0:
+        child_env["TNC_SOAK_S"] = str(soak_s)
+    if perf_floor is not None:
+        # Floor fraction override (0 disables); the child defaults to
+        # DEFAULT_FLOOR_FRACTION when unset.
+        child_env["TNC_PERF_FLOOR"] = str(perf_floor)
     try:
-        proc = subprocess.run(
+        proc = _run_child(
             [sys.executable, "-c", _CHILD_SCRIPT, level, str(device)],
-            capture_output=True,
-            text=True,
             timeout=timeout_s,
             env=child_env,
         )
@@ -595,6 +623,40 @@ def run_local_probe(
             f"only {result.device_count}/{expected_devices} expected devices enumerated"
         )
     return result
+
+
+def _run_child(argv: List[str], *, timeout: float, env: Mapping[str, str]):
+    """``subprocess.run(argv, capture_output=True, text=True, ...)`` in a
+    session of its own; on a timeout the whole process group is killed.
+
+    The child spawns one rank per extra card, and a rank inside a collective
+    would outlive a kill of the child alone by the group's timeout, holding
+    its card.  Raises ``subprocess.TimeoutExpired`` (with what the child had
+    printed) once every process of the session is killed and the child
+    reaped; any other exception kills the group too and propagates.
+    """
+    with subprocess.Popen(
+        argv, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env=dict(env), start_new_session=True,
+    ) as proc:
+        try:
+            stdout, stderr = proc.communicate(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            _kill_session(proc)
+            stdout, stderr = proc.communicate()
+            raise subprocess.TimeoutExpired(argv, timeout, output=stdout, stderr=stderr)
+        except BaseException:
+            _kill_session(proc)
+            raise
+    return subprocess.CompletedProcess(argv, proc.returncode, stdout, stderr)
+
+
+def _kill_session(proc: subprocess.Popen) -> None:
+    """SIGKILL every process in ``proc``'s group (its pid: a session leader)."""
+    try:
+        os.killpg(proc.pid, signal.SIGKILL)
+    except ProcessLookupError:
+        pass  # the group is already gone
 
 
 def not_yet_ported(env: Mapping[str, str]) -> Optional[str]:
