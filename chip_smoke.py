@@ -57,8 +57,9 @@ Phases, one line each (any failure exits non-zero and prints no result):
    and a ``--probe-topology 1x1`` drill report under ``TNC_CHAOS_AXIS=t1``
    failed (exit 3, the node named); and the acceptance Job's
    ``--emit-probe - --probe-level compute --probe-soak 20 --perf-floor
-   0.4`` (healthy, its soak and floor verdicts printed), after the soak's
-   rounds timed in-process at two sizes;
+   0.4`` (healthy, its soak and floor verdicts printed, with the card's
+   clock and power sampled meanwhile), after the soak's rounds in-process
+   on an idle host and on one kept busy by a spinning process per core;
 8. the ``kernels`` line (each kernel at the compute probe's shapes, its
    launches counted on the workload path and in each emitter round, flash
    also at the training step's shape), then the ``nvidia-smi`` line, then
@@ -71,9 +72,11 @@ back-to-back launches, inputs warm in L2.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import signal
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -412,6 +415,60 @@ def aggregate(root: str, nodes: str, reports: str, env: dict) -> tuple:
              f"{proc.stderr[-2000:]}")
 
 
+@contextlib.contextmanager
+def busy_host():
+    """One spinning process per core for the ``with`` body; yields their count."""
+    procs = [subprocess.Popen([sys.executable, "-c", "while True: pass"])
+             for _ in range(os.cpu_count() or 1)]
+    try:
+        yield len(procs)
+    finally:
+        for p in procs:
+            p.kill()
+            p.wait()
+
+
+def eager_chain_rounds(torch, seconds: float, iters: int, n: int = 2048) -> dict:
+    """The burn chain issued product by product, each round timed on the host
+    clock after a warm-up: TFLOP/s min, median, max and min/median."""
+    from tpu_node_checker_torch.ops.burn import _burn_chain, _burn_input
+    a = _burn_input(n, torch.device("cuda:0"))
+    rates = []
+    deadline = time.perf_counter() + seconds
+    while time.perf_counter() < deadline:
+        _burn_chain(a, iters).item()
+        t0 = time.perf_counter()
+        _burn_chain(a, iters).item()
+        rates.append(2.0 * n ** 3 * iters / (time.perf_counter() - t0) / 1e12)
+    med = statistics.median(rates)
+    return {"rounds": len(rates), "tflops_min": min(rates), "tflops_median": med,
+            "tflops_max": max(rates), "min_over_median": min(rates) / med}
+
+
+@contextlib.contextmanager
+def card_samples():
+    """The card's SM clock (MHz), power draw (W) and active clock-event
+    reasons, read by ``nvidia-smi`` every 250 ms for the ``with`` body; the
+    yielded dict is filled when the body ends."""
+    out = {}
+    proc = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,clocks_throttle_reasons.active",
+         "--format=csv,noheader,nounits", "-lms", "250"],
+        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    try:
+        yield out
+    finally:
+        proc.terminate()
+        text = proc.communicate(timeout=30)[0]
+    rows = [r.split(", ") for r in text.splitlines() if r.count(",") == 2]
+    for key, col in (("sm_clock_mhz", 0), ("power_w", 1)):
+        vals = [float(r[col]) for r in rows if r[col].replace(".", "").isdigit()]
+        if vals:
+            out[key] = {"min": min(vals), "median": statistics.median(vals), "max": max(vals)}
+    out["samples"] = len(rows)
+    out["clock_event_reasons"] = sorted({r[2] for r in rows})
+
+
 def phase7_emitter(torch, root, rows, validate_report) -> None:
     """Phase 7: the emitter's deployed command lines, and the fleet checker
     grading what they write."""
@@ -522,19 +579,28 @@ def phase7_emitter(torch, root, rows, validate_report) -> None:
         fail(f"the drill's report was not graded failed: emit {drill.returncode}, "
              f"exit {rc}, {summary}")
 
-    # The soak's burn rounds in this process, at the JAX package's size (16
-    # products, under a millisecond here) and at the size the child runs on
-    # a card (1024): the slowest round against the median, which the soak's
-    # verdict holds to 0.5.
+    # The soak's rounds in this process at the card's size (1024 products),
+    # on an idle host and on a host kept busy by one spinning process per
+    # core.  The soak times its chain on the card (one CUDA graph between two
+    # events), so the slowest round against the median, which its verdict
+    # holds to 0.5, must not move with the host.  Beside them, the same chain
+    # issued product by product on the host clock, as the soak timed it
+    # before, on the busy host: what a loaded node did to that reading.
     from tpu_node_checker_torch.ops import soak_burn
-    rounds = {f"iters_{it}": soak_burn(8, iters=it, device="cuda:0").to_dict()
-              for it in (16, 1024)}
-    phase(7, "soak rounds in-process, 8 s each", **rounds)
+    idle = soak_burn(8, iters=1024, device="cuda:0").to_dict()
+    with busy_host() as spinning:
+        busy = soak_burn(8, iters=1024, device="cuda:0").to_dict()
+        eager = eager_chain_rounds(torch, 8, iters=1024)
+    phase(7, "soak rounds in-process, 8 s each", idle_host=idle, busy_host=busy,
+          spinning_processes=spinning, busy_host_eager_chain_host_clock=eager)
+    if idle["ok"] is not True or busy["ok"] is not True:
+        fail(f"the in-process soak failed: idle host {idle}, busy host {busy}")
 
     # The acceptance Job's line, with a 20 s soak.
     t0 = time.perf_counter()
-    job = port_cli(root, "--emit-probe", "-", "--probe-level", "compute", "--probe-soak", "20",
-                   "--perf-floor", "0.4", env=env)
+    with card_samples() as samples:
+        job = port_cli(root, "--emit-probe", "-", "--probe-level", "compute", "--probe-soak",
+                       "20", "--perf-floor", "0.4", env=env)
     job_s = time.perf_counter() - t0
     try:
         doc = json.loads(job.stdout)
@@ -545,7 +611,8 @@ def phase7_emitter(torch, root, rows, validate_report) -> None:
     phase(7, "acceptance --probe-soak 20 --perf-floor 0.4", exit_code=job.returncode,
           seconds=job_s, ok=doc.get("ok"), elapsed_ms=doc.get("elapsed_ms"), soak=soak,
           tflops_median=soak.get("tflops_median"), perf_floor=doc.get("perf_floor"),
-          kernel_launches=doc.get("kernel_launches"), schema_violations=validate_report(doc))
+          kernel_launches=doc.get("kernel_launches"), schema_violations=validate_report(doc),
+          card=samples)
     if (job.returncode != 0 or not doc.get("ok") or soak.get("ok") is not True
             or not soak.get("tflops_median") or (doc.get("elapsed_ms") or 0) < 20000):
         fail(f"the acceptance line: exit {job.returncode}, {doc.get('error')}, soak {soak}")

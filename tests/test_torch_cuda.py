@@ -19,6 +19,7 @@ port_dma = importlib.import_module("tpu_node_checker_torch.ops.dma_probe")
 port_flash = importlib.import_module("tpu_node_checker_torch.ops.flash_attention")
 port_matmul = importlib.import_module("tpu_node_checker_torch.ops.pallas_probe")
 port_liveness = importlib.import_module("tpu_node_checker_torch.probe.liveness")
+port_burn = importlib.import_module("tpu_node_checker_torch.ops.burn")
 port_burnin = importlib.import_module("tpu_node_checker_torch.models.burnin")
 port_parallel = importlib.import_module("tpu_node_checker_torch.parallel")
 port_sweep = importlib.import_module("tpu_node_checker_torch.meshprobe.sweep")
@@ -134,6 +135,27 @@ def test_compute_probe_on_card(cuda_device):
     d = r.to_dict()
     assert d["pallas_ok"] and d["dma_ok"] and d["flash_attention_ok"]
     assert all(n > 0 for n in d["kernel_launches"].values()), d["kernel_launches"]
+
+
+@pytest.mark.cuda
+def test_burn_graph_replays_the_eager_chain(cuda_device):
+    n, iters = 512, 8
+    a = port_burn._burn_input(n, cuda_device)
+    run = port_burn._chain_runner(a, iters)
+    first, seconds = run()
+    again, _ = run()
+    eager = float(port_burn._burn_chain(a, iters).item())
+    assert seconds > 0
+    assert first == again
+    # The same products; the library may pick another algorithm under capture.
+    assert abs(first - eager) <= 0.01 * n, (first, eager)
+
+
+@pytest.mark.cuda
+def test_soak_on_card(cuda_device):
+    r = port_burn.soak_burn(2.0, iters=64, device=cuda_device)
+    assert r.ok, r.error
+    assert r.rounds > 1 and r.sustained_ratio >= 0.5
 
 
 @pytest.fixture()

@@ -296,6 +296,27 @@ class TestBurn:
         assert r.ok, r.error
         assert r.rounds == 1 and r.to_dict()["rounds"] == 1
 
+    def test_soak_builds_the_chain_once(self, monkeypatch):
+        built = []
+        runner = port_burn._chain_runner
+
+        def counting_runner(a, iters):
+            built.append(iters)
+            return runner(a, iters)
+
+        monkeypatch.setattr(port_burn, "_chain_runner", counting_runner)
+        r = port_burn.soak_burn(0.2, n=64, iters=2, device="cpu", hbm_mib=0,
+                                min_sustained_ratio=0.0)
+        assert r.ok, r.error
+        assert r.rounds > 1 and built == [2]
+
+    def test_soak_names_the_round_whose_check_failed(self, monkeypatch):
+        monkeypatch.setattr(port_burn, "_invariant",
+                            lambda a: (torch.tensor(2.0), torch.tensor(1.0)))
+        r = port_burn.soak_burn(0.0, n=64, iters=2, device="cpu", hbm_mib=0)
+        assert not r.ok and r.rounds == 1
+        assert r.error.startswith("round 1 burn failed: tensor-core/elementwise invariant mismatch")
+
 
 class TestHbmStream:
     def test_stream_matches_jax_exactly(self):

@@ -5,6 +5,12 @@
   and cast back to bf16 so the values stay finite: f32 accumulation, then
   x 1/sqrt(n), then the cast, exactly as the JAX chain steps.  The product is
   a library call (``torch.mm``), as the JAX package leaves it to XLA.
+* On the card the chain is captured once as a CUDA graph and replayed: one
+  launch for the whole chain, as the JAX chain is one compiled program.
+  CUDA events time the replay on the device, so a host that stalls while it
+  issues work does not read as a slow card (the soak grades the slowest
+  round, and per-product launches from an eager loop let a busy host set
+  that round's time).
 * Correctness is checked with an invariant a second unit verifies cheaply:
   ``trace(A @ A^T) == ||A||_F^2``.  The left side runs on the tensor cores,
   the right side is an elementwise square-reduce.  Disagreement beyond bf16
@@ -17,7 +23,7 @@ import math
 import statistics
 import time
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -51,13 +57,55 @@ def _burn_chain(a: torch.Tensor, iters: int) -> torch.Tensor:
     """``iters`` chained bf16 products, rescaled each step to stay finite.
 
     Returns the f32 scalar checksum of the final product; fetching it is the
-    completion barrier.
+    completion barrier.  The scale is the f32 value JAX computes, held as a
+    host scalar: no copy to the card, so the chain can be captured.
     """
-    scale = torch.tensor(float(a.shape[0]), dtype=torch.float32, device=a.device).sqrt().reciprocal()
+    scale = torch.tensor(float(a.shape[0]), dtype=torch.float32).sqrt().reciprocal().item()
     x = a
     for _ in range(iters):
         x = (_mm_f32(x, a) * scale).to(a.dtype)
     return x.float().sum()
+
+
+def _chain_runner(a: torch.Tensor, iters: int) -> Callable[[], Tuple[float, float]]:
+    """A function that runs the chain once and returns (checksum, seconds).
+
+    On the CPU it runs the chain eagerly on the host clock.  On the card the
+    chain is captured here, once, as a CUDA graph (cuBLAS warmed first on a
+    side stream, as capture requires), and each run replays the graph
+    between two CUDA events.
+    """
+    if a.device.type != "cuda":
+        def run_eager() -> Tuple[float, float]:
+            t0 = time.perf_counter()
+            checksum = float(_burn_chain(a, iters).item())
+            return checksum, time.perf_counter() - t0
+        return run_eager
+    side = torch.cuda.Stream(a.device)
+    side.wait_stream(torch.cuda.current_stream(a.device))
+    with torch.cuda.stream(side):
+        _burn_chain(a, 1)
+    torch.cuda.current_stream(a.device).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = _burn_chain(a, iters)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+
+    def run_graph() -> Tuple[float, float]:
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        return float(out.item()), start.elapsed_time(end) / 1e3
+    return run_graph
+
+
+def _burn_input(n: int, dev: torch.device) -> torch.Tensor:
+    gen = torch.Generator(device=dev).manual_seed(0)
+    a = torch.randn((n, n), generator=gen, device=dev).to(torch.bfloat16)
+    sync(dev)
+    return a
 
 
 def _invariant(a: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -66,24 +114,21 @@ def _invariant(a: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return torch.trace(prod), a.float().square().sum()
 
 
-def matmul_burn(
-    n: int = 2048,
-    iters: int = 16,
-    device: DeviceLike = None,
-    rel_tol: float = 5e-2,
+def _raised(exc: Exception, n: int, iters: int) -> BurnResult:
+    return BurnResult(
+        ok=False, tflops=0.0, elapsed_ms=0.0, rel_err=float("inf"), n=n, iters=iters,
+        error=f"{type(exc).__name__}: {exc}",
+    )
+
+
+def _burn_round(
+    a: torch.Tensor, run: Callable[[], Tuple[float, float]], iters: int, rel_tol: float,
 ) -> BurnResult:
-    """Run the burn on one device (default ``cuda:0``)."""
+    """One burn: a warm-up run, the timed run, then the invariant check."""
+    n = a.shape[0]
     try:
-        dev = resolve_device(device)
-        gen = torch.Generator(device=dev).manual_seed(0)
-        a = torch.randn((n, n), generator=gen, device=dev).to(torch.bfloat16)
-        # The warm-up runs once; the timed run measures steady state.  The
-        # scalar fetch after the synchronise is the completion barrier.
-        checksum = float(_burn_chain(a, iters).item())
-        sync(dev)
-        t0 = time.perf_counter()
-        checksum = float(_burn_chain(a, iters).item())
-        elapsed = time.perf_counter() - t0
+        run()
+        checksum, elapsed = run()
         tflops = (2.0 * n * n * n * iters) / elapsed / 1e12
         if not math.isfinite(checksum):
             return BurnResult(
@@ -105,10 +150,22 @@ def matmul_burn(
             error=None if ok else f"tensor-core/elementwise invariant mismatch: rel_err={rel_err:.3e}",
         )
     except Exception as exc:  # probes report, never raise
-        return BurnResult(
-            ok=False, tflops=0.0, elapsed_ms=0.0, rel_err=float("inf"), n=n, iters=iters,
-            error=f"{type(exc).__name__}: {exc}",
-        )
+        return _raised(exc, n, iters)
+
+
+def matmul_burn(
+    n: int = 2048,
+    iters: int = 16,
+    device: DeviceLike = None,
+    rel_tol: float = 5e-2,
+) -> BurnResult:
+    """Run the burn on one device (default ``cuda:0``)."""
+    try:
+        a = _burn_input(n, resolve_device(device))
+        run = _chain_runner(a, iters)
+    except Exception as exc:  # probes report, never raise
+        return _raised(exc, n, iters)
+    return _burn_round(a, run, iters, rel_tol)
 
 
 @dataclass
@@ -157,11 +214,15 @@ def soak_burn(
     a ``hbm_mib``-MiB streaming pass, so the compute units and the memory
     channels stay loaded for the whole budget.  Verdict: every round clean
     AND the slowest burn round kept at least ``min_sustained_ratio`` of the
-    median throughput.  ``hbm_mib=0`` disables the memory leg.
+    median throughput.  ``hbm_mib=0`` disables the memory leg.  The chain is
+    captured once for the whole soak (on the card, one CUDA graph), as the
+    JAX chain is compiled once and rerun.
     """
     from tpu_node_checker_torch.ops.hbm import hbm_bandwidth_probe
 
     try:
+        a = _burn_input(n, resolve_device(device))
+        run = _chain_runner(a, iters)
         t_start = time.perf_counter()
         deadline = t_start + seconds
         tflops: list = []
@@ -185,7 +246,7 @@ def soak_burn(
             )
 
         while time.perf_counter() < deadline or rounds == 0:
-            r = matmul_burn(n=n, iters=iters, device=device)
+            r = _burn_round(a, run, iters, rel_tol=5e-2)
             rounds += 1
             if not r.ok:
                 return _stats(False, 0.0, f"round {rounds} burn failed: {r.error}")

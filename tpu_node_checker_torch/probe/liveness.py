@@ -233,9 +233,10 @@ try:
         )
         soak_s = float(os.environ.get("TNC_SOAK_S") or 0)
         if soak_s > 0 and out["ok"]:
-            # Card sizing again: the JAX round of 16 products takes under a
-            # millisecond on an H100, where one slow round reads as a
-            # collapse and fails a healthy card; 1024 take about 50 ms.
+            # Card sizing again: the JAX round of 16 products keeps an H100
+            # busy for under a millisecond, and the host's work between
+            # rounds leaves the card mostly idle; 1024 take about 40 ms, so
+            # the card stays loaded for the soak's budget.
             soak = ops.soak_burn(
                 soak_s,
                 iters=1024 if on_card else 16,
