@@ -22,7 +22,8 @@ Phases, one line each (any failure exits non-zero and prints no result):
    (``python -m tpu_node_checker_torch --emit-probe - --probe-level compute``),
    which must report healthy, validate against the report schema and show
    every kernel launched; then the three kernel probes in this process, with
-   their launch counts;
+   their launch counts; then the int8 chain's device time by kernel, and its
+   product alone with the right operand row-major and column-major;
 5. workload path: in this process, at the full ``BurninConfig()``, the flash
    kernel against its plain version at the training step's shape
    (8, 4, 128, 32) bf16, one training step with ``attention="flash"``
@@ -46,10 +47,16 @@ Phases, one line each (any failure exits non-zero and prints no result):
    and MoE probes and their stage-0 and expert-0 drills, each timed;
 7. emitter: the node side as it is deployed, each line a subprocess.  The
    DaemonSet's ``--emit-probe DIR/$NODE_NAME.json --probe-level compute
-   --watch 5 --log-jsonl L``, sent SIGTERM 2 s after its second report,
-   in its third round (every round healthy, logged and launching all
-   three kernels; each round's time, the gap between round starts and the
-   seconds from SIGTERM to exit printed); its livenessProbe
+   --watch 5 --metrics-port 0 --log-jsonl L``, sent SIGTERM 2 s after its
+   second report, in its third round (every round healthy, logged and
+   launching all three kernels; each round's time, the gap between round
+   starts and the seconds from SIGTERM to exit printed), its ``/metrics``
+   scraped on the port its stderr line names after the first and the
+   second report (the probe gauges equal to that round's report, the exit
+   code 0, the timestamp inside the round's window and moving forward, a
+   304 for the first scrape's ETag, gzip decoding to the same body, HEAD
+   with no body, 404 off the route; each check and each scrape's time
+   printed); its livenessProbe
    ``--report-fresh`` (0, and 1 with
    ``--probe-results-max-age 0.001``); the aggregator, the JAX checker's
    CLI ``--nodes-json N --probe-results DIR --json`` over a one-node
@@ -60,10 +67,20 @@ Phases, one line each (any failure exits non-zero and prints no result):
    0.4`` (healthy, its soak and floor verdicts printed, with the card's
    clock and power sampled meanwhile), after the soak's rounds in-process
    on an idle host and on one kept busy by a spinning process per core;
-8. the ``kernels`` line (each kernel at the compute probe's shapes, its
-   launches counted on the workload path and in each emitter round, flash
-   also at the training step's shape), then the ``nvidia-smi`` line, then
-   the result line.
+8. operator modes, each line a subprocess of the port's CLI that also
+   records each probe child's seconds and report: the initContainer's
+   ``--selftest --json --probe-timeout 600`` (exit 0, ``baseline`` and
+   ``throttle`` behaved, the single-card legs skipped, every kernel
+   launched in each leg); ``--calibrate 3 --probe-level compute`` (exit 0,
+   each expectation 0.9 × the median of the reps it printed); with that
+   JSON as ``TNC_PERF_EXPECT``, ``--emit-probe - --probe-level compute
+   --perf-floor 0.4`` on an idle host and on a busy one (healthy, graded
+   ``custom``, every ratio printed); and the same line under
+   ``TNC_CHAOS_THROTTLE=int8_tops`` (exit 3 naming ``int8_tops`` alone);
+9. the ``kernels`` line (each kernel at the compute probe's shapes, its
+   launches counted on the workload path, in each emitter round, in each
+   selftest leg and in each calibration rep, flash also at the training
+   step's shape), then the ``nvidia-smi`` line, then the result line.
 
 Bounds use the H100 SXM data sheet: 3.35 TB/s of device memory, 989 TFLOP/s
 bf16 on the tensor cores.  Times are steady-state CUDA-event times over many
@@ -72,9 +89,13 @@ back-to-back launches, inputs warm in L2.
 
 from __future__ import annotations
 
+import ast
 import contextlib
+import gzip
+import http.client
 import json
 import os
+import re
 import signal
 import statistics
 import subprocess
@@ -82,6 +103,7 @@ import sys
 import tempfile
 import threading
 import time
+from typing import Optional
 
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
@@ -223,6 +245,25 @@ def device_ms(torch, fn, kernel_symbol=None, reps: int = 20, sessions: int = 3):
         if total_us and calls:
             return total_us / calls / 1e3
     return None
+
+
+def device_breakdown(torch, fn, reps: int = 5, top: int = 6) -> dict:
+    """Device ms per call of ``fn`` by kernel name, from one torch.profiler
+    trace: the ``top`` kernels by total time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = sorted((e for e in prof.key_averages()
+                     if e.device_type == DeviceType.CUDA and not e.is_user_annotation),
+                    key=lambda e: -e.self_device_time_total)
+    return {e.key[:80]: {"ms_per_call": e.self_device_time_total / reps / 1e3,
+                         "launches_per_call": e.count / reps} for e in events[:top]}
 
 
 def bound(bytes_moved: float, flops: float, peak_flops: float) -> tuple:
@@ -469,6 +510,71 @@ def card_samples():
     out["clock_event_reasons"] = sorted({r[2] for r in rows})
 
 
+def http_get(port: int, path: str = "/metrics", method: str = "GET",
+             headers: Optional[dict] = None) -> tuple:
+    """(status, headers, body, ms) of one request to the emitter's scrape."""
+    t0 = time.perf_counter()
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=10)
+    try:
+        conn.request(method, path, headers=headers or {})
+        resp = conn.getresponse()
+        out = resp.status, dict(resp.getheaders()), resp.read()
+    finally:
+        conn.close()
+    return (*out, (time.perf_counter() - t0) * 1e3)
+
+
+def samples(body: bytes) -> dict:
+    """A Prometheus text body's samples: ``name{labels}`` → value."""
+    out = {}
+    for line in body.decode().splitlines():
+        if line and not line.startswith("#"):
+            key, _, value = line.rpartition(" ")
+            out[key] = float(value)
+    return out
+
+
+def scrape_round(port: Optional[int], doc: dict) -> dict:
+    """The emitter's scrape after the round that wrote ``doc``.  The loop
+    updates its scrape just after it writes the report, so the scrape is
+    read until its timestamp reaches the report's ``written_at``; then each
+    check, and each request's time."""
+    if port is None:
+        fail("the emitter printed no 'Serving emitter metrics on port' line before its report")
+    polls, deadline = 0, time.perf_counter() + 10
+    while True:
+        polls += 1
+        status, headers, body, get_ms = http_get(port)
+        got = samples(body)
+        stamp = got.get("tpu_node_checker_last_run_timestamp_seconds", 0.0)
+        if stamp >= doc["written_at"] or time.perf_counter() > deadline:
+            break
+        time.sleep(0.005)
+    now = time.time()
+    s304, h304, b304, ms304 = http_get(port, headers={"If-None-Match": headers.get("ETag", "")})
+    sgz, hgz, bgz, msgz = http_get(port, headers={"Accept-Encoding": "gzip"})
+    shead, hhead, bhead, mshead = http_get(port, method="HEAD")
+    s404, _, _, ms404 = http_get(port, path="/nope")
+    checks = {
+        "GET 200": status == 200,
+        'probe_ok{level="compute"} 1.0': got.get('tpu_node_checker_probe_ok{level="compute"}') == 1.0,
+        "exit_code 0": got.get("tpu_node_checker_exit_code") == 0.0,
+        "check_duration_ms == elapsed_ms":
+            got.get("tpu_node_checker_check_duration_ms") == doc.get("elapsed_ms"),
+        "timestamp inside the round's window": doc["written_at"] <= stamp <= now,
+        "304 for the ETag, empty": s304 == 304 and b304 == b"" and h304.get("ETag") == headers.get("ETag"),
+        "gzip decodes to the body": sgz == 200 and hgz.get("Content-Encoding") == "gzip"
+            and gzip.decompress(bgz) == body,
+        "HEAD has no body": shead == 200 and bhead == b""
+            and hhead.get("Content-Length") == str(len(body)),
+        "/nope 404": s404 == 404,
+    }
+    for key in ("matmul_tflops", "int8_tops", "hbm_gbps"):
+        checks[f"{key} == report"] = got.get(f"tpu_node_checker_probe_{key}") == doc.get(key)
+    return {"checks": checks, "timestamp": stamp, "polls": polls,
+            "ms": {"GET": get_ms, "304": ms304, "gzip": msgz, "HEAD": mshead, "404": ms404}}
+
+
 def phase7_emitter(torch, root, rows, validate_report) -> None:
     """Phase 7: the emitter's deployed command lines, and the fleet checker
     grading what they write."""
@@ -483,20 +589,25 @@ def phase7_emitter(torch, root, rows, validate_report) -> None:
     # The DaemonSet's line.  A compute round takes longer than 5 s, so each
     # round starts when the last one ends; SIGTERM, sent 2 s after the
     # second report, lands in the third round, which still writes its report
-    # and its line before the loop stops.
+    # and its line before the loop stops.  Its scrape is read after the first
+    # and the second report.
     proc = subprocess.Popen(
         [sys.executable, "-m", "tpu_node_checker_torch", "--emit-probe", report,
-         "--probe-level", "compute", "--watch", "5", "--log-jsonl", log],
+         "--probe-level", "compute", "--watch", "5", "--metrics-port", "0", "--log-jsonl", log],
         stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True, cwd=root, env=env,
     )
     watchdog = threading.Timer(600, proc.kill)
     watchdog.start()
-    docs = []
+    docs, scrapes, port = [], [], None
     try:
         for line in proc.stderr:
+            served = re.search(r"Serving emitter metrics on port (\d+) \(/metrics\)\.", line)
+            if served:
+                port = int(served.group(1))
             if "Probe report written" in line:
                 with open(report) as f:
                     docs.append(json.load(f))
+                scrapes.append(scrape_round(port, docs[-1]))
                 if len(docs) == 2:
                     break
         time.sleep(2.0)
@@ -527,6 +638,15 @@ def phase7_emitter(torch, root, rows, validate_report) -> None:
           sigterm_to_exit_s=term_s, stderr_tail=rest.strip().splitlines()[-1:])
     if rc != 143 or len(docs) < 3 or len(entries) != len(docs):
         fail(f"the emitter loop: exit {rc}, {len(docs)} reports, {len(entries)} log lines")
+    stamps = [sc["timestamp"] for sc in scrapes]
+    phase(7, "emitter --metrics-port, scraped after reports 1 and 2", port=port,
+          scrapes=[{k: sc[k] for k in ("checks", "ms", "polls")} for sc in scrapes],
+          timestamps=stamps, timestamp_moved_forward=len(stamps) == 2 and stamps[1] > stamps[0])
+    bad = [f"scrape {i + 1}: {name}" for i, sc in enumerate(scrapes)
+           for name, ok_ in sc["checks"].items() if not ok_]
+    if port is None or len(scrapes) != 2 or bad or not stamps[1] > stamps[0]:
+        fail(f"the emitter's scrape: port {port}, {len(scrapes)} scrapes, failed {bad}, "
+             f"timestamps {stamps}")
     if any(e["exit_code"] != 0 or e["probe_level"] != "compute" for e in entries):
         fail(f"an emitter round was not healthy at the compute level: {entries}")
     for d in per_round:
@@ -618,6 +738,155 @@ def phase7_emitter(torch, root, rows, validate_report) -> None:
         fail(f"the acceptance line: exit {job.returncode}, {doc.get('error')}, soak {soak}")
     if "skipped" not in (doc.get("perf_floor") or {}):
         fail(f"perf_floor graded on a card with no floor table: {doc.get('perf_floor')}")
+
+
+# The port's CLI with the argv after the log path, as a node runs it, in a
+# process that also appends one JSON line per probe child to that log: the
+# child's seconds, its arguments, its TNC_* environment and its report.
+OBSERVED_CLI_SCRIPT = """
+import json, os, sys, time
+from tpu_node_checker_torch import calibrate, cli, selftest
+
+log = open(sys.argv[1], "a")
+
+
+def observed(run):
+    def probe(**kw):
+        t0 = time.perf_counter()
+        r = run(**kw)
+        log.write(json.dumps({
+            "seconds": time.perf_counter() - t0, "args": kw,
+            "env": {k: v for k, v in os.environ.items() if k.startswith("TNC_")},
+            "report": r.to_dict()}) + "\\n")
+        log.flush()
+        return r
+    return probe
+
+
+selftest.run_local_probe = observed(selftest.run_local_probe)
+calibrate.run_local_probe = observed(calibrate.run_local_probe)
+sys.exit(cli.main(sys.argv[2:]))
+"""
+
+# The JAX checker's skip reasons on a host with one card.
+SINGLE_CARD_SKIPS = ["collective_leg, ring_link (single device)",
+                     "dcn (needs >=4 devices, even count)"]
+
+
+def observed_cli(root: str, work: str, name: str, *args, env: dict) -> tuple:
+    """(completed process, one record per probe child, seconds) of the CLI
+    line ``args``, through OBSERVED_CLI_SCRIPT."""
+    log = os.path.join(work, f"{name}.jsonl")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", OBSERVED_CLI_SCRIPT, log, *args],
+                          capture_output=True, text=True, cwd=root, timeout=900, env=env)
+    seconds = time.perf_counter() - t0
+    if not os.path.exists(log):  # the CLI never started
+        return proc, [], seconds
+    with open(log) as f:
+        return proc, [json.loads(x) for x in f.read().splitlines()], seconds
+
+
+def phase8_operator_modes(torch, root, rows) -> None:
+    """Phase 8: the initContainer's selftest, calibration, and the floors it
+    lets grade on an idle host, on a busy one and under a throttle."""
+    t_phase = time.perf_counter()
+    env = {k: v for k, v in os.environ.items() if not k.startswith("TNC_")}
+    work = tempfile.mkdtemp(prefix="chip-smoke-modes-")
+    names = [r["name"] for r in rows]
+
+    # The initContainer's line (deploy/daemonset-emitter.yaml).
+    proc, legs, seconds = observed_cli(root, work, "selftest", "--selftest", "--json",
+                                       "--probe-timeout", "600", env=env)
+    try:
+        doc = json.loads(proc.stdout)
+    except json.JSONDecodeError:
+        fail(f"--selftest printed no document (exit {proc.returncode}): {proc.stderr[-2000:]}")
+    behaved = {x["leg"]: x["behaved"] for x in doc.get("selftest", [])}
+    launches = [leg["report"].get("kernel_launches") or {} for leg in legs]
+    phase(8, "initContainer --selftest --json --probe-timeout 600", exit_code=proc.returncode,
+          seconds=seconds, behaved=behaved, details={x["leg"]: x["detail"] for x in
+                                                     doc.get("selftest", [])},
+          skipped_legs=doc.get("skipped_legs"),
+          legs=[{"seconds": leg["seconds"], "level": leg["args"].get("level"),
+                 "device": leg["args"].get("device"), "timeout_s": leg["args"].get("timeout_s"),
+                 "env": leg["env"], "elapsed_ms": leg["report"].get("elapsed_ms"),
+                 "matmul_tflops": leg["report"].get("matmul_tflops"),
+                 "perf_floor": leg["report"].get("perf_floor"), "kernel_launches": kl}
+                for leg, kl in zip(legs, launches)])
+    missed = [(i, n) for i, kl in enumerate(launches) for n in names if not kl.get(n)]
+    if (proc.returncode != 0 or behaved != {"baseline": True, "throttle": True}
+            or doc.get("skipped_legs") != SINGLE_CARD_SKIPS or len(legs) != 2 or missed):
+        fail(f"the selftest: exit {proc.returncode}, behaved {behaved}, "
+             f"skipped {doc.get('skipped_legs')}, {len(legs)} legs, kernels missed {missed}")
+    if any(leg["args"].get("device") != "cuda:0" or leg["args"].get("timeout_s") != 600.0
+           for leg in legs):
+        fail(f"a selftest leg did not run on cuda:0 with the 600 s timeout: "
+             f"{[leg['args'] for leg in legs]}")
+    for r in rows:
+        r["selftest_launches"] = [kl[r["name"]] for kl in launches]
+
+    # Calibration: three reps, each projection on stderr, the JSON on stdout.
+    proc, reps, seconds = observed_cli(root, work, "calibrate", "--calibrate", "3",
+                                       "--probe-level", "compute", env=env)
+    shown = [ast.literal_eval(line.split(": ", 1)[1]) for line in proc.stderr.splitlines()
+             if re.match(r"rep \d+/3: ", line)]
+    try:
+        expect = json.loads(proc.stdout)
+    except json.JSONDecodeError:
+        fail(f"--calibrate printed no JSON (exit {proc.returncode}): {proc.stderr[-2000:]}")
+    metrics = ("matmul_tflops", "int8_tops", "hbm_gbps")
+    spread = {m: {"min": min(x[m] for x in shown), "median": statistics.median(x[m] for x in shown),
+                  "max": max(x[m] for x in shown),
+                  "max_over_min": max(x[m] for x in shown) / min(x[m] for x in shown)}
+              for m in metrics if len(shown) == 3 and all(m in x for x in shown)}
+    cal_launches = [rep["report"].get("kernel_launches") or {} for rep in reps]
+    phase(8, "--calibrate 3 --probe-level compute", exit_code=proc.returncode, seconds=seconds,
+          expectations=expect, reps=shown, spread=spread,
+          rep_seconds=[rep["seconds"] for rep in reps],
+          rep_perf_floor=[rep["args"].get("perf_floor") for rep in reps],
+          kernel_launches=cal_launches)
+    wrong = [m for m in metrics
+             if m not in spread or expect.get(m) != round(0.9 * spread[m]["median"], 3)]
+    missed = [(i, n) for i, kl in enumerate(cal_launches) for n in names if not kl.get(n)]
+    if proc.returncode != 0 or len(reps) != 3 or wrong or missed:
+        fail(f"the calibration: exit {proc.returncode}, {len(reps)} reps, expectations "
+             f"not 0.9 x the median: {wrong}, kernels missed {missed}")
+    for r in rows:
+        r["calibrate_launches"] = [kl[r["name"]] for kl in cal_launches]
+
+    # The floors that calibration lets grade: idle host, busy host, throttled.
+    graded_env = {**env, "TNC_SCHEMA_STRICT": "1", "TNC_PERF_EXPECT": proc.stdout.strip()}
+    line = ("--emit-probe", "-", "--probe-level", "compute", "--perf-floor", "0.4")
+    graded = {}
+    for name in ("idle host", "busy host", "TNC_CHAOS_THROTTLE=int8_tops"):
+        t0 = time.perf_counter()
+        extra = {"TNC_CHAOS_THROTTLE": "int8_tops"} if name.startswith("TNC_") else {}
+        with busy_host() if name == "busy host" else contextlib.nullcontext():
+            job = port_cli(root, *line, env={**graded_env, **extra}, timeout=600)
+        try:
+            rep = json.loads(job.stdout)
+        except json.JSONDecodeError:
+            fail(f"the graded line ({name}) printed no report (exit {job.returncode}): "
+                 f"{job.stderr[-2000:]}")
+        floor = rep.get("perf_floor") or {}
+        graded[name] = {"exit_code": job.returncode, "seconds": time.perf_counter() - t0,
+                        "ok": rep.get("ok"), "error": rep.get("error"),
+                        "generation": floor.get("generation"), "floor_ok": floor.get("ok"),
+                        "failed": floor.get("failed"), "ratios": floor.get("ratios"),
+                        "measured": floor.get("measured"),
+                        "min_ratio": min((floor.get("ratios") or {"-": None}).values())}
+    phase(8, "--emit-probe - --probe-level compute --perf-floor 0.4, TNC_PERF_EXPECT calibrated",
+          **graded)
+    for name in ("idle host", "busy host"):
+        g = graded[name]
+        if (g["exit_code"] != 0 or g["ok"] is not True or g["generation"] != "custom"
+                or g["floor_ok"] is not True or set(g["ratios"] or ()) != set(expect)):
+            fail(f"the calibrated floor on the {name}: {g}")
+    g = graded["TNC_CHAOS_THROTTLE=int8_tops"]
+    if g["exit_code"] != 3 or g["failed"] != ["int8_tops"] or g["generation"] != "custom":
+        fail(f"the int8_tops throttle was not caught alone: {g}")
+    phase(8, "operator modes", seconds=time.perf_counter() - t_phase)
 
 
 def main() -> int:
@@ -916,6 +1185,28 @@ def main() -> int:
     if bad:
         fail(f"in-process probes failed or never launched their kernel: {bad}")
 
+    # Where the int8 chain's device time goes: the probe's 1024^3 products
+    # with their rolls and adds, by kernel, and the product alone with its
+    # right operand row-major (as the probe passes it) and column-major.
+    from tpu_node_checker_torch.ops.int8_probe import _int8_chain
+    a8, b8 = (torch.randint(-8, 8, (1024, 1024), generator=gen, device=dev).to(torch.int8)
+              for _ in range(2))
+    b8_cols = b8.t().contiguous().t()
+    mm_ms, columns_equal = {}, None
+    for layout, rhs in (("row_major", b8), ("column_major", b8_cols)):
+        try:  # the library may refuse a layout; that is a reading, not a failure
+            mm_ms[layout] = cuda_ms(torch, lambda rhs=rhs: torch._int_mm(a8, rhs), reps=50)
+        except RuntimeError as exc:
+            mm_ms[layout] = f"{type(exc).__name__}: {exc}"[:300]
+    if all(isinstance(v, float) for v in mm_ms.values()):
+        columns_equal = bool(torch.equal(torch._int_mm(a8, b8), torch._int_mm(a8, b8_cols)))
+    phase(4, "int8 chain by kernel (8 products of 1024^3)",
+          kernels=device_breakdown(torch, lambda: _int8_chain(a8, b8, 8)),
+          int_mm_ms=mm_ms, int_mm_tops={k: 2 * 1024 ** 3 / (v * 1e-3) / 1e12
+                                        for k, v in mm_ms.items() if isinstance(v, float)},
+          columns_equal=columns_equal)
+    del a8, b8, b8_cols
+
     # -- 5. the workload path: the training step in this process, then the
     # workload-level probe through its entry point.
     import dataclasses
@@ -1119,9 +1410,12 @@ def main() -> int:
     # -- 7. the emitter's deployed command lines and the fleet checker
     phase7_emitter(torch, root, rows, validate_report)
 
-    # -- 8. the kernels line, the card line, the result line
+    # -- 8. the emitter pod's operator modes
+    phase8_operator_modes(torch, root, rows)
+
+    # -- 9. the kernels line, the card line, the result line
     keys = ("name", "route", "source", "replaces", "launches", "compute_launches",
-            "emitter_launches",
+            "emitter_launches", "selftest_launches", "calibrate_launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "device_ms",
             "library_device_ms", "ok", "check", "training_step")
     print(json.dumps({"kernels": [{k2: r[k2] for k2 in keys if k2 in r} for r in rows]}),

@@ -44,10 +44,17 @@ non-zero and prints no result):
    back to where it stood before; then a healthy workload round; then the
    DaemonSet's ``--watch`` loop at the workload level, sent SIGTERM
    mid-round, which must finish that round's report and exit 143 (the
-   seconds from SIGTERM to exit printed).
+   seconds from SIGTERM to exit printed);
+7. the emitter pod's initContainer across the cards, ``--selftest --json
+   --probe-timeout 600`` through the port's CLI (recording each probe
+   child's seconds and report, as ``chip_smoke.py`` phase 8 does): exit 0,
+   every leg behaved (``baseline``, ``throttle``, ``collective_leg``,
+   ``ring_link`` and, on an even count of four or more, ``dcn``), none
+   skipped, each leg's seconds printed with the total against the 600 s
+   the manifest gives each leg.
 
-``python3 fabric_smoke.py --only emitter`` runs check 6 alone.  The last
-line is ``{"ok": true, "cards": n}``.
+``python3 fabric_smoke.py --only emitter`` runs check 6 alone, and
+``--only selftest`` check 7.  The last line is ``{"ok": true, "cards": n}``.
 """
 
 from __future__ import annotations
@@ -217,9 +224,40 @@ def emitter_checks(root: str, n: int) -> None:
         fail(f"the loop did not finish its round and stop: exit {rc}, {entries}")
 
 
+def selftest_check(root: str, n: int) -> None:
+    """Check 7: the initContainer's drill on every card."""
+    from chip_smoke import observed_cli
+
+    env = {k: v for k, v in os.environ.items() if not k.startswith("TNC_")}
+    work = tempfile.mkdtemp(prefix="fabric-smoke-selftest-")
+    proc, legs, seconds = observed_cli(root, work, "selftest", "--selftest", "--json",
+                                       "--probe-timeout", "600", env=env)
+    try:
+        doc = json.loads(proc.stdout)
+    except json.JSONDecodeError:
+        fail(f"--selftest printed no document (exit {proc.returncode}): {proc.stderr[-2000:]}")
+    results = doc.get("selftest", [])
+    line("initContainer --selftest --json --probe-timeout 600", exit_code=proc.returncode,
+         seconds=seconds, behaved={x["leg"]: x["behaved"] for x in results},
+         details={x["leg"]: x["detail"] for x in results}, skipped_legs=doc.get("skipped_legs"),
+         leg_seconds={x["leg"]: leg["seconds"] for x, leg in zip(results, legs)},
+         leg_levels=[leg["args"].get("level") for leg in legs],
+         leg_env=[leg["env"] for leg in legs],
+         slowest_leg_over_600_s=max(leg["seconds"] for leg in legs) / 600 if legs else None,
+         total_over_600_s_a_leg=seconds / (600 * max(len(legs), 1)))
+    want = ["baseline", "throttle", "collective_leg", "ring_link"]
+    if n >= 4 and n % 2 == 0:
+        want.append("dcn")
+    if (proc.returncode != 0 or [x["leg"] for x in results] != want
+            or not all(x["behaved"] for x in results) or doc.get("skipped_legs")):
+        fail(f"the selftest on {n} cards: exit {proc.returncode}, {results}, "
+             f"skipped {doc.get('skipped_legs')}")
+
+
 def main() -> int:
     args = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    args.add_argument("--only", choices=["emitter"], help="run only check 6, the emitter's")
+    args.add_argument("--only", choices=["emitter", "selftest"],
+                      help="run only check 6 (emitter) or check 7 (selftest)")
     only = args.parse_args().only
     try:
         import torch
@@ -249,8 +287,8 @@ def main() -> int:
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()
     line("environment", torch=torch.__version__, cards=cards)
-    if only == "emitter":
-        emitter_checks(root, n)
+    if only:
+        {"emitter": emitter_checks, "selftest": selftest_check}[only](root, n)
         print(json.dumps({"ok": True, "cards": n}), flush=True)
         return 0
 
@@ -456,6 +494,8 @@ def main() -> int:
 
     # -- 6. the emitter across the cards
     emitter_checks(root, n)
+    # -- 7. the initContainer's drill across the cards
+    selftest_check(root, n)
     print(json.dumps({"ok": True, "cards": n}), flush=True)
     return 0
 

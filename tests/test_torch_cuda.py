@@ -20,6 +20,9 @@ port_flash = importlib.import_module("tpu_node_checker_torch.ops.flash_attention
 port_matmul = importlib.import_module("tpu_node_checker_torch.ops.pallas_probe")
 port_liveness = importlib.import_module("tpu_node_checker_torch.probe.liveness")
 port_burn = importlib.import_module("tpu_node_checker_torch.ops.burn")
+port_harness = importlib.import_module("tpu_node_checker_torch.ops._harness")
+port_hbm = importlib.import_module("tpu_node_checker_torch.ops.hbm")
+port_int8 = importlib.import_module("tpu_node_checker_torch.ops.int8_probe")
 port_burnin = importlib.import_module("tpu_node_checker_torch.models.burnin")
 port_parallel = importlib.import_module("tpu_node_checker_torch.parallel")
 port_sweep = importlib.import_module("tpu_node_checker_torch.meshprobe.sweep")
@@ -149,6 +152,65 @@ def test_burn_graph_replays_the_eager_chain(cuda_device):
     assert first == again
     # The same products; the library may pick another algorithm under capture.
     assert abs(first - eager) <= 0.01 * n, (first, eager)
+
+
+@pytest.mark.cuda
+def test_int8_graph_replays_the_eager_chain(cuda_device):
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    a, b = (torch.randint(-8, 8, shape, generator=gen, device=cuda_device).to(torch.int8)
+            for shape in ((256, 512), (512, 384)))
+    replay = port_harness.card_graph(lambda: port_int8._int8_chain(a, b, 8),
+                                     lambda: port_int8._int8_chain(a, b, 1), cuda_device)
+    first, seconds = replay()
+    first = first.clone()
+    again, _ = replay()
+    eager = port_int8._int8_chain(a, b, 8)
+    assert seconds > 0
+    # Integer arithmetic: every replay equals the eager chain exactly.
+    assert torch.equal(first, eager) and torch.equal(again, eager)
+
+
+@pytest.mark.cuda
+def test_hbm_graph_replays_the_eager_passes(cuda_device):
+    x = torch.randn((1 << 20,), device=cuda_device)
+    replay = port_harness.card_graph(lambda: port_hbm._stream_n(x, 4),
+                                     lambda: port_hbm._stream_n(x, 1), cuda_device)
+    first, seconds = replay()
+    first = first.clone()
+    again, _ = replay()
+    eager = port_hbm._stream_n(x, 4)
+    assert seconds > 0
+    assert torch.equal(first, eager) and torch.equal(again, eager)
+
+
+class _NoHostClock:
+    """Stands in for ``time``: a figure read from the host clock fails."""
+
+    @staticmethod
+    def perf_counter():
+        raise AssertionError("the host clock was read on the card's path")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["int8", "hbm"])
+def test_graded_figure_is_timed_by_cuda_events(cuda_device, monkeypatch, name):
+    module, run = {
+        "int8": (port_int8, lambda: port_int8.int8_matmul_probe(
+            m=1024, k=1024, n=1024, iters=128, device=cuda_device)),
+        "hbm": (port_hbm, lambda: port_hbm.hbm_bandwidth_probe(device=cuda_device)),
+    }[name]
+    graphs = []
+    real = port_harness.card_graph
+
+    def counted(*args):
+        graphs.append(args)
+        return real(*args)
+
+    monkeypatch.setattr(module, "time", _NoHostClock)
+    monkeypatch.setattr(module, "card_graph", counted)
+    r = run()
+    assert r.ok, r.error
+    assert len(graphs) == 1 and r.elapsed_ms > 0
 
 
 @pytest.mark.cuda

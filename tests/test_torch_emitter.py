@@ -85,7 +85,8 @@ class TestCopiesOfJax:
     @pytest.mark.parametrize("dest", [
         "emit_probe", "report_fresh", "probe_report_schema", "probe_level", "probe_timeout",
         "watch", "log_jsonl", "probe_results_max_age", "probe_soak", "probe_topology",
-        "perf_floor",
+        "perf_floor", "metrics_port", "selftest", "json", "calibrate", "calibrate_margin",
+        "calibrate_out",
     ])
     def test_flag_defaults_equal_jax(self, dest):
         assert port_cli.build_parser().get_default(dest) == \
@@ -310,8 +311,10 @@ class TestUsageErrors:
         assert f"error: {message}" in jax_err
 
     @pytest.mark.parametrize("argv,message", [
-        ([], "one of --emit-probe, --report-fresh, --probe-report-schema is required"),
-        (["--watch", "5"], "one of --emit-probe, --report-fresh, --probe-report-schema"),
+        ([], "one of --emit-probe, --selftest, --calibrate, --report-fresh, "
+         "--probe-report-schema is required"),
+        (["--watch", "5"], "one of --emit-probe, --selftest, --calibrate, --report-fresh, "
+         "--probe-report-schema"),
         (["--emit-probe", "-", "--probe-results-max-age", "60"],
          "--probe-results-max-age requires --report-fresh"),
         (["--emit-probe", "-", "--probe-level", "compute", "--probe-topology", "2x2"],
@@ -326,8 +329,8 @@ class TestUsageErrors:
         assert code == 2 and f"error: {message}" in err
 
     @pytest.mark.parametrize("flag", [
-        ["--metrics-port", "9090"], ["--history", "h.jsonl"], ["--selftest"],
-        ["--calibrate", "2"], ["--probe-distributed"], ["--probe-results", "/reports"],
+        ["--probe"], ["--history", "h.jsonl"], ["--trend", "t.jsonl"],
+        ["--serve", "0"], ["--probe-distributed"], ["--probe-results", "/reports"],
     ])
     def test_unported_flag_is_unknown(self, capsys, flag):
         code, err = _usage_error(port_cli.parse_args,

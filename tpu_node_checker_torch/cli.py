@@ -6,20 +6,28 @@
         [--probe-level {enumerate,compute,collective,mesh,workload}]
         [--probe-timeout S] [--device cpu] [--probe-soak S]
         [--probe-topology DIMS] [--perf-floor F]
-        [--watch S] [--log-jsonl FILE]
+        [--watch S [--metrics-port PORT]] [--log-jsonl FILE]
+    python -m tpu_node_checker_torch --selftest [--json] [--probe-timeout S] [--device cpu]
+    python -m tpu_node_checker_torch --calibrate REPS [--probe-level L]
+        [--calibrate-margin F] [--calibrate-out FILE] [--probe-timeout S]
+        [--probe-soak S] [--probe-topology DIMS] [--device cpu]
     python -m tpu_node_checker_torch --report-fresh FILE [--probe-results-max-age S]
     python -m tpu_node_checker_torch --probe-report-schema
 
 Exactly one mode runs.  ``--emit-probe`` writes one report, or with
-``--watch`` one every S seconds until SIGTERM (exit 143).  ``--report-fresh``
-is the emitter pod's liveness verdict on its report.
-``--probe-report-schema`` prints the report's JSON Schema.  The flags keep
-the JAX checker's names, defaults, meanings and usage errors; a flag of the
-JAX checker that is not ported is an unknown argument here.
+``--watch`` one every S seconds until SIGTERM (exit 143), serving the
+round's gauges on ``--metrics-port``.  ``--selftest`` rehearses every
+detector on this host (the emitter pod's initContainer), and
+``--calibrate`` prints this host's healthy figures as ``TNC_PERF_EXPECT``
+JSON, which ``--perf-floor`` grades against.  ``--report-fresh`` is the
+emitter pod's liveness verdict on its report.  ``--probe-report-schema``
+prints the report's JSON Schema.  The flags keep the JAX checker's names,
+defaults, meanings and usage errors; a flag of the JAX checker that is not
+ported is an unknown argument here.
 
-Exit codes: 0 when the report is healthy (or fresh), 3 when it is not, 1 on
-an error that left no report (or a report that is not fresh), 2 on a usage
-error.
+Exit codes: 0 when the report is healthy (or fresh, or the drill behaved,
+or the calibration ran), 3 when it is not, 1 on an error that left no
+report (or a report that is not fresh), 2 on a usage error.
 """
 
 from __future__ import annotations
@@ -29,11 +37,13 @@ import json
 import sys
 from typing import List, Optional
 
+from tpu_node_checker_torch.probe.floors import DEFAULT_CALIBRATION_MARGIN
 from tpu_node_checker_torch.probe.levels import LEVELS
 
 EXIT_OK = 0
 EXIT_ERROR = 1
-MODES = ("--emit-probe", "--report-fresh", "--probe-report-schema")
+MODES = ("--emit-probe", "--selftest", "--calibrate", "--report-fresh",
+         "--probe-report-schema")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -68,6 +78,29 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--log-jsonl", metavar="FILE",
                    help="with --emit-probe: append one JSON line per round to FILE "
                    "(the fleet checker's --trend reads it)")
+    p.add_argument("--metrics-port", type=int, metavar="PORT",
+                   help="with --watch: serve Prometheus metrics on this port (0 = ephemeral)")
+    p.add_argument("--selftest", action="store_true",
+                   help="rehearse the fault-detection pipeline on this host: a clean "
+                   "baseline probe, then one injected fault per detector class (perf "
+                   "throttle, collective leg, link, slice boundary), each verified to be "
+                   "caught AND correctly named; exit 0 = drill passed, 3 = a detector "
+                   "missed — runs alone")
+    p.add_argument("--json", action="store_true",
+                   help="with --selftest: machine-readable JSON output")
+    p.add_argument("--calibrate", type=int, default=None, metavar="REPS",
+                   help="measure this host's healthy perf expectations: run the probe "
+                   "REPS times at --probe-level (compute or higher), print the "
+                   "margin-adjusted per-metric medians as TNC_PERF_EXPECT JSON on "
+                   "stdout, which --perf-floor grades against on cards the built-in "
+                   "table lacks (the H100); any failed rep aborts (never calibrate a "
+                   "sick host) — runs alone")
+    p.add_argument("--calibrate-margin", type=float, default=None, metavar="FRACTION",
+                   help="with --calibrate: expectation = FRACTION x median, keeping "
+                   "headroom under the healthy median so run-to-run jitter never sits "
+                   "above 'expected' (default 0.9)")
+    p.add_argument("--calibrate-out", metavar="FILE",
+                   help="with --calibrate: write the JSON to FILE (atomic) instead of stdout")
     p.add_argument("--probe-results-max-age", type=float, default=900.0, metavar="SECONDS",
                    help="with --report-fresh: the report's greatest age (default 900s)")
     p.add_argument("--probe-soak", type=float, default=0.0, metavar="SECONDS",
@@ -95,6 +128,51 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
         p.error("--probe-report-schema runs alone")
     if args.watch is not None and args.watch <= 0:
         p.error("--watch interval must be a positive number of seconds")
+    if args.metrics_port is not None and args.watch is None:
+        p.error("--metrics-port requires --watch (one-shot runs serve no scrapes)")
+    if args.selftest and (
+        args.emit_probe
+        or args.watch is not None
+        or args.report_fresh
+        or args.calibrate is not None
+        or args.log_jsonl
+        or args.probe_topology
+        or args.probe_level != "enumerate"
+    ):
+        # A drill-only mode must not absorb emit flags the operator thinks ran.
+        p.error("--selftest runs alone (only --json and --probe-timeout "
+                "may accompany it)")
+    if args.calibrate is not None:
+        if (
+            args.emit_probe
+            or args.watch is not None
+            or args.report_fresh
+            or args.log_jsonl
+            or args.json
+            or args.perf_floor is not None
+        ):
+            # Calibration's stdout is the TNC_PERF_EXPECT JSON (command
+            # substitution is its consumer); anything else riding along would
+            # pollute it or silently not run.
+            p.error("--calibrate runs alone (only --probe-level/"
+                    "--probe-timeout/--probe-soak/--probe-topology and "
+                    "--calibrate-margin/--calibrate-out may accompany it)")
+        if args.calibrate < 1:
+            p.error("--calibrate needs at least 1 rep")
+        if args.probe_level == "enumerate":
+            p.error("--calibrate requires --probe-level compute (or higher)")
+        if args.calibrate_margin is None:
+            args.calibrate_margin = DEFAULT_CALIBRATION_MARGIN
+        if not 0 < args.calibrate_margin <= 1:
+            p.error("--calibrate-margin must be in (0, 1]")
+    else:
+        if args.calibrate_out:
+            p.error("--calibrate-out requires --calibrate")
+        if args.calibrate_margin is not None:
+            p.error("--calibrate-margin requires --calibrate")
+    if args.json and not args.selftest:
+        # The drill's document is the port's only JSON output mode.
+        p.error("--json requires --selftest")
     if args.report_fresh and any(
         v != p.get_default(k) for k, v in vars(args).items()
         if k not in ("report_fresh", "probe_results_max_age")
@@ -106,13 +184,17 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
             "--probe-level/--probe-timeout/--probe-soak/--probe-topology/"
             "--perf-floor/--device)"
         )
-    if not (args.emit_probe or args.report_fresh or args.probe_report_schema):
+    if not (args.emit_probe or args.report_fresh or args.probe_report_schema
+            or args.selftest or args.calibrate is not None):
         p.error(f"one of {', '.join(MODES)} is required")
-    if args.emit_probe and args.probe_results_max_age != p.get_default("probe_results_max_age"):
+    if (not args.report_fresh
+            and args.probe_results_max_age != p.get_default("probe_results_max_age")):
         p.error("--probe-results-max-age requires --report-fresh")
     if args.probe_soak:
         # Silently not soaking would grade a node healthy without ever
         # applying the sustained load the flag exists to apply.
+        if not (args.emit_probe or args.calibrate is not None):
+            p.error("--probe-soak requires --emit-probe or --calibrate")
         if args.probe_soak < 0:
             p.error("--probe-soak must be >= 0 (0 disables)")
         if args.probe_level == "enumerate":
@@ -121,6 +203,8 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
         # Floors only grade figures a compute-level probe produces.
         if args.perf_floor < 0:
             p.error("--perf-floor must be >= 0 (0 disables)")
+        if not args.emit_probe:
+            p.error("--perf-floor requires --emit-probe")
         if args.probe_level == "enumerate":
             p.error("--perf-floor requires --probe-level compute (or higher)")
     if args.probe_topology and args.probe_level in ("enumerate", "compute"):
@@ -131,6 +215,18 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
 
 def main(argv: Optional[List[str]] = None) -> int:
     args = parse_args(argv)
+    if args.selftest:
+        from tpu_node_checker_torch.selftest import selftest
+
+        return selftest(timeout_s=args.probe_timeout, device=args.device, json_mode=args.json)
+    if args.calibrate is not None:
+        from tpu_node_checker_torch.calibrate import calibrate
+
+        return calibrate(
+            args.calibrate, margin=args.calibrate_margin, out=args.calibrate_out,
+            level=args.probe_level, timeout_s=args.probe_timeout,
+            topology=args.probe_topology, soak_s=args.probe_soak, device=args.device,
+        )
     from tpu_node_checker_torch import emit
 
     if args.probe_report_schema:
@@ -147,7 +243,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     if args.watch is not None:
         # Returns only on SIGTERM (143).
         return emit.emit_probe_loop(args.emit_probe, args.watch, log_jsonl=args.log_jsonl,
-                                    **probe)
+                                    metrics_port=args.metrics_port, **probe)
     try:
         rc, doc = emit.emit_probe_once(args.emit_probe, **probe)
     except (OSError, ValueError) as exc:

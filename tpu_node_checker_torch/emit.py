@@ -8,12 +8,12 @@ checker reads such files through ``--probe-results DIR``; that is the only
 way the two packages meet.
 
 A DaemonSet pod runs :func:`emit_probe_loop` (``--watch``), which rewrites the
-report every interval and appends one ``--trend``-shaped line per round to
-``--log-jsonl``; its livenessProbe runs :func:`report_fresh`.  These are
-copies of the JAX checker's emitter (``checker.py`` ``_emit_probe_once``,
+report every interval, appends one ``--trend``-shaped line per round to
+``--log-jsonl`` and serves the round's gauges on ``--metrics-port``; its
+livenessProbe runs :func:`report_fresh`.  These are copies of the JAX
+checker's emitter (``checker.py`` ``_emit_probe_once``,
 ``_emitter_round_entry``, ``_append_jsonl``, ``emit_probe_loop`` without the
-metrics server and the history, ``report_fresh`` and the loop's signal and
-wait seams).
+history, ``report_fresh`` and the loop's signal and wait seams).
 """
 
 from __future__ import annotations
@@ -26,6 +26,7 @@ import threading
 import time
 from typing import Optional, Tuple
 
+from tpu_node_checker_torch.metrics import CheckResult, MetricsServer
 from tpu_node_checker_torch.probe.liveness import run_local_probe
 from tpu_node_checker_torch.probe.schema import strict_mode, validate_report
 
@@ -109,27 +110,39 @@ def append_jsonl(path: str, entry: dict) -> None:
 
 
 def emit_probe_loop(target: str, interval: float, log_jsonl: Optional[str] = None,
-                    **probe) -> int:
+                    metrics_port: Optional[int] = None, **probe) -> int:
     """``--emit-probe FILE --watch SECONDS``: the DaemonSet emitter loop.
 
     Rewrites the report every ``interval`` seconds, measured from the start
     of a round (a round longer than the interval starts the next one at
-    once), and appends each round to ``log_jsonl``.  Each round spawns a
-    fresh probe child.  One bad round (a shared-volume blip, a probe crash)
-    is logged as an ``EXIT_ERROR`` round and the loop goes on: a
-    crash-looping pod would let the report go stale.  Runs until SIGTERM,
-    which stops the loop after the current emission and returns 143.
-    ``probe`` is passed to :func:`emit_probe_once`.
+    once), and appends each round to ``log_jsonl``.  With ``metrics_port``
+    (0 for an ephemeral port) it serves the emitter's own probe gauges
+    (:mod:`tpu_node_checker_torch.metrics`), started before the first round
+    and updated after each.  Each round spawns a fresh probe child.  One bad
+    round (a shared-volume blip, a probe crash) is logged as an
+    ``EXIT_ERROR`` round, flips the scrape's exit code, and the loop goes
+    on: a crash-looping pod would let the report go stale.  Runs until
+    SIGTERM, which stops the loop after the current emission and returns
+    143.  ``probe`` is passed to :func:`emit_probe_once`.
     """
+    server = None
+    if metrics_port is not None:
+        server = MetricsServer(metrics_port)
+        # Flushed: a pod's log, or a script waiting for the port, must see
+        # it before the first round ends.
+        print(f"Serving emitter metrics on port {server.port} (/metrics).",
+              file=sys.stderr, flush=True)
     stop = threading.Event()
     prev_handler = _install_stop_signal(stop)
     try:
-        return _emit_probe_rounds(target, interval, log_jsonl, probe, stop)
+        return _emit_probe_rounds(target, interval, log_jsonl, server, probe, stop)
     finally:
         _restore_stop_signal(prev_handler)
+        if server is not None:
+            server.close()
 
 
-def _emit_probe_rounds(target, interval, log_jsonl, probe, stop) -> int:
+def _emit_probe_rounds(target, interval, log_jsonl, server, probe, stop) -> int:
     while True:
         round_start = time.monotonic()
         try:
@@ -137,8 +150,12 @@ def _emit_probe_rounds(target, interval, log_jsonl, probe, stop) -> int:
         except Exception as exc:  # tnc: allow-broad-except(emitter must survive a round)
             print(f"Probe emission failed: {exc}", file=sys.stderr)
             entry = {"ts": round(time.time(), 3), "exit_code": EXIT_ERROR, "error": str(exc)}
+            if server is not None:
+                server.mark_error()
         else:
             entry = emitter_round_entry(rc, doc)
+            if server is not None:
+                server.update(CheckResult(exit_code=rc, payload={"local_probe": doc}))
         if log_jsonl:
             append_jsonl(log_jsonl, entry)
         # Fixed cadence: the probe's time comes out of the interval, so the

@@ -1,15 +1,18 @@
-"""Shared scaffold for the kernel cross-check probes.
+"""Shared scaffold for the probes.
 
-Every probe follows one shape: resolve the target device, then warm up once
-(the first launch also builds the kernel), then time a second run with a
-synchronise plus a scalar fetch as the completion barrier.  Kept here so the
-probes cannot drift apart on the device or timing rules.
+Every kernel cross-check probe follows one shape: resolve the target device,
+then warm up once (the first launch also builds the kernel), then time a
+second run with a synchronise plus a scalar fetch as the completion barrier.
+The library probes whose figure is graded (the burn, int8, the HBM stream)
+time their chain on the card instead: one CUDA graph, replayed between two
+CUDA events (:func:`card_graph`).  Kept here so the probes cannot drift
+apart on the device or timing rules.
 """
 
 from __future__ import annotations
 
 import time
-from typing import Optional, Tuple, Union
+from typing import Callable, Optional, Tuple, Union
 
 import torch
 
@@ -63,3 +66,36 @@ def timed_run(fn, *args) -> Tuple[torch.Tensor, float, float]:
     checksum = float(out.float().sum().item())
     elapsed_ms = (time.perf_counter() - t0) * 1e3
     return out, checksum, elapsed_ms
+
+
+def card_graph(
+    fn: Callable[[], torch.Tensor], warm: Callable[[], object], device: torch.device,
+) -> Callable[[], Tuple[torch.Tensor, float]]:
+    """``fn`` captured once as a CUDA graph on ``device``; returns a function
+    that replays it between two CUDA events and gives (the graph's output,
+    device seconds).
+
+    ``warm`` runs first on a side stream, as capture requires: the
+    libraries' handles and workspaces are created outside the capture.  The
+    output tensor is the graph's own, rewritten by every replay.  Timed on
+    the card, the figure is the chain's, not the host's: a host that stalls
+    while it issues work does not read as a slow card.
+    """
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        warm()
+    torch.cuda.current_stream(device).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+
+    def replay() -> Tuple[torch.Tensor, float]:
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        return out, start.elapsed_time(end) / 1e3
+    return replay

@@ -27,7 +27,7 @@ from typing import Callable, Optional, Tuple
 
 import torch
 
-from tpu_node_checker_torch.ops._harness import DeviceLike, resolve_device, sync
+from tpu_node_checker_torch.ops._harness import DeviceLike, card_graph, resolve_device, sync
 
 
 @dataclass
@@ -81,23 +81,11 @@ def _chain_runner(a: torch.Tensor, iters: int) -> Callable[[], Tuple[float, floa
             checksum = float(_burn_chain(a, iters).item())
             return checksum, time.perf_counter() - t0
         return run_eager
-    side = torch.cuda.Stream(a.device)
-    side.wait_stream(torch.cuda.current_stream(a.device))
-    with torch.cuda.stream(side):
-        _burn_chain(a, 1)
-    torch.cuda.current_stream(a.device).wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        out = _burn_chain(a, iters)
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
+    replay = card_graph(lambda: _burn_chain(a, iters), lambda: _burn_chain(a, 1), a.device)
 
     def run_graph() -> Tuple[float, float]:
-        start.record()
-        graph.replay()
-        end.record()
-        end.synchronize()
-        return float(out.item()), start.elapsed_time(end) / 1e3
+        out, seconds = replay()
+        return float(out.item()), seconds
     return run_graph
 
 

@@ -4,6 +4,10 @@ A streaming ``x + 1`` over a buffer large enough (default 256 MiB, five
 times the H100's 50 MB L2) that every pass is memory-bound: one read and one
 write per element.  Achieved GB/s is the health signal: a card whose memory
 channels are degraded shows up here long before it fails a matmul.
+
+On the card the passes are captured once as a CUDA graph and the timed run
+replays it between two CUDA events: the figure is the bytes moved over the
+passes' device time, so a busy host does not read as slow memory.
 """
 
 from __future__ import annotations
@@ -14,7 +18,7 @@ from typing import Optional
 
 import torch
 
-from tpu_node_checker_torch.ops._harness import DeviceLike, resolve_device, sync
+from tpu_node_checker_torch.ops._harness import DeviceLike, card_graph, resolve_device, sync
 
 
 @dataclass
@@ -51,14 +55,21 @@ def hbm_bandwidth_probe(
         dev = resolve_device(device)
         n = (mib * 1024 * 1024) // 4
         x = torch.zeros((n,), dtype=torch.float32, device=dev)
-        _stream_n(x, iters)  # warm
-        sync(dev)
-        t0 = time.perf_counter()
-        y = _stream_n(x, iters)
-        sync(dev)
-        # The scalar fetch doubles as a correctness check: iters additions of 1.
-        final = float(y[0].item())
-        elapsed = time.perf_counter() - t0
+        if dev.type == "cuda":
+            replay = card_graph(lambda: _stream_n(x, iters), lambda: _stream_n(x, 1), dev)
+            replay()  # warm
+            y, elapsed = replay()
+            final = float(y[0].item())
+        else:
+            _stream_n(x, iters)  # warm
+            sync(dev)
+            t0 = time.perf_counter()
+            y = _stream_n(x, iters)
+            sync(dev)
+            # The scalar fetch is the in-window barrier.
+            final = float(y[0].item())
+            elapsed = time.perf_counter() - t0
+        # A correctness check: iters additions of 1.
         if final != float(iters):
             return HbmResult(
                 ok=False, gbps=0.0, elapsed_ms=elapsed * 1e3, bytes_moved=0,
