@@ -77,10 +77,20 @@ Phases, one line each (any failure exits non-zero and prints no result):
    --perf-floor 0.4`` on an idle host and on a busy one (healthy, graded
    ``custom``, every ratio printed); and the same line under
    ``TNC_CHAOS_THROTTLE=int8_tops`` (exit 3 naming ``int8_tops`` alone);
-9. the ``kernels`` line (each kernel at the compute probe's shapes, its
+9. distributed probing on one card, each line the port's CLI as a host's
+   emitter runs it: ``--emit-probe - --probe-level workload
+   --probe-distributed`` with a rendezvous of one process on a free local
+   port (exit 0, schema-valid, ``distributed`` true, ``process_count`` 1,
+   no psum key, every kernel launched, the rendezvous seconds printed);
+   process 0 of 2 alone and process 1 of 2 with nothing listening, each with
+   ``--probe-rendezvous-timeout 5`` (exit 3 naming the coordinator, inside
+   the kill-timer, no process of theirs left); then two distributed rounds
+   in a row on one port, both healthy;
+10. the ``kernels`` line (each kernel at the compute probe's shapes, its
    launches counted on the workload path, in each emitter round, in each
-   selftest leg and in each calibration rep, flash also at the training
-   step's shape), then the ``nvidia-smi`` line, then the result line.
+   selftest leg, in each calibration rep and on the distributed workload
+   path, flash also at the training step's shape), then the ``nvidia-smi``
+   line, then the result line.
 
 Bounds use the H100 SXM data sheet: 3.35 TB/s of device memory, 989 TFLOP/s
 bf16 on the tensor cores.  Times are steady-state CUDA-event times over many
@@ -90,6 +100,7 @@ back-to-back launches, inputs warm in L2.
 from __future__ import annotations
 
 import ast
+import concurrent.futures
 import contextlib
 import gzip
 import http.client
@@ -97,12 +108,14 @@ import json
 import os
 import re
 import signal
+import socket
 import statistics
 import subprocess
 import sys
 import tempfile
 import threading
 import time
+import uuid
 from typing import Optional
 
 HBM_BYTES_PER_S = 3.35e12
@@ -889,6 +902,119 @@ def phase8_operator_modes(torch, root, rows) -> None:
     phase(8, "operator modes", seconds=time.perf_counter() - t_phase)
 
 
+def free_port() -> int:
+    """A local port nothing listens on now."""
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def tagged(tag: str) -> list:
+    """Every living process whose environment carries ``CHIP_SMOKE_TAG=tag``:
+    what a command started, wherever it was reparented."""
+    found = []
+    for entry in os.listdir("/proc"):
+        if not entry.isdigit():
+            continue
+        try:
+            with open(f"/proc/{entry}/environ", "rb") as f:
+                if f"CHIP_SMOKE_TAG={tag}".encode() not in f.read().split(b"\0"):
+                    continue
+            with open(f"/proc/{entry}/stat") as f:
+                if f.read().rsplit(")", 1)[1].split()[0] != "Z":
+                    found.append(int(entry))
+        except OSError:
+            continue  # gone while scanned, or not ours to read
+    return found
+
+
+def distributed_line(root: str, level: str, coord: str, n: int, pid: int, rdv_s: float,
+                     env: dict) -> dict:
+    """One host's emitter in a distributed probe, on its own tag: its exit
+    code, report, seconds, and the processes of its left after it exits."""
+    tag = uuid.uuid4().hex
+    t0 = time.perf_counter()
+    proc = port_cli(root, "--emit-probe", "-", "--probe-level", level, "--probe-distributed",
+                    "--probe-coordinator", coord, "--probe-num-processes", str(n),
+                    "--probe-process-id", str(pid), "--probe-rendezvous-timeout", str(rdv_s),
+                    env={**env, "CHIP_SMOKE_TAG": tag}, timeout=900)
+    seconds = time.perf_counter() - t0
+    try:
+        doc = json.loads(proc.stdout)
+    except json.JSONDecodeError:
+        fail(f"the distributed {level} line (process {pid} of {n}) printed no report "
+             f"(exit {proc.returncode}): {proc.stderr[-2000:]}")
+    return {"exit_code": proc.returncode, "doc": doc, "seconds": seconds,
+            "left": tagged(tag)}
+
+
+def phase9_distributed(root, rows, validate_report) -> None:
+    """Phase 9: the distributed probe on one card, its failure modes, and a
+    coordinator port used by two rounds in a row."""
+    from tpu_node_checker_torch.probe.levels import LEVEL_TIMEOUTS_S
+    from tpu_node_checker_torch.probe.liveness import DISTRIBUTED_EXTRA_TIMEOUT_S
+
+    env = {k: v for k, v in os.environ.items() if not k.startswith("TNC_")}
+    env["TNC_SCHEMA_STRICT"] = "1"
+    coord = f"127.0.0.1:{free_port()}"
+
+    # The main path of the slice: a rendezvous of one process at the
+    # workload level (the counts start at 0 in the fresh child).
+    run = distributed_line(root, "workload", coord, 1, 0, 60, env)
+    doc = run["doc"]
+    launches = doc.get("kernel_launches") or {}
+    verdicts = {k: doc.get(k) for k in ("collective_ok", "ring_ok", "mesh_ok", "workload_ok",
+                                        "ring_attention_ok")}
+    phase(9, "--probe-distributed, one process, workload level", exit_code=run["exit_code"],
+          seconds=run["seconds"], rendezvous_ms=doc.get("rendezvous_ms"),
+          elapsed_ms=doc.get("elapsed_ms"), ok=doc.get("ok"), error=doc.get("error"),
+          distributed=doc.get("distributed"), process_index=doc.get("process_index"),
+          process_count=doc.get("process_count"), device_count=doc.get("device_count"),
+          **verdicts, workload_losses=doc.get("workload_losses"), kernel_launches=launches,
+          schema_violations=validate_report(doc), left=run["left"])
+    missed = [r["name"] for r in rows if not launches.get(r["name"])]
+    if (run["exit_code"] != 0 or doc.get("ok") is not True or validate_report(doc)
+            or doc.get("distributed") is not True or doc.get("process_count") != 1
+            or doc.get("process_index") != 0 or "distributed_psum" in doc
+            or any(v is not True for v in verdicts.values()) or missed or run["left"]):
+        fail(f"the one-process distributed probe: exit {run['exit_code']}, {doc.get('error')}, "
+             f"verdicts {verdicts}, kernels missed {missed}, left {run['left']}")
+    for r in rows:
+        r["distributed_launches"] = launches[r["name"]]
+
+    # The failure modes, both at once: process 0 of 2 alone, and process 1
+    # of 2 with nothing listening at its coordinator.
+    kill_timer = LEVEL_TIMEOUTS_S["enumerate"] + DISTRIBUTED_EXTRA_TIMEOUT_S + 5
+    cases = {"process 0 of 2 alone": (f"127.0.0.1:{free_port()}", 0),
+             "process 1 of 2, nothing listening": (f"127.0.0.1:{free_port()}", 1)}
+    with concurrent.futures.ThreadPoolExecutor(max_workers=2) as pool:
+        runs = dict(zip(cases, pool.map(
+            lambda c: distributed_line(root, "enumerate", c[0], 2, c[1], 5, env),
+            cases.values())))
+    phase(9, "rendezvous failures, --probe-rendezvous-timeout 5",
+          kill_timer_s=kill_timer,
+          **{name: {"exit_code": r["exit_code"], "seconds": r["seconds"],
+                    "error": r["doc"].get("error"), "ok": r["doc"].get("ok"),
+                    "left": r["left"]} for name, r in runs.items()})
+    for name, r in runs.items():
+        coord_ = cases[name][0]
+        if (r["exit_code"] != 3 or r["doc"].get("ok") is not False
+                or f"rendezvous at coordinator {coord_} failed" not in (r["doc"].get("error") or "")
+                or r["seconds"] >= kill_timer or r["left"]):
+            fail(f"{name}: exit {r['exit_code']} in {r['seconds']:.1f} s "
+                 f"(kill-timer {kill_timer} s), {r['doc'].get('error')}, left {r['left']}")
+
+    # Two rounds in a row on the port the first line used, as the --watch
+    # loop's fresh children bind it.
+    rounds = [distributed_line(root, "enumerate", coord, 1, 0, 60, env) for _ in range(2)]
+    phase(9, "two rounds in a row on one coordinator port",
+          rounds=[{"exit_code": r["exit_code"], "seconds": r["seconds"], "ok": r["doc"].get("ok"),
+                   "rendezvous_ms": r["doc"].get("rendezvous_ms"),
+                   "error": r["doc"].get("error")} for r in rounds])
+    if any(r["exit_code"] != 0 or r["doc"].get("ok") is not True for r in rounds):
+        fail("a second distributed round on one coordinator port was not healthy")
+
+
 def main() -> int:
     try:
         import torch
@@ -1413,9 +1539,13 @@ def main() -> int:
     # -- 8. the emitter pod's operator modes
     phase8_operator_modes(torch, root, rows)
 
-    # -- 9. the kernels line, the card line, the result line
+    # -- 9. distributed probing on one card
+    phase9_distributed(root, rows, validate_report)
+
+    # -- 10. the kernels line, the card line, the result line
     keys = ("name", "route", "source", "replaces", "launches", "compute_launches",
             "emitter_launches", "selftest_launches", "calibrate_launches",
+            "distributed_launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "device_ms",
             "library_device_ms", "ok", "check", "training_step")
     print(json.dumps({"kernels": [{k2: r[k2] for k2 in keys if k2 in r} for r in rows]}),

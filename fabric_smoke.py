@@ -51,18 +51,37 @@ non-zero and prints no result):
    every leg behaved (``baseline``, ``throttle``, ``collective_leg``,
    ``ring_link`` and, on an even count of four or more, ``dcn``), none
    skipped, each leg's seconds printed with the total against the 600 s
-   the manifest gives each leg.
+   the manifest gives each leg;
+8. distributed probing across two stand-in hosts: two emitters
+   (``NODE_NAME`` host-a and host-b, each with half the cards through
+   ``CUDA_VISIBLE_DEVICES`` and its own ``NCCL_HOSTID``, so NCCL sees two
+   hosts) in one ``--probe-distributed`` rendezvous: the enumerate level,
+   the CLI's default (healthy on both, the psum ``n/2 × 1 + n/2 × 2``),
+   the collective level under ``--probe-topology 2x{n/2}`` (healthy on
+   both, the same psum, both axes true; NCCL's transports read from its
+   ``NCCL_DEBUG=INFO`` files, where every edge between the halves must use
+   NET and no edge within a half may), ``TNC_CHAOS_SLICES=2``
+   with ``dcn`` on the process boundary (healthy) and with
+   ``TNC_CHAOS_AXIS=dcn`` (named on both), ``TNC_CHAOS_RING_LINK`` on the
+   link into host-b's first rank (named on both), and the workload level
+   (healthy, data × model over every card, equal losses on both); then the
+   JAX fleet checker grading both workload reports, and the one-host
+   ``TNC_CHAOS_SLICES=2`` figures beside the two-host ones.
 
-``python3 fabric_smoke.py --only emitter`` runs check 6 alone, and
-``--only selftest`` check 7.  The last line is ``{"ok": true, "cards": n}``.
+``python3 fabric_smoke.py --only emitter`` runs check 6 alone,
+``--only selftest`` check 7 and ``--only distributed`` check 8.  The last
+line is ``{"ok": true, "cards": n}``.
 """
 
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import dataclasses
+import glob
 import json
 import os
+import re
 import signal
 import subprocess
 import sys
@@ -254,10 +273,199 @@ def selftest_check(root: str, n: int) -> None:
              f"skipped {doc.get('skipped_legs')}")
 
 
+def distributed_check(root: str, n: int) -> None:
+    """Check 8: two emitters, each with half the cards, stand in for two
+    hosts of one distributed probe."""
+    from chip_smoke import aggregate, free_port
+    from tpu_node_checker_torch.probe.schema import validate_report
+
+    if n < 4 or n % 2:
+        fail(f"the distributed check splits the cards into two hosts: needs an even count "
+             f"of four or more, {n} visible")
+    half = n // 2
+    hosts = ("host-a", "host-b")
+    base = {k: v for k, v in os.environ.items() if not k.startswith("TNC_")}
+    base["TNC_SCHEMA_STRICT"] = "1"
+    work = tempfile.mkdtemp(prefix="fabric-smoke-distributed-")
+    nccl_logs = os.path.join(work, "nccl")
+    os.mkdir(nccl_logs)
+    keys = ("ok", "error", "elapsed_ms", "rendezvous_ms", "device_count", "local_device_count",
+            "process_index", "process_count", "distributed_psum", "distributed_psum_ok",
+            "collective_ok", "collective_busbw_gbps", "ring_ok", "ring_link_gbps",
+            "ring_bad_links", "ici_axis_ok", "ici_axis_busbw_gbps", "fault_domain_ok",
+            "fault_domain_busbw_gbps", "dcn_busbw_gbps", "workload_ok", "workload_devices",
+            "workload_losses", "workload_step_ms", "ring_attention_ok", "pipeline_ok",
+            "moe_ok", "kernel_launches", "chaos_injected")
+
+    def emitter(i: int, coord: str, level: str, args: tuple, extra: dict, debug: bool):
+        cards = ",".join(str(c) for c in range(i * half, (i + 1) * half))
+        env = {**base, "NODE_NAME": hosts[i], "CUDA_VISIBLE_DEVICES": cards,
+               "NCCL_HOSTID": hosts[i], **extra}
+        if debug:
+            env.update(NCCL_DEBUG="INFO", NCCL_DEBUG_SUBSYS="INIT,P2P,NET",
+                       NCCL_DEBUG_FILE=os.path.join(nccl_logs, f"{hosts[i]}.%p.log"))
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "tpu_node_checker_torch", "--emit-probe", "-",
+             "--probe-level", level, "--probe-distributed", "--probe-coordinator", coord,
+             "--probe-num-processes", "2", "--probe-process-id", str(i),
+             "--probe-rendezvous-timeout", "60", *args],
+            capture_output=True, text=True, cwd=root, timeout=900, env=env,
+        )
+        seconds = time.perf_counter() - t0
+        try:
+            rep = json.loads(proc.stdout)
+        except json.JSONDecodeError:
+            fail(f"{hosts[i]} at {level} {extra} printed no report (exit {proc.returncode}): "
+                 f"{proc.stderr[-2000:]}")
+        violations = validate_report(rep)
+        if violations:
+            fail(f"{hosts[i]} at {level} {extra}: the report violates the schema: {violations}")
+        return proc.returncode, rep, seconds
+
+    def distributed_round(name: str, level: str, *args, extra=None, debug=False) -> list:
+        coord = f"127.0.0.1:{free_port()}"
+        with concurrent.futures.ThreadPoolExecutor(max_workers=2) as pool:
+            runs = list(pool.map(lambda i: emitter(i, coord, level, args, extra or {}, debug),
+                                 range(2)))
+        line(f"distributed {name}", **{hosts[i]: {"exit_code": rc, "seconds": sec,
+                                                  **{k: rep.get(k) for k in keys if k in rep}}
+                                       for i, (rc, rep, sec) in enumerate(runs)})
+        return runs
+
+    def healthy(runs: list, what: str) -> None:
+        for host, (rc, rep, _) in zip(hosts, runs):
+            if (rc != 0 or rep.get("ok") is not True or rep.get("distributed") is not True
+                    or rep.get("device_count") != n or rep.get("local_device_count") != half
+                    or rep.get("process_count") != 2
+                    or rep.get("distributed_psum") != float(half * 1 + half * 2)
+                    or rep.get("distributed_psum_ok") is not True):
+                fail(f"{what} on {host}: exit {rc}, {rep.get('error')}, "
+                     f"psum {rep.get('distributed_psum')}")
+
+    # The CLI's default level: the meeting and the psum over one rank per
+    # process, with no rank spawned.
+    runs = distributed_round("enumerate (the default level)", "enumerate")
+    healthy(runs, "the enumerate level")
+
+    topo = f"2x{half}"
+    runs = distributed_round(f"collective --probe-topology {topo}", "collective",
+                             "--probe-topology", topo, debug=True)
+    healthy(runs, "the collective level")
+    if any(rep.get("ici_axis_ok") != {"t0": True, "t1": True} for _, rep, _ in runs):
+        fail(f"the {topo} axes across the hosts: {[rep.get('ici_axis_ok') for _, rep, _ in runs]}")
+    # NCCL's transport on each edge, from its INIT/P2P/NET lines
+    # ("Channel 00/0 : 1[1] -> 2[2] [send] via NET/Socket/0").  The rank is
+    # the communicator's, so an edge is placed by the bracketed id, the
+    # card's NVML index: the numbering of the CUDA_VISIBLE_DEVICES given to
+    # each host above.  If NCCL took the two NCCL_HOSTIDs for two hosts,
+    # every edge between the halves uses NET and no edge within a half does.
+    owner = {str(c): hosts[c // half] for c in range(n)}
+    transports = {}
+    for path in sorted(glob.glob(os.path.join(nccl_logs, "*.log"))):
+        host = os.path.basename(path).split(".")[0]
+        with open(path, errors="replace") as f:
+            for text in f:
+                via = re.search(r"\d+\[(\w+)\] -> \d+\[(\w+)\] (?:\[\w+\] )?via (\S+)",
+                                text)
+                if not via:
+                    continue
+                src, dst, how = via.groups()
+                where = ("unplaced" if src not in owner or dst not in owner else
+                         "within the halves" if owner[src] == owner[dst] else
+                         "between the halves")
+                transports.setdefault(where, {}).setdefault(how, set()).add(
+                    f"{host}:{src}->{dst}")
+    net = {where: sorted({how.startswith("NET") for how in hows})
+           for where, hows in transports.items()}
+    hostid_split_ok = net.get("between the halves") == [True] and net.get(
+        "within the halves") == [False] and "unplaced" not in net
+    line("NCCL transports between devices (NCCL_DEBUG=INFO, the collective round)",
+         files=len(glob.glob(os.path.join(nccl_logs, "*.log"))),
+         transports={w: {v: sorted(e) for v, e in vias.items()}
+                     for w, vias in transports.items()},
+         hostid_split_ok=hostid_split_ok)
+
+    runs = distributed_round("TNC_CHAOS_SLICES=2, dcn on the process boundary", "collective",
+                             "--probe-topology", f"1x{half}", extra={"TNC_CHAOS_SLICES": "2"})
+    healthy(runs, "the multislice block")
+    two_host_bw = runs[0][1].get("fault_domain_busbw_gbps")
+    for host, (_, rep, _) in zip(hosts, runs):
+        if (rep.get("fault_domain_ok") != {"dcn": True, "t0": True, "t1": True}
+                or not (rep.get("dcn_busbw_gbps") or 0) > 0):
+            fail(f"the dcn axis on {host}: {rep.get('fault_domain_ok')}, "
+                 f"{rep.get('dcn_busbw_gbps')} GB/s")
+
+    runs = distributed_round("TNC_CHAOS_AXIS=dcn drill", "collective", "--probe-topology",
+                             f"1x{half}", extra={"TNC_CHAOS_SLICES": "2", "TNC_CHAOS_AXIS": "dcn"})
+    for host, (rc, rep, _) in zip(hosts, runs):
+        if (rc != 3 or "DCN slice boundary" not in (rep.get("error") or "")
+                or rep.get("fault_domain_ok") != {"dcn": False, "t0": True, "t1": True}):
+            fail(f"the dcn drill on {host}: exit {rc}, {rep.get('error')}, "
+                 f"{rep.get('fault_domain_ok')}")
+
+    link = f"{half - 1}->{half}"
+    runs = distributed_round(f"TNC_CHAOS_RING_LINK={half - 1} drill ({link}, into host-b)",
+                             "collective", extra={"TNC_CHAOS_RING_LINK": str(half - 1)})
+    for host, (rc, rep, _) in zip(hosts, runs):
+        if rc != 3 or rep.get("ring_bad_links") != [link]:
+            fail(f"the ring drill on {host}: exit {rc}, {rep.get('ring_bad_links')}")
+
+    runs = distributed_round("workload", "workload")
+    healthy(runs, "the workload level")
+    for host, (_, rep, _) in zip(hosts, runs):
+        bad = [k for k in ("workload_ok", "ring_attention_ok", "pipeline_ok", "moe_ok")
+               if rep.get(k) is not True]
+        if bad or rep.get("workload_devices") != n:
+            fail(f"the workload level on {host}: {bad}, {rep.get('workload_devices')} devices")
+    if runs[0][1].get("workload_losses") != runs[1][1].get("workload_losses"):
+        fail(f"the hosts' losses differ: {[rep.get('workload_losses') for _, rep, _ in runs]}")
+
+    # The fleet checker over both hosts' reports, as the aggregator reads them.
+    reports = os.path.join(work, "reports")
+    os.mkdir(reports)
+    for host, (_, rep, _) in zip(hosts, runs):
+        with open(os.path.join(reports, f"{host}.json"), "w") as f:
+            json.dump(rep, f)
+    resources = {"cpu": "8", "memory": "32Gi", "pods": "110", "nvidia.com/gpu": str(half)}
+    nodes = os.path.join(work, "nodes.json")
+    with open(nodes, "w") as f:
+        json.dump({"kind": "NodeList", "apiVersion": "v1", "items": [{
+            "metadata": {"name": host, "labels": {}}, "spec": {},
+            "status": {"allocatable": resources, "capacity": dict(resources),
+                       "conditions": [{"type": "Ready", "status": "True"}]},
+        } for host in hosts]}, f)
+    rc, payload = aggregate(root, nodes, reports, base)
+    summary = payload.get("probe_summary") or {}
+    line("the JAX fleet checker over both workload reports", exit_code=rc, probe_summary=summary)
+    if rc != 0 or summary.get("hosts_ok") != 2 or summary.get("hosts_failed"):
+        fail(f"the fleet checker did not grade both hosts ok: exit {rc}, {summary}")
+
+    # The same multislice block on one host with every card, for its figures.
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "tpu_node_checker_torch", "--emit-probe", "-",
+         "--probe-level", "collective", "--probe-topology", f"1x{half}"],
+        capture_output=True, text=True, cwd=root, timeout=600,
+        env={**base, "TNC_CHAOS_SLICES": "2"},
+    )
+    one = json.loads(proc.stdout) if proc.stdout.strip() else {}
+    line("one host, TNC_CHAOS_SLICES=2, beside the two stand-in hosts", exit_code=proc.returncode,
+         seconds=time.perf_counter() - t0, one_host_fault_domain_busbw_gbps=one.get(
+             "fault_domain_busbw_gbps"), two_host_fault_domain_busbw_gbps=two_host_bw,
+         one_host_ring_link_gbps=one.get("ring_link_gbps"))
+    if proc.returncode != 0 or one.get("ok") is not True:
+        fail(f"the one-host multislice round: exit {proc.returncode}, {one.get('error')}")
+    # Checked last, so the rounds above report even when NCCL joined the
+    # stand-in hosts over P2P.
+    if not hostid_split_ok:
+        fail(f"NCCL did not take the halves for two hosts (NCCL_HOSTID): {transports}")
+
+
 def main() -> int:
     args = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    args.add_argument("--only", choices=["emitter", "selftest"],
-                      help="run only check 6 (emitter) or check 7 (selftest)")
+    args.add_argument("--only", choices=["emitter", "selftest", "distributed"],
+                      help="run only check 6 (emitter), 7 (selftest) or 8 (distributed)")
     only = args.parse_args().only
     try:
         import torch
@@ -288,7 +496,8 @@ def main() -> int:
     ).stdout.strip().splitlines()
     line("environment", torch=torch.__version__, cards=cards)
     if only:
-        {"emitter": emitter_checks, "selftest": selftest_check}[only](root, n)
+        {"emitter": emitter_checks, "selftest": selftest_check,
+         "distributed": distributed_check}[only](root, n)
         print(json.dumps({"ok": True, "cards": n}), flush=True)
         return 0
 
@@ -496,6 +705,11 @@ def main() -> int:
     emitter_checks(root, n)
     # -- 7. the initContainer's drill across the cards
     selftest_check(root, n)
+    # -- 8. one distributed probe over two stand-in hosts, each half the cards
+    if n % 2 == 0:
+        distributed_check(root, n)
+    else:
+        line("distributed check skipped", reason=f"{n} cards do not split into two hosts")
     print(json.dumps({"ok": True, "cards": n}), flush=True)
     return 0
 

@@ -174,7 +174,9 @@ class TestLoop:
             "--probe-level", "collective", "--probe-topology", "2x2", "--probe-soak", "20",
             "--perf-floor", "0.4", "--probe-timeout", "90", "--device", "cpu"])
         assert calls == [dict(level="collective", timeout_s=90.0, device="cpu",
-                              topology="2x2", soak_s=20.0, perf_floor=0.4)]
+                              topology="2x2", soak_s=20.0, perf_floor=0.4,
+                              distributed=False, coordinator=None, num_processes=None,
+                              process_id=None, dist_init_timeout_s=None)]
 
     def test_sigterm_stops_after_the_current_emission(self, monkeypatch, tmp_path, capsys):
         # The real wait and the real handler: SIGTERM lands during round 2,
@@ -330,12 +332,27 @@ class TestUsageErrors:
 
     @pytest.mark.parametrize("flag", [
         ["--probe"], ["--history", "h.jsonl"], ["--trend", "t.jsonl"],
-        ["--serve", "0"], ["--probe-distributed"], ["--probe-results", "/reports"],
+        ["--serve", "0"], ["--probe-results", "/reports"],
     ])
     def test_unported_flag_is_unknown(self, capsys, flag):
         code, err = _usage_error(port_cli.parse_args,
                                  ["--emit-probe", "-", "--probe-level", "compute", *flag], capsys)
         assert code == 2 and f"unrecognized arguments: {' '.join(flag)}" in err
+
+    @pytest.mark.parametrize("flags", [
+        ["--probe-distributed"],
+        ["--probe-distributed", "--probe-coordinator", "10.0.0.1:8476",
+         "--probe-num-processes", "2", "--probe-process-id", "1",
+         "--probe-rendezvous-timeout", "30"],
+    ])
+    def test_ported_flag_parses_with_emit_probe(self, flags):
+        # Once an unknown argument; ported, with JAX's types and defaults.
+        args = port_cli.parse_args(["--emit-probe", "-", "--probe-level", "compute", *flags])
+        ref = jax_cli.parse_args(["--emit-probe", "-", "--probe-level", "compute", *flags])
+        for dest in ("probe_distributed", "probe_coordinator", "probe_num_processes",
+                     "probe_process_id", "probe_rendezvous_timeout"):
+            assert getattr(args, dest) == getattr(ref, dest), dest
+        assert args.probe_distributed is True
 
 
 @pytest.fixture

@@ -8,7 +8,8 @@ workload level, as a one-card host runs it).  Both must be healthy, emit the
 same report keys, and satisfy the JAX package's report schema.  The port's
 copies of the JAX package's jax-free modules must stay equal to them; the
 per-axis and multislice blocks must read as the JAX package's on one device,
-and what is not ported yet (distributed probing) must fail as such.
+and a distributed probe of one process must stamp its rendezvous as the JAX
+child does (tests/test_torch_distributed.py drives several).
 
 torch and the port are reached through ``importlib.import_module``:
 tests/test_dependency_surface.py rejects any other ``import`` in tests/, and
@@ -18,6 +19,7 @@ a missing torch must fail loudly, not skip.
 import importlib
 import json
 import os
+import socket
 import subprocess
 import sys
 from pathlib import Path
@@ -242,9 +244,6 @@ class TestProbeFailures:
         assert rule(2, 8) == port_mesh.MeshSpec((("data", 1), ("model", 2)))
         assert rule(3, 8) is None and rule(1, 8) is None
         assert rule(6, 8) is None  # data 3 does not split a batch of 8
-        # Nothing but distributed probing is left unported.
-        assert port_liveness.not_yet_ported({"TNC_TOPOLOGY": "2x4", "TNC_CHAOS_AXIS": "t0",
-                                             "TNC_CHAOS_SLICES": "2"}) is None
 
     def test_sharded_workload_not_yet_ported(self):
         # The sharded step at data 1 x model 1 in a one-rank gloo group is
@@ -260,10 +259,42 @@ class TestProbeFailures:
         assert not too_big.ok and "needs 4 devices, got 1" in too_big.error
 
     def test_distributed_not_yet_ported(self, monkeypatch):
+        # Ported: asked for without its rendezvous, nothing here names the
+        # peers, so the probe fails naming what is missing, never probing
+        # this host alone.
+        for k in [k for k in os.environ if k.startswith("TNC_")]:
+            monkeypatch.delenv(k)
         monkeypatch.setenv("TNC_PROBE_DISTRIBUTED", "1")
         r = port_liveness.run_local_probe(level="compute", device="cpu")
-        assert not r.ok
-        assert "not yet ported" in r.error and "TNC_PROBE_DISTRIBUTED" in r.error
+        assert not r.ok and r.device_count == 0
+        assert r.error.startswith("ValueError: TNC_PROBE_DISTRIBUTED=1 needs TNC_COORDINATOR, "
+                                  "TNC_NUM_PROCESSES, TNC_PROCESS_ID")
+
+    def test_one_process_rendezvous_stamps_distributed(self, monkeypatch):
+        # One process: the rendezvous is process 0 hosting the store alone.
+        # As the JAX child stamps it: distributed, this process's index and
+        # count, and no psum (it needs a second process).
+        for k in [k for k in os.environ if k.startswith("TNC_")]:
+            monkeypatch.delenv(k)
+        monkeypatch.setenv("XLA_FLAGS", "--xla_force_host_platform_device_count=1")
+        kw = dict(level="enumerate", distributed=True, num_processes=1, process_id=0,
+                  dist_init_timeout_s=30, timeout_s=120)
+        reports = []
+        for run in (lambda **k: port_liveness.run_local_probe(device="cpu", **k),
+                    jax_liveness.run_local_probe):
+            sock = socket.socket()
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+            sock.close()
+            reports.append(run(coordinator=f"127.0.0.1:{port}", **kw))
+        port, ref = reports
+        assert port.ok and ref.ok, (port.error, ref.error)
+        keys = ("distributed", "process_index", "process_count", "local_device_count")
+        assert {k: port.details.get(k) for k in keys} == {k: ref.details.get(k) for k in keys}
+        assert port.details["distributed"] is True and port.device_count == ref.device_count == 1
+        assert port.details["process_count"] == 1 and port.details["rendezvous_ms"] >= 0
+        assert not {"distributed_psum", "distributed_psum_ok"} & (
+            set(port.details) | set(ref.details))
 
     def test_unknown_level_is_usage_error(self):
         with pytest.raises(ValueError, match="unknown probe level"):

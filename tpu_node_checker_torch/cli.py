@@ -7,6 +7,9 @@
         [--probe-timeout S] [--device cpu] [--probe-soak S]
         [--probe-topology DIMS] [--perf-floor F]
         [--watch S [--metrics-port PORT]] [--log-jsonl FILE]
+        [--probe-distributed --probe-coordinator HOST:PORT
+         --probe-num-processes N --probe-process-id I
+         [--probe-rendezvous-timeout S]]
     python -m tpu_node_checker_torch --selftest [--json] [--probe-timeout S] [--device cpu]
     python -m tpu_node_checker_torch --calibrate REPS [--probe-level L]
         [--calibrate-margin F] [--calibrate-out FILE] [--probe-timeout S]
@@ -16,7 +19,9 @@
 
 Exactly one mode runs.  ``--emit-probe`` writes one report, or with
 ``--watch`` one every S seconds until SIGTERM (exit 143), serving the
-round's gauges on ``--metrics-port``.  ``--selftest`` rehearses every
+round's gauges on ``--metrics-port``; with ``--probe-distributed`` one
+emitter per host joins one rendezvous and probes every host's cards as one
+rank group.  ``--selftest`` rehearses every
 detector on this host (the emitter pod's initContainer), and
 ``--calibrate`` prints this host's healthy figures as ``TNC_PERF_EXPECT``
 JSON, which ``--perf-floor`` grades against.  ``--report-fresh`` is the
@@ -110,6 +115,22 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--probe-topology", metavar="DIMS",
                    help="torus label of the host's cards (e.g. 2x2); at collective "
                    "level and above, one all_reduce per axis so a fault names its axis")
+    p.add_argument("--probe-distributed", action="store_true",
+                   help="with --emit-probe: join the rendezvous of one probe process per "
+                   "host before enumerating, so the probe sees every host's cards, "
+                   "verifies a cross-process psum, and its collectives cross hosts")
+    p.add_argument("--probe-coordinator", metavar="HOST:PORT",
+                   help="with --probe-distributed: the rendezvous coordinator, where "
+                   "process 0 hosts the store")
+    p.add_argument("--probe-num-processes", type=int, metavar="N",
+                   help="with --probe-distributed: total process count in the rendezvous")
+    p.add_argument("--probe-process-id", type=int, metavar="I",
+                   help="with --probe-distributed: this process's rank")
+    p.add_argument("--probe-rendezvous-timeout", type=float, default=None,
+                   metavar="SECONDS",
+                   help="with --probe-distributed: bound the rendezvous itself so an "
+                   "unreachable coordinator or a missing peer reports a structured "
+                   "error (default 60s)")
     p.add_argument("--perf-floor", type=float, default=None, metavar="FRACTION",
                    help="at compute level and above, grade the measured figures against "
                    "this fraction of the device kind's expected figures (default 0.4; "
@@ -184,6 +205,20 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
             "--probe-level/--probe-timeout/--probe-soak/--probe-topology/"
             "--perf-floor/--device)"
         )
+    if args.probe_distributed and not args.emit_probe:
+        # A probe modifier that silently does nothing would let an operator
+        # believe a distributed probe ran.  JAX's words: the port has no
+        # --probe, so only --emit-probe satisfies the rule.
+        p.error("--probe-distributed requires --probe or --emit-probe")
+    if not args.probe_distributed:
+        for flag, val in (
+            ("--probe-coordinator", args.probe_coordinator),
+            ("--probe-num-processes", args.probe_num_processes),
+            ("--probe-process-id", args.probe_process_id),
+            ("--probe-rendezvous-timeout", args.probe_rendezvous_timeout),
+        ):
+            if val is not None:
+                p.error(f"{flag} requires --probe-distributed")
     if not (args.emit_probe or args.report_fresh or args.probe_report_schema
             or args.selftest or args.calibrate is not None):
         p.error(f"one of {', '.join(MODES)} is required")
@@ -239,6 +274,9 @@ def main(argv: Optional[List[str]] = None) -> int:
     probe = dict(
         level=args.probe_level, timeout_s=args.probe_timeout, device=args.device,
         topology=args.probe_topology, soak_s=args.probe_soak, perf_floor=args.perf_floor,
+        distributed=args.probe_distributed, coordinator=args.probe_coordinator,
+        num_processes=args.probe_num_processes, process_id=args.probe_process_id,
+        dist_init_timeout_s=args.probe_rendezvous_timeout,
     )
     if args.watch is not None:
         # Returns only on SIGTERM (143).

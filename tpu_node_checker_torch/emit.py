@@ -50,16 +50,24 @@ def emit_probe_once(
     topology: Optional[str] = None,
     soak_s: float = 0.0,
     perf_floor: Optional[float] = None,
+    distributed: bool = False,
+    coordinator: Optional[str] = None,
+    num_processes: Optional[int] = None,
+    process_id: Optional[int] = None,
+    dist_init_timeout_s: Optional[float] = None,
 ) -> Tuple[int, dict]:
     """One probe and one atomic report write (``-`` writes to stdout).
 
     Returns ``(exit_code, report)``: 0 when the host is healthy, 3 otherwise.
     A report that violates the declared schema warns on stderr, or raises
-    under ``TNC_SCHEMA_STRICT``.
+    under ``TNC_SCHEMA_STRICT``.  The rendezvous arguments of a distributed
+    probe pass through to :func:`run_local_probe`.
     """
     probed = run_local_probe(
         level=level, timeout_s=timeout_s, device=device,
         topology=topology, soak_s=soak_s, perf_floor=perf_floor,
+        distributed=distributed, coordinator=coordinator, num_processes=num_processes,
+        process_id=process_id, dist_init_timeout_s=dist_init_timeout_s,
     )
     doc = probed.to_dict()
     doc["schema"] = REPORT_SCHEMA_VERSION

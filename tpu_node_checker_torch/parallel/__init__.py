@@ -1,8 +1,9 @@
 """Rank groups, rank meshes and the fabric probes over ``torch.distributed``.
 
-The port of the JAX package's data plane for one host: one rank per local
-card (:mod:`.mesh`, whose :class:`RankMesh` lays named axes over the ranks,
-each with the process groups of its lines), and the probes that push
+The port of the JAX package's data plane: one rank per card, on one host or
+across hosts that meet through a :class:`Rendezvous` (:mod:`.mesh`, whose
+:class:`RankMesh` lays named axes over the ranks, each with the process
+groups of its lines), and the probes that push
 collectives and point-to-point traffic across the links between the cards:
 psum, all_gather and reduce-scatter, a ring walk, and one all_reduce per
 mesh axis with its bus bandwidth (:mod:`.collectives`), ring attention with
@@ -12,10 +13,12 @@ layer over all_to_all (:mod:`.moe`).
 """
 
 from tpu_node_checker_torch.parallel.mesh import (
+    Meeting,
     MeshSpec,
     RankFailure,
     RankGroup,
     RankMesh,
+    Rendezvous,
     build_mesh,
     flat_mesh,
     fold,
@@ -29,6 +32,7 @@ from tpu_node_checker_torch.parallel.collectives import (
     CollectiveResult,
     axis_bandwidth_probe,
     collective_probe,
+    distributed_psum,
     per_axis_probe,
     ring_probe,
 )
@@ -55,10 +59,12 @@ from tpu_node_checker_torch.parallel.moe import (
 )
 
 __all__ = [
+    "Meeting",
     "MeshSpec",
     "RankFailure",
     "RankGroup",
     "RankMesh",
+    "Rendezvous",
     "build_mesh",
     "flat_mesh",
     "fold",
@@ -70,6 +76,7 @@ __all__ = [
     "CollectiveResult",
     "axis_bandwidth_probe",
     "collective_probe",
+    "distributed_psum",
     "per_axis_probe",
     "ring_probe",
     "RingAttentionResult",

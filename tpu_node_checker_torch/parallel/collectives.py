@@ -15,7 +15,8 @@ runs the JAX ``shard_map`` program.
   (:class:`~tpu_node_checker_torch.parallel.mesh.RankMesh`), so a fault names
   the torus axis, or the DCN slice boundary, it lies on;
 * :func:`axis_bandwidth_probe`: the bus bandwidth of an ``all_reduce``
-  along one mesh axis.
+  along one mesh axis;
+* :func:`distributed_psum`: the distributed probe's cross-process sum.
 
 Payloads vary by position: rank ``i``'s element ``j`` is ``i + j`` in f32, so
 a link that reorders elements inside a payload fails the exact compare, and
@@ -109,6 +110,17 @@ def ring_shift(x: torch.Tensor, group=None) -> torch.Tensor:
     ]):
         req.wait()
     return out
+
+
+def distributed_psum(value: float) -> float:
+    """``value`` summed in f32 over every rank of the group, as the JAX
+    child's cross-process psum sums it.  The probe child calls it on a group
+    of one rank per process, each passing its card count × (its index + 1),
+    the sum of the JAX child's per-device values, so the sum needs every
+    process."""
+    x = torch.full((1,), value, dtype=torch.float32, device=local_device())
+    dist.all_reduce(x)
+    return float(x.item())
 
 
 def collective_probe(

@@ -1,13 +1,24 @@
 """Rank groups and rank meshes: the counterpart of the JAX package's ``Mesh``.
 
 The JAX package runs its fabric probes as one SPMD program over a
-``jax.sharding.Mesh`` of the local chips.  Here the same probes run as one
+``jax.sharding.Mesh`` of the chips.  Here the same probes run as one
 process per card over ``torch.distributed``: a :class:`RankGroup` holds one
-rank per local card, rank 0 in the calling process (the probe child) and
+rank per local card, the first in the calling process (the probe child) and
 the others spawned with the ``spawn`` start method.
 
-* Rendezvous goes through a ``FileStore`` in a private temporary directory,
-  never a fixed port, so groups on one host cannot collide.
+* On one host, rendezvous goes through a ``FileStore`` in a private
+  temporary directory, never a fixed port, so groups on one host cannot
+  collide.
+* Across hosts (a :class:`Rendezvous`, the distributed probe), one probe
+  process per host meets the others (a :class:`Meeting`) through a
+  ``TCPStore`` that process 0 hosts on the coordinator's port.  Each
+  process writes its card count there.  A group over the meeting gives its
+  ranks the global ranks after those of the processes with lower ids, so
+  the group holds every host's cards; :meth:`Meeting.process_group` is the
+  smaller group of one rank per process, which spawns nothing.  Each
+  host's ``FileStore`` still carries the commands to its own spawned
+  ranks: a host only ever drives its own ranks, and every host makes the
+  same calls in the same order.
 * The backend is NCCL on the cards (each rank binds its card through
   ``device_id``) and gloo on the CPU.  Nothing falls back from one to the
   other.
@@ -24,8 +35,9 @@ probe child's collective, mesh and workload blocks in turn and each rank
 pays its interpreter start once.
 
 A :class:`RankMesh` lays named axes over the group's ranks, row-major over
-rank order (card order): cards carry no torus coordinates and no slice
-index, which is where the JAX package falls back to the same reshape.  Each
+global rank order (process order, then card order): cards carry no torus
+coordinates and no slice index, which is where the JAX package falls back
+to the same reshape, so an axis can mix processes as it does in JAX.  Each
 rank holds its coordinates and, for every axis, the process group of the
 line through it along that axis.  :func:`build_mesh` is collective (every
 rank creates every line's group, in one order) and caches the mesh, and
@@ -35,6 +47,7 @@ closes.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import datetime
 import math
@@ -42,6 +55,7 @@ import multiprocessing
 import os
 import pickle
 import shutil
+import sys
 import tempfile
 import time
 import traceback
@@ -55,6 +69,14 @@ import torch.distributed as dist
 # How often a rank that waits in the store checks that its peer is alive: a
 # spawned rank its parent, rank 0 each spawned rank.
 _POLL_S = 1.0
+
+# The rendezvous store's keys: each process's card count and its farewell,
+# and the prefixes under which the group of every card and the group of one
+# rank per process meet.
+_CARDS_KEY = "tnc/cards/{}"
+_CLOSED_KEY = "tnc/closed/{}"
+_GROUP_PREFIX = "tnc/group"
+_PROCESS_GROUP_PREFIX = "tnc/processes"
 
 
 @dataclass(frozen=True)
@@ -77,6 +99,39 @@ class MeshSpec:
         for _, size in self.axes:
             n *= size
         return n
+
+
+@dataclass(frozen=True)
+class Rendezvous:
+    """Where the probe processes of one distributed probe meet.
+
+    Process 0 hosts the store on ``coordinator`` (``host:port``); the
+    others connect to it.  ``timeout_s`` bounds the connection and the wait
+    for every one of the ``num_processes`` processes."""
+
+    coordinator: str
+    num_processes: int
+    process_id: int
+    timeout_s: float
+
+    def __post_init__(self):
+        host, sep, port = self.coordinator.rpartition(":")
+        if not sep or not host or not port.isdigit() or not 0 < int(port) < 65536:
+            raise ValueError(f"coordinator {self.coordinator!r} is not host:port")
+        if self.num_processes < 1:
+            raise ValueError(f"num_processes must be >= 1, got {self.num_processes}")
+        if not 0 <= self.process_id < self.num_processes:
+            raise ValueError(
+                f"process_id {self.process_id} out of range for "
+                f"{self.num_processes} processes"
+            )
+        if not self.timeout_s > 0:
+            raise ValueError(f"rendezvous timeout must be > 0 s, got {self.timeout_s}")
+
+    @property
+    def address(self) -> Tuple[str, int]:
+        host, _, port = self.coordinator.rpartition(":")
+        return host.strip("[]"), int(port)
 
 
 @dataclass
@@ -287,12 +342,13 @@ def fold(results: List[Any]):
     )
 
 
-def _init(path: str, rank: int, world_size: int, device_type: str, timeout_s: float):
-    store = dist.FileStore(path, world_size)
+def _init(store, rank: int, local_rank: int, world_size: int, device_type: str,
+          timeout_s: float) -> None:
     kw = {}
     if device_type == "cuda":
-        torch.cuda.set_device(rank)
-        kw["device_id"] = torch.device("cuda", rank)
+        # The card is the host's, by local index; the rank is the group's.
+        torch.cuda.set_device(local_rank)
+        kw["device_id"] = torch.device("cuda", local_rank)
     dist.init_process_group(
         "nccl" if device_type == "cuda" else "gloo",
         store=store,
@@ -301,7 +357,52 @@ def _init(path: str, rank: int, world_size: int, device_type: str, timeout_s: fl
         timeout=datetime.timedelta(seconds=timeout_s),
         **kw,
     )
-    return store
+
+
+def _connect(rdv: Rendezvous, deadline: float, is_master: bool = False):
+    """The rendezvous store: hosted here when ``is_master`` (process 0's
+    probe child), else a connection to the coordinator, by ``deadline``
+    (``time.monotonic()``)."""
+    host, port = rdv.address
+    try:
+        return dist.TCPStore(
+            host, port, is_master=is_master, wait_for_workers=False,
+            timeout=datetime.timedelta(seconds=max(deadline - time.monotonic(), 0.001)),
+        )
+    except RuntimeError as exc:  # DistNetworkError: no coordinator, or the port is taken
+        what = "could not host the store" if is_master else "no coordinator answered"
+        raise RuntimeError(
+            f"rendezvous at coordinator {rdv.coordinator} failed: {what} (rendezvous "
+            f"timeout {rdv.timeout_s:g} s, process {rdv.process_id} of {rdv.num_processes}): "
+            f"{exc}"
+        ) from exc
+
+
+def _group_store(store, prefix: str, timeout_s: float):
+    """A process group's view of the rendezvous store under ``prefix``, its
+    waits bounded by the group's timeout."""
+    group_store = dist.PrefixStore(prefix, store)
+    group_store.set_timeout(datetime.timedelta(seconds=timeout_s))
+    return group_store
+
+
+def _meet(store, rdv: Rendezvous, n_local: int, deadline: float) -> Tuple[int, ...]:
+    """Every process's card count, in process order, once all have joined."""
+    store.set(_CARDS_KEY.format(rdv.process_id), str(n_local))
+    keys = [_CARDS_KEY.format(p) for p in range(rdv.num_processes)]
+    try:
+        store.wait(keys, datetime.timedelta(seconds=max(deadline - time.monotonic(), 0.001)))
+    except RuntimeError as exc:  # DistStoreError: a timeout, or the coordinator gone
+        try:
+            missing = [p for p, k in enumerate(keys) if not store.check([k])]
+        except RuntimeError:
+            missing = "unknown (the coordinator is gone)"
+        raise RuntimeError(
+            f"rendezvous at coordinator {rdv.coordinator} failed: not every process "
+            f"joined (rendezvous timeout {rdv.timeout_s:g} s, process {rdv.process_id} of "
+            f"{rdv.num_processes}; missing: {missing}): {exc}"
+        ) from exc
+    return tuple(int(store.get(k)) for k in keys)
 
 
 def _call(fn: Callable, args: tuple, kwargs: dict):
@@ -329,10 +430,17 @@ def _wait(store, key: str, alive: Callable[[], bool], timeout_s: float) -> bool:
                 raise
 
 
-def _rank_main(path: str, rank: int, world_size: int, device_type: str,
-               timeout_s: float, parent_pid: int) -> None:
-    """A spawned rank: run each command rank 0 posts, until told to stop."""
-    store = _init(path, rank, world_size, device_type, timeout_s)
+def _rank_main(path: str, local_rank: int, n_local: int, rank: int, world_size: int,
+               device_type: str, timeout_s: float, parent_pid: int,
+               rdv: Optional[Rendezvous]) -> None:
+    """A spawned rank: run each command its host's rank 0 posts, until told
+    to stop."""
+    store = dist.FileStore(path, n_local)
+    group_store = store
+    if rdv is not None:
+        group_store = _group_store(_connect(rdv, time.monotonic() + rdv.timeout_s),
+                                   _GROUP_PREFIX, timeout_s)
+    _init(group_store, rank, local_rank, world_size, device_type, timeout_s)
     try:
         seq = 0
         while True:
@@ -343,21 +451,85 @@ def _rank_main(path: str, rank: int, world_size: int, device_type: str,
             if cmd is None:
                 return
             fn, args, kwargs = cmd
-            store.set(f"res/{seq}/{rank}", pickle.dumps(_call(fn, args, kwargs)))
+            store.set(f"res/{seq}/{local_rank}", pickle.dumps(_call(fn, args, kwargs)))
     finally:
         dist.destroy_process_group()
         _forget_meshes()
 
 
-class RankGroup:
-    """One rank per device: rank 0 here, the rest spawned.
+class Meeting:
+    """This process's place in a :class:`Rendezvous` once every process has
+    joined.
 
-    ``device_type`` is ``cuda`` (NCCL, rank r on card r) or ``cpu`` (gloo).
-    Use as a context manager; :meth:`close` stops the spawned ranks and
-    destroys the process group.
+    Joining connects to the store (process 0 hosts it) and waits for every
+    process's card count, both bounded by the rendezvous timeout; a failure
+    raises naming the coordinator and the bound.  ``counts`` holds each
+    process's card count in process order, ``rank_offset`` this process's
+    first global rank, ``world_size`` every card, and ``meet_s`` the seconds
+    the meeting took.  A :class:`RankGroup` over the meeting holds every
+    process's cards; :meth:`process_group` holds one rank per process.
+    :meth:`close` says farewell once this process's groups are closed.
     """
 
-    def __init__(self, world_size: int, device_type: str = "cuda", timeout_s: float = 300.0):
+    def __init__(self, rendezvous: Rendezvous, n_local: int):
+        t0 = time.monotonic()
+        deadline = t0 + rendezvous.timeout_s
+        self.rendezvous = rendezvous
+        self.store = _connect(rendezvous, deadline, is_master=rendezvous.process_id == 0)
+        self.counts = _meet(self.store, rendezvous, n_local, deadline)
+        self.meet_s = time.monotonic() - t0
+        self.rank_offset = sum(self.counts[:rendezvous.process_id])
+        self.world_size = sum(self.counts)
+
+    @contextlib.contextmanager
+    def process_group(self, device_type: str, timeout_s: float):
+        """The default process group over one rank per process (this
+        process, on its first card under NCCL, gloo on the CPU) for the
+        span of the ``with`` block; ``timeout_s`` bounds its start and
+        every collective.  Nothing is spawned."""
+        rdv = self.rendezvous
+        _init(_group_store(self.store, _PROCESS_GROUP_PREFIX, timeout_s), rdv.process_id, 0,
+              rdv.num_processes, device_type, timeout_s)
+        try:
+            yield
+        finally:
+            dist.destroy_process_group()
+
+    def close(self, deadline: Optional[float] = None) -> None:
+        """Say this process's groups are closed.  Process 0, which hosts the
+        store, keeps it up until every process has said so, so no peer loses
+        the store while it closes.  A peer that died, or hangs, never says
+        so: the wait is bounded by the rendezvous timeout and by
+        ``deadline`` (``time.monotonic()``), the caller's own limit."""
+        rdv, store = self.rendezvous, self.store
+        if store is None:
+            return
+        self.store = None
+        try:
+            store.set(_CLOSED_KEY.format(rdv.process_id), "1")
+            if rdv.process_id == 0:
+                wait_s = rdv.timeout_s
+                if deadline is not None:
+                    wait_s = min(wait_s, deadline - time.monotonic())
+                store.wait([_CLOSED_KEY.format(p) for p in range(rdv.num_processes)],
+                           datetime.timedelta(seconds=max(wait_s, 0.001)))
+        except RuntimeError as exc:  # the coordinator gone, or a peer that never closed
+            print(f"rendezvous farewell: {exc}", file=sys.stderr)
+
+
+class RankGroup:
+    """One rank per device: the first here, the rest spawned.
+
+    ``world_size`` ranks run on this host; ``device_type`` is ``cuda``
+    (NCCL, local rank r on card r) or ``cpu`` (gloo).  Over a ``meeting``
+    the group holds every process's ranks: ``world_size`` becomes their
+    sum and ``rank_offset`` this host's first global rank, and the caller
+    closes the meeting after the group.  Use as a context manager;
+    :meth:`close` stops the spawned ranks and destroys the process group.
+    """
+
+    def __init__(self, world_size: int, device_type: str = "cuda", timeout_s: float = 300.0,
+                 meeting: Optional[Meeting] = None):
         if world_size < 1:
             raise ValueError(f"world_size must be >= 1, got {world_size}")
         if device_type not in ("cuda", "cpu"):
@@ -367,9 +539,12 @@ class RankGroup:
                 f"{world_size} ranks need {world_size} cards, "
                 f"{torch.cuda.device_count()} visible"
             )
-        self.world_size = world_size
+        self.local_size = world_size
+        self.world_size = meeting.world_size if meeting is not None else world_size
+        self.rank_offset = meeting.rank_offset if meeting is not None else 0
         self.device_type = device_type
         self.timeout_s = timeout_s
+        self.meeting = meeting
         self._dir: Optional[str] = None
         self._store = None
         self._procs: list = []
@@ -383,43 +558,56 @@ class RankGroup:
         self.close()
 
     def start(self) -> None:
+        meeting = self.meeting
         self._dir = tempfile.mkdtemp(prefix="tnc-ranks-")
         path = os.path.join(self._dir, "store")
         ctx = multiprocessing.get_context("spawn")
-        for rank in range(1, self.world_size):
+        for local_rank in range(1, self.local_size):
             p = ctx.Process(
                 target=_rank_main,
-                args=(path, rank, self.world_size, self.device_type, self.timeout_s, os.getpid()),
-                name=f"tnc-rank-{rank}",
+                args=(path, local_rank, self.local_size, self.rank_offset + local_rank,
+                      self.world_size, self.device_type, self.timeout_s, os.getpid(),
+                      meeting.rendezvous if meeting is not None else None),
+                name=f"tnc-rank-{self.rank_offset + local_rank}",
                 daemon=True,
             )
             p.start()
             self._procs.append(p)
-        self._store = _init(path, 0, self.world_size, self.device_type, self.timeout_s)
+        self._store = dist.FileStore(path, self.local_size)
+        group_store = self._store
+        if meeting is not None:
+            group_store = _group_store(meeting.store, _GROUP_PREFIX, self.timeout_s)
+        _init(group_store, self.rank_offset, 0, self.world_size, self.device_type,
+              self.timeout_s)
 
     def run(self, fn: Callable, *args, **kwargs) -> list:
-        """``fn(*args, **kwargs)`` on every rank; every rank's result, in
-        rank order (a :class:`RankFailure` where the call raised).  ``fn``
-        and its arguments must pickle: a module-level function."""
+        """``fn(*args, **kwargs)`` on every rank of this host; their results,
+        in rank order (a :class:`RankFailure` where the call raised).  ``fn``
+        and its arguments must pickle: a module-level function.  Across
+        hosts, every host's probe child makes the same calls in the same
+        order."""
         self._seq += 1
         self._store.set(f"cmd/{self._seq}", pickle.dumps((fn, args, kwargs)))
         results = [_call(fn, args, kwargs)]
-        for rank, proc in enumerate(self._procs, start=1):
-            key = f"res/{self._seq}/{rank}"
+        for local_rank, proc in enumerate(self._procs, start=1):
+            key = f"res/{self._seq}/{local_rank}"
             if _wait(self._store, key, proc.is_alive, self.timeout_s):
                 results.append(pickle.loads(self._store.get(key)))
             else:
                 results.append(RankFailure(
-                    ok=False, error=f"rank {rank} exited with code {proc.exitcode}"))
+                    ok=False,
+                    error=f"rank {self.rank_offset + local_rank} exited with code "
+                    f"{proc.exitcode}"))
         return results
 
     def close(self) -> None:
         try:
             if self._store is not None:
                 self._store.set(f"cmd/{self._seq + 1}", pickle.dumps(None))
-                dist.destroy_process_group()
-                _forget_meshes()
                 self._store = None
+                if dist.is_initialized():  # not when start() failed before the group formed
+                    dist.destroy_process_group()
+                _forget_meshes()
         finally:
             for p in self._procs:
                 p.join(timeout=30)

@@ -32,27 +32,46 @@ Probe levels (each includes the previous):
   over the ranks, and on more than one card a pipeline and an
   expert-parallel layer.
 
-Distributed probing (``TNC_PROBE_DISTRIBUTED=1``) is not ported yet and
-fails as such (:func:`not_yet_ported`), rather than running on one host
-silently.
+Distributed probing (``TNC_PROBE_DISTRIBUTED=1``, ``run_local_probe(
+distributed=True)``): one probe process per host meets the others
+(:func:`rendezvous_from_env`, :class:`~tpu_node_checker_torch.parallel.mesh.Meeting`)
+before enumerating, and ``device_count`` counts every host's cards.  With
+more than one process, an all_reduce over one rank per process, weighted by
+process index, proves the rendezvous carries data (``distributed_psum``);
+nothing is spawned for it, so the enumerate and compute levels start no
+rank.  From the collective level up, the rank group holds every host's
+cards.  A rendezvous that fails is a failed probe, never a probe of one
+host.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import os
 import signal
 import subprocess
 import sys
 import time
 from dataclasses import dataclass, field
-from typing import List, Mapping, Optional
+from typing import TYPE_CHECKING, List, Mapping, Optional
 
 from tpu_node_checker_torch.probe.levels import (  # noqa: F401 — re-exported API
     DEFAULT_TIMEOUT_S,
     LEVEL_TIMEOUTS_S,
     LEVELS,
 )
+
+# Extra kill-timer headroom for a distributed probe: the rendezvous, the
+# peers' start-up and the cross-process psum (the JAX parent's figure).
+DISTRIBUTED_EXTRA_TIMEOUT_S = 90.0
+# How long the rendezvous waits for the coordinator and every process when
+# TNC_DIST_INIT_TIMEOUT_S is unset: inside DISTRIBUTED_EXTRA_TIMEOUT_S, so a
+# missing peer fails in the child with its cause named, before the kill-timer.
+DEFAULT_RENDEZVOUS_TIMEOUT_S = 60.0
+
+if TYPE_CHECKING:  # the parent imports no torch; the child reaches it lazily
+    from tpu_node_checker_torch.parallel.mesh import Rendezvous
 
 # The child is a standalone -c program (not a fork), so the caller never
 # initialises CUDA and a wedged card cannot leak into it.
@@ -73,13 +92,13 @@ def _append_error(msg):
 
 
 t0 = time.perf_counter()
+# The parent's kill-timer, less room to exit: the farewell after the report
+# waits no longer than this.
+deadline = time.monotonic() + float(sys.argv[3]) - 10.0
 hbm_capacity_error = None
 group = None
+meeting = None
 try:
-    from tpu_node_checker_torch.probe.liveness import not_yet_ported
-    _unported = not_yet_ported(os.environ)
-    if _unported:
-        raise NotImplementedError(_unported)
     if level not in PORTED_LEVELS:
         raise NotImplementedError(
             f"probe level {level!r} is not yet ported to the PyTorch/CUDA "
@@ -90,18 +109,34 @@ try:
     # cuda:0 unless the caller asked for the CPU; an absent card raises here.
     dev = resolve_device(device)
     on_card = dev.type == "cuda"
+    n_dev = torch.cuda.device_count() if on_card else 1
+    n_global, process_index, process_count = n_dev, 0, 1
+    from tpu_node_checker_torch.probe.levels import LEVEL_TIMEOUTS_S
+    if os.environ.get("TNC_PROBE_DISTRIBUTED") == "1":
+        # One probe process per host: meet the others before enumerating, so
+        # device_count holds every host's cards.  Failing to meet is itself
+        # a health failure.  The rank group over the meeting forms at the
+        # collective level, as the group of one host does.
+        from tpu_node_checker_torch.parallel import Meeting
+        from tpu_node_checker_torch.probe.liveness import rendezvous_from_env
+        rdv = rendezvous_from_env(os.environ)
+        meeting = Meeting(rdv, n_dev)
+        # The meeting alone: the connection and every process's card count,
+        # what the rendezvous timeout bounds.
+        out["rendezvous_ms"] = round(meeting.meet_s * 1e3, 1)
+        out["distributed"] = True
+        n_global, process_index, process_count = (
+            meeting.world_size, rdv.process_id, rdv.num_processes)
     if on_card:
-        n_dev = torch.cuda.device_count()
         out["platform"] = "gpu"
         out["device_kinds"] = sorted({torch.cuda.get_device_name(i) for i in range(n_dev)})
     else:
-        n_dev = 1
         out["platform"] = "cpu"
         out["device_kinds"] = ["cpu"]
     out["local_device_count"] = n_dev
-    out["device_count"] = n_dev
-    out["process_index"] = 0
-    out["process_count"] = 1
+    out["device_count"] = n_global
+    out["process_index"] = process_index
+    out["process_count"] = process_count
     out["ok"] = n_dev > 0
     mem = []         # report surface: devices exposing at least one stat
     mem_graded = []  # grading surface: EVERY local device, so a card whose
@@ -139,6 +174,20 @@ try:
             f"({cap['fraction']:.0%} of {cap['generation']} nominal "
             f"{cap['expected_gb']} GB)"
         )
+    if out.get("distributed") and out["ok"] and out["process_count"] > 1:
+        # Prove the rendezvous carries data: one all_reduce over one rank per
+        # process, each passing its card count x (its index + 1), so that the
+        # sum needs every process.  Half the level's budget bounds it.
+        from tpu_node_checker_torch.parallel import distributed_psum
+        try:
+            with meeting.process_group(dev.type, timeout_s=LEVEL_TIMEOUTS_S[level] / 2):
+                _sum = distributed_psum(float(n_dev * (process_index + 1)))
+        except Exception as exc:
+            raise RuntimeError(f"distributed psum: {type(exc).__name__}: {exc}") from exc
+        _expected = float(sum(c * (p + 1) for p, c in enumerate(meeting.counts)))
+        out["distributed_psum"] = _sum
+        out["distributed_psum_ok"] = abs(_sum - _expected) < 1e-6
+        out["ok"] = out["ok"] and out["distributed_psum_ok"]
     # Full-stack chaos hooks, read UNCONDITIONALLY whatever the level: a
     # chaos var set with a level that never runs the injected surface fails
     # loudly, or the rehearsal "passes" while testing nothing.  Stamped
@@ -248,7 +297,6 @@ try:
             out["ok"] = out["ok"] and soak.ok
     if level in ("collective", "mesh", "workload") and out["ok"]:
         from tpu_node_checker_torch.parallel import RankGroup, collective_probe, fold, ring_probe
-        from tpu_node_checker_torch.probe.levels import LEVEL_TIMEOUTS_S
         if "ring_link" in chaos:
             try:
                 chaos["ring_link"] = int(chaos["ring_link"])
@@ -257,10 +305,12 @@ try:
                     f"TNC_CHAOS_RING_LINK {chaos['ring_link']!r} is not an "
                     "integer link index"
                 )
-        # One rank per card, rank 0 this process; the ranks serve the mesh
-        # and workload blocks too.  Half the level's budget bounds every
-        # collective, so a hung one fails inside the kill-timer.
-        group = RankGroup(n_dev if on_card else 1, dev.type, timeout_s=LEVEL_TIMEOUTS_S[level] / 2)
+        # One rank per card, rank 0 this process, over every process's
+        # cards when distributed; the ranks serve the mesh and workload
+        # blocks too.  Half the level's budget bounds every collective, so a
+        # hung one fails inside the kill-timer.
+        group = RankGroup(n_dev, dev.type, timeout_s=LEVEL_TIMEOUTS_S[level] / 2,
+                          meeting=meeting)
         group.start()
         coll = fold(group.run(collective_probe, inject_fault_leg=chaos.get("collective_leg")))
         out["collective_ok"] = coll.ok
@@ -494,7 +544,11 @@ if level != "enumerate" and "tpu_node_checker_torch.ops" in sys.modules:
     # the CPU, where the plain versions stand in for them).
     out["kernel_launches"] = sys.modules["tpu_node_checker_torch.ops"].launch_counts()
 out["elapsed_ms"] = round((time.perf_counter() - t0) * 1e3, 1)
-print(json.dumps(out, default=lambda o: o.item() if hasattr(o, "item") else str(o)))
+print(json.dumps(out, default=lambda o: o.item() if hasattr(o, "item") else str(o)), flush=True)
+if meeting is not None:
+    # After the report: process 0 keeps the store up for its peers, but
+    # never past the kill-timer, which would discard the report.
+    meeting.close(deadline)
 """
 
 
@@ -536,6 +590,11 @@ def run_local_probe(
     topology: Optional[str] = None,
     soak_s: float = 0.0,
     perf_floor: Optional[float] = None,
+    distributed: bool = False,
+    coordinator: Optional[str] = None,
+    num_processes: Optional[int] = None,
+    process_id: Optional[int] = None,
+    dist_init_timeout_s: Optional[float] = None,
 ) -> ProbeResult:
     """Probe this host's cards in a child process; never raises on a probe
     failure.
@@ -546,7 +605,7 @@ def run_local_probe(
     turns a *partial* enumeration into a failure.  ``timeout_s=None`` picks
     the per-level budget from :data:`LEVEL_TIMEOUTS_S`.  The child reads the
     JAX child's ``TNC_*`` settings (floors, chaos, skips, soak, topology)
-    from the environment.  What :func:`not_yet_ported` names fails as such.
+    from the environment.
 
     ``topology`` (a label like ``"2x2"``) sets ``TNC_TOPOLOGY``: one
     all_reduce per torus axis at the collective level and above.
@@ -554,6 +613,17 @@ def run_local_probe(
     much, since the soak spends its time inside the child by design.
     ``perf_floor`` sets ``TNC_PERF_FLOOR``, the fraction of the expected
     figures the measured ones must reach (0 disables).
+
+    With ``distributed=True`` the child joins the rendezvous of one probe
+    process per host before enumerating, so the probe sees every host's
+    cards and its collectives cross hosts: ``coordinator`` (``host:port``,
+    where process 0 hosts the store), ``num_processes`` and ``process_id``
+    set ``TNC_COORDINATOR``, ``TNC_NUM_PROCESSES`` and ``TNC_PROCESS_ID``,
+    and ``dist_init_timeout_s`` (``TNC_DIST_INIT_TIMEOUT_S``) bounds the
+    rendezvous, so an unreachable coordinator or a missing peer fails in the
+    child with its cause named.  The kill-timer grows by
+    :data:`DISTRIBUTED_EXTRA_TIMEOUT_S` and that bound.  Without
+    ``distributed`` none of these variables is set.
 
     On a timeout the child's whole session is killed, the ranks it spawned
     with it (:func:`_run_child`).
@@ -566,9 +636,26 @@ def run_local_probe(
         # The soak loop spends its budget inside the child by design; the
         # kill-timer must leave room for it on top of the level's own work.
         timeout_s += soak_s
+    if distributed:
+        # The rendezvous, the peers' start-up and the psum happen on top of
+        # the level's own work; without headroom the kill-timer would preempt
+        # the child's own error naming the rendezvous.
+        timeout_s += DISTRIBUTED_EXTRA_TIMEOUT_S
+        if dist_init_timeout_s is not None:
+            timeout_s += dist_init_timeout_s
     hostname = os.environ.get("NODE_NAME") or os.uname().nodename
     t0 = time.perf_counter()
     child_env = {**os.environ, "PYTHONPATH": _pythonpath()}
+    if distributed:
+        child_env["TNC_PROBE_DISTRIBUTED"] = "1"
+        if coordinator:
+            child_env["TNC_COORDINATOR"] = coordinator
+        if num_processes is not None:
+            child_env["TNC_NUM_PROCESSES"] = str(num_processes)
+        if process_id is not None:
+            child_env["TNC_PROCESS_ID"] = str(process_id)
+        if dist_init_timeout_s is not None:
+            child_env["TNC_DIST_INIT_TIMEOUT_S"] = str(dist_init_timeout_s)
     if topology:
         child_env["TNC_TOPOLOGY"] = topology
     if soak_s > 0:
@@ -579,7 +666,7 @@ def run_local_probe(
         child_env["TNC_PERF_FLOOR"] = str(perf_floor)
     try:
         proc = _run_child(
-            [sys.executable, "-c", _CHILD_SCRIPT, level, str(device)],
+            [sys.executable, "-c", _CHILD_SCRIPT, level, str(device), str(timeout_s)],
             timeout=timeout_s,
             env=child_env,
         )
@@ -660,18 +747,33 @@ def _kill_session(proc: subprocess.Popen) -> None:
         pass  # the group is already gone
 
 
-def not_yet_ported(env: Mapping[str, str]) -> Optional[str]:
-    """Why this probe cannot run here, or None when it can.
+def rendezvous_from_env(env: Mapping[str, str]) -> "Rendezvous":
+    """The rendezvous a distributed probe child joins, from the JAX child's
+    variables: ``TNC_COORDINATOR`` (``host:port``), ``TNC_NUM_PROCESSES``,
+    ``TNC_PROCESS_ID`` and ``TNC_DIST_INIT_TIMEOUT_S`` (seconds; a fraction
+    rounds up to a whole second, as the JAX child rounds it, so a
+    sub-second bound stays a bound; :data:`DEFAULT_RENDEZVOUS_TIMEOUT_S`
+    when unset).  Nothing off a TPU pod names the peers, so the first three
+    are required: a missing one raises naming it."""
+    from tpu_node_checker_torch.parallel.mesh import Rendezvous
 
-    Distributed probing (``TNC_PROBE_DISTRIBUTED=1``, one global mesh over
-    several hosts) is not ported yet; asked for, it fails with this message
-    at any level instead of probing one host silently."""
-    if env.get("TNC_PROBE_DISTRIBUTED") == "1":
-        return (
-            "distributed probing (TNC_PROBE_DISTRIBUTED=1) is not yet ported "
-            "to the PyTorch/CUDA probe; use the JAX package's probe"
+    missing = [v for v in ("TNC_COORDINATOR", "TNC_NUM_PROCESSES", "TNC_PROCESS_ID")
+               if not env.get(v)]
+    if missing:
+        raise ValueError(
+            f"TNC_PROBE_DISTRIBUTED=1 needs {', '.join(missing)}: nothing here "
+            "autodetects the rendezvous (--probe-coordinator, "
+            "--probe-num-processes, --probe-process-id)"
         )
-    return None
+    timeout_s = DEFAULT_RENDEZVOUS_TIMEOUT_S
+    if env.get("TNC_DIST_INIT_TIMEOUT_S"):
+        timeout_s = float(max(1, math.ceil(float(env["TNC_DIST_INIT_TIMEOUT_S"]))))
+    return Rendezvous(
+        coordinator=env["TNC_COORDINATOR"],
+        num_processes=int(env["TNC_NUM_PROCESSES"]),
+        process_id=int(env["TNC_PROCESS_ID"]),
+        timeout_s=timeout_s,
+    )
 
 
 def _pythonpath() -> str:
