@@ -86,11 +86,29 @@ Phases, one line each (any failure exits non-zero and prints no result):
    ``--probe-rendezvous-timeout 5`` (exit 3 naming the coordinator, inside
    the kill-timer, no process of theirs left); then two distributed rounds
    in a row on one port, both healthy;
-10. the ``kernels`` line (each kernel at the compute probe's shapes, its
+10. the one-shot fleet round, each line a subprocess of the port's CLI
+   over a NodeList written here (this host as a Ready ``nvidia.com/gpu``
+   node under a fixed ``NODE_NAME``, a CPU node, a NotReady GPU node):
+   ``--nodes-json N --probe --probe-level workload --json`` (exit 0, the
+   probe healthy and attached to this host's node, every kernel launched as
+   often as on the workload path), the same round in text mode (its table
+   and "Local chip probe" line printed); this host's allocatable one card
+   more than it has (exit 3, "only n/n+1 expected devices enumerated");
+   ``--probe-results`` over the port emitter's reports (this host healthy, a
+   ``TNC_CHAOS_AXIS=t1`` drill of the NotReady node, a stale report, a
+   schema-broken one), with and without ``--probe-results-required``, beside
+   the unchanged JAX checker's CLI on the same inputs (equal exit codes and
+   payloads less ``trace_id`` and ``timings_ms``); ``--history
+   --cordon-after 2`` over three rounds (healthy, drill, drill: HEALTHY →
+   SUSPECT → FAILED on both sides, equal payloads) and one ``--emit-probe
+   --history --log-jsonl`` round whose line carries its ``state``; and
+   ``--slack-only-on-error`` to a loopback webhook, which must get one post
+   from each CLI, on the failing round, with equal bodies;
+11. the ``kernels`` line (each kernel at the compute probe's shapes, its
    launches counted on the workload path, in each emitter round, in each
-   selftest leg, in each calibration rep and on the distributed workload
-   path, flash also at the training step's shape), then the ``nvidia-smi``
-   line, then the result line.
+   selftest leg, in each calibration rep, on the distributed workload path
+   and in the one-shot round's probe, flash also at the training step's
+   shape), then the ``nvidia-smi`` line, then the result line.
 
 Bounds use the H100 SXM data sheet: 3.35 TB/s of device memory, 989 TFLOP/s
 bf16 on the tensor cores.  Times are steady-state CUDA-event times over many
@@ -1015,6 +1033,239 @@ def phase9_distributed(root, rows, validate_report) -> None:
         fail("a second distributed round on one coordinator port was not healthy")
 
 
+# Keys of a round's payload that are a random id and wall times.
+VOLATILE = ("trace_id", "timings_ms")
+
+
+def k8s_node(name: str, extra: dict, ready: bool) -> dict:
+    """One node as ``GET /api/v1/nodes`` returns it."""
+    resources = {"cpu": "8", "memory": "32Gi", "pods": "110", **extra}
+    return {"metadata": {"name": name, "labels": {}}, "spec": {},
+            "status": {"allocatable": resources, "capacity": dict(resources),
+                       "conditions": [{"type": "Ready", "status": "True" if ready else "False"}]}}
+
+
+def round_line(root: str, side: str, *args, env: dict) -> tuple:
+    """(exit code, payload or None, stdout, stderr, seconds) of one round of
+    the port's CLI (``side="port"``) or the JAX checker's (``"jax"``)."""
+    cmd = [sys.executable, "-m", "tpu_node_checker_torch" if side == "port" else "tpu_node_checker"]
+    t0 = time.perf_counter()
+    proc = subprocess.run([*cmd, *args], capture_output=True, text=True, cwd=root,
+                          timeout=900, env=env)
+    seconds = time.perf_counter() - t0
+    payload = None
+    if "--json" in args:
+        try:
+            payload = json.loads(proc.stdout)
+        except json.JSONDecodeError:
+            fail(f"the {side} round {args} printed no payload (exit {proc.returncode}): "
+                 f"{proc.stderr[-2000:]}")
+    return proc.returncode, payload, proc.stdout, proc.stderr, seconds
+
+
+def stable(payload: dict) -> dict:
+    return {k: v for k, v in payload.items() if k not in VOLATILE}
+
+
+@contextlib.contextmanager
+def webhook():
+    """A loopback Slack webhook for the ``with`` body: yields (url, posts),
+    each post (path, Content-Type, JSON body)."""
+    from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+    posts = []
+
+    class Hook(BaseHTTPRequestHandler):
+        def do_POST(self):  # noqa: N802 — the handler protocol's name
+            body = self.rfile.read(int(self.headers.get("Content-Length") or 0))
+            posts.append((self.path, self.headers.get("Content-Type"), json.loads(body)))
+            self.send_response(200)
+            self.send_header("Content-Length", "0")
+            self.end_headers()
+
+        def log_message(self, *args):
+            pass
+
+    server = ThreadingHTTPServer(("127.0.0.1", 0), Hook)
+    thread = threading.Thread(target=server.serve_forever, name="chip-smoke-webhook",
+                              daemon=True)
+    thread.start()
+    try:
+        yield f"http://127.0.0.1:{server.server_address[1]}/slack", posts
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join()
+
+
+def phase10_oneshot(torch, root, rows, validate_report) -> None:
+    """Phase 10: the one-shot fleet round over a NodeList of this host (a GPU
+    node), a CPU node and a NotReady GPU node: ``--probe`` on this host's
+    card, a partial enumeration, ``--probe-results`` and ``--history`` beside
+    the JAX checker's, and Slack."""
+    t_phase = time.perf_counter()
+    host, down = "gke-h100-oneshot-0", "gke-h100-down-0"
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("TNC_") and k != "SLACK_WEBHOOK_URL"}
+    env.update(NODE_NAME=host, TNC_SCHEMA_STRICT="1")
+    work = tempfile.mkdtemp(prefix="chip-smoke-oneshot-")
+    n = torch.cuda.device_count()
+
+    def nodes_file(name: str, gpus: int) -> str:
+        path = os.path.join(work, name)
+        with open(path, "w") as f:
+            json.dump({"kind": "NodeList", "apiVersion": "v1", "items": [
+                k8s_node(host, {"nvidia.com/gpu": str(gpus)}, True),
+                k8s_node("cpu-worker-0", {}, True),
+                k8s_node(down, {"nvidia.com/gpu": "8"}, False)]}, f)
+        return path
+
+    nodes = nodes_file("nodes.json", n)
+
+    # The main path of the slice: the round with this host's probe at the
+    # workload level (the counts start at 0 in the fresh probe child).
+    rc, payload, _, err, seconds = round_line(root, "port", "--nodes-json", nodes, "--probe",
+                                              "--probe-level", "workload", "--json", env=env)
+    local = payload.get("local_probe") or {}
+    entry = next((x for x in payload.get("nodes", []) if x.get("name") == host), {})
+    launches = local.get("kernel_launches") or {}
+    phase(10, "--nodes-json N --probe --probe-level workload --json", exit_code=rc,
+          seconds=seconds, ok=local.get("ok"), error=local.get("error"),
+          elapsed_ms=local.get("elapsed_ms"), device_count=local.get("device_count"),
+          attached_to_this_node=entry.get("probe") == local, ready_nodes=payload.get("ready_nodes"),
+          total_nodes=payload.get("total_nodes"), kernel_launches=launches,
+          schema_violations=validate_report(local), timings_ms=payload.get("timings_ms"))
+    missed = [r["name"] for r in rows if not launches.get(r["name"])]
+    unlike = {r["name"]: (launches.get(r["name"]), r["launches"]) for r in rows
+              if launches.get(r["name"]) != r["launches"]}
+    if (rc != 0 or local.get("ok") is not True or entry.get("probe") != local
+            or validate_report(local) or missed or unlike or payload.get("ready_nodes") != 1):
+        fail(f"the one-shot round with --probe: exit {rc}, {local.get('error')}, kernels missed "
+             f"{missed}, launches unlike the workload path's {unlike}: {err[-2000:]}")
+    for r in rows:
+        r["oneshot_launches"] = launches[r["name"]]
+
+    rc, _, out, err, seconds = round_line(root, "port", "--nodes-json", nodes, "--probe",
+                                          "--probe-level", "workload", env=env)
+    print("\n".join(f"  | {line}" for line in out.rstrip().splitlines()), flush=True)
+    probe_line = [x for x in out.splitlines() if x.startswith("Local chip probe")]
+    phase(10, "the same round in text mode", exit_code=rc, seconds=seconds,
+          summary=out.splitlines()[0] if out else None, probe_line=probe_line)
+    if rc != 0 or probe_line != [f"Local chip probe [workload] ok: {n} device(s), "
+                                 "platform=gpu"]:
+        fail(f"the text round: exit {rc}, probe line {probe_line}: {err[-2000:]}")
+
+    # A partial enumeration: the node promises one card more than the host has.
+    short = nodes_file("nodes-short.json", n + 1)
+    rc, payload, _, _, seconds = round_line(root, "port", "--nodes-json", short, "--probe",
+                                            "--json", env=env)
+    error = (payload.get("local_probe") or {}).get("error") or ""
+    phase(10, f"allocatable {n + 1} on a host of {n}", exit_code=rc, seconds=seconds,
+          error=error, payload_exit_code=payload.get("exit_code"))
+    if rc != 3 or f"only {n}/{n + 1} expected devices enumerated" not in error:
+        fail(f"the partial enumeration was not failed: exit {rc}, {error}")
+
+    # The fleet's reports: this host healthy, and a t1 drill, each written by
+    # the port's emitter; a drill report for the NotReady node.
+    healthy, drills, fleet = (os.path.join(work, d) for d in ("healthy", "drills", "fleet"))
+    for d in (healthy, drills, fleet):
+        os.mkdir(d)
+    drill_args = ("--probe-topology", "1x1", "--probe-level", "collective")
+    emits = {
+        "healthy": (os.path.join(healthy, f"{host}.json"), (), env),
+        "drill": (os.path.join(drills, f"{host}.json"), drill_args,
+                  {**env, "TNC_CHAOS_AXIS": "t1"}),
+        "drill of the NotReady node": (os.path.join(fleet, f"{down}.json"), drill_args,
+                                       {**env, "TNC_CHAOS_AXIS": "t1", "NODE_NAME": down}),
+    }
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(max_workers=len(emits)) as pool:
+        done = dict(zip(emits, pool.map(
+            lambda e: port_cli(root, "--emit-probe", e[0], *e[1], env=e[2]).returncode,
+            emits.values())))
+    phase(10, "the reports, written by the port's emitter at once", exit_codes=done,
+          seconds=time.perf_counter() - t0)
+    if done != {"healthy": 0, "drill": 3, "drill of the NotReady node": 3}:
+        fail(f"the reports' emitters: {done}")
+    with open(emits["healthy"][0]) as f:
+        doc = json.load(f)
+    with open(os.path.join(fleet, f"{host}.json"), "w") as f:
+        json.dump(doc, f)
+    with open(os.path.join(fleet, "gke-h100-stale-0.json"), "w") as f:
+        json.dump({**doc, "hostname": "gke-h100-stale-0", "written_at": time.time() - 3600}, f)
+    with open(os.path.join(fleet, "broken.json"), "w") as f:
+        json.dump({"schema": 1, "ok": "yes", "level": "compute", "hostname": "cpu-worker-0",
+                   "written_at": time.time()}, f)
+
+    compared = {}
+    for name, extra in (("--probe-results", ()),
+                        ("--probe-results --probe-results-required",
+                         ("--probe-results-required",))):
+        line = ("--nodes-json", nodes, "--probe-results", fleet, "--json", *extra)
+        port = round_line(root, "port", *line, env=env)
+        ref = round_line(root, "jax", *line, env=env)
+        compared[name] = {"exit_codes": [port[0], ref[0]], "seconds": [port[4], ref[4]],
+                          "equal": stable(port[1]) == stable(ref[1]),
+                          "probe_summary": port[1].get("probe_summary")}
+    phase(10, "--probe-results, the port's round beside the JAX checker's", **compared)
+    for name, c in compared.items():
+        summary = c["probe_summary"] or {}
+        if (c["exit_codes"] != [0, 0] or not c["equal"] or summary.get("hosts_failed") != [down]
+                or summary.get("reports_skipped") != {"stale": 1, "schema": 1}):
+            fail(f"{name}: {c}")
+
+    # --history: three rounds (healthy, drill, drill), each side its own store.
+    states, rounds = {"port": [], "jax": []}, []
+    for i, reports in enumerate((healthy, drills, drills)):
+        line = ("--nodes-json", nodes, "--probe-results", reports, "--cordon-after", "2",
+                "--json")
+        got = {side: round_line(root, side, *line, "--history",
+                                os.path.join(work, f"history-{side}.jsonl"), env=env)
+               for side in ("port", "jax")}
+        for side, g in got.items():
+            states[side].append(next(x for x in g[1]["nodes"] if x["name"] == host)
+                                .get("health", {}).get("state"))
+        rounds.append({"exit_codes": [got["port"][0], got["jax"][0]],
+                       "equal": stable(got["port"][1]) == stable(got["jax"][1]),
+                       "transitions": got["port"][1]["history"]["transitions"]})
+    log, store = os.path.join(work, "emitter.jsonl"), os.path.join(work, "emitter-history.jsonl")
+    emitted = port_cli(root, "--emit-probe", "-", "--history", store, "--log-jsonl", log, env=env)
+    with open(log) as f:
+        (emitter_line,) = [json.loads(x) for x in f.read().splitlines()]
+    phase(10, "--history --cordon-after 2, three rounds", states=states, rounds=rounds,
+          emitter_exit_code=emitted.returncode, emitter_line=emitter_line)
+    if (states["port"] != ["HEALTHY", "SUSPECT", "FAILED"] or states["jax"] != states["port"]
+            or [r["exit_codes"] for r in rounds] != [[0, 0], [3, 3], [3, 3]]
+            or not all(r["equal"] for r in rounds)):
+        fail(f"the --history rounds: states {states}, rounds {rounds}")
+    if emitted.returncode != 0 or emitter_line.get("state") != "HEALTHY":
+        fail(f"the emitter's --history line: exit {emitted.returncode}, {emitter_line}")
+
+    # Slack, only on error: the healthy round posts nothing, the failing one
+    # posts once, and the port's body is the JAX checker's.
+    bodies, slack = {}, {}
+    with webhook() as (url, posts):
+        for side in ("port", "jax"):
+            start = len(posts)
+            codes = [round_line(root, side, "--nodes-json", nodes, "--probe-results", reports,
+                                "--slack-webhook", url, "--slack-only-on-error", env=env)
+                     for reports in (healthy, drills)]
+            mine = posts[start:]
+            slack[side] = {"exit_codes": [c[0] for c in codes], "posts": len(mine),
+                           "stdout_lines": [c[2].count("Slack notification sent.") for c in codes]}
+            if len(mine) == 1:
+                body = dict(mine[0][2])
+                body["text"] = body["text"].rsplit("\n`trace: ", 1)[0]
+                bodies[side] = body
+    phase(10, "Slack --slack-only-on-error to a loopback webhook", **slack,
+          bodies_equal=bodies.get("port") == bodies.get("jax") and "port" in bodies,
+          body=bodies.get("port"))
+    if (any(s["exit_codes"] != [0, 3] or s["posts"] != 1 or s["stdout_lines"] != [0, 1]
+            for s in slack.values()) or bodies.get("port") != bodies.get("jax")
+            or "port" not in bodies):
+        fail(f"Slack: {slack}, bodies {bodies}")
+    phase(10, "the one-shot round", seconds=time.perf_counter() - t_phase)
+
+
 def main() -> int:
     try:
         import torch
@@ -1542,10 +1793,13 @@ def main() -> int:
     # -- 9. distributed probing on one card
     phase9_distributed(root, rows, validate_report)
 
-    # -- 10. the kernels line, the card line, the result line
+    # -- 10. the one-shot fleet round over a NodeList
+    phase10_oneshot(torch, root, rows, validate_report)
+
+    # -- 11. the kernels line, the card line, the result line
     keys = ("name", "route", "source", "replaces", "launches", "compute_launches",
             "emitter_launches", "selftest_launches", "calibrate_launches",
-            "distributed_launches",
+            "distributed_launches", "oneshot_launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "device_ms",
             "library_device_ms", "ok", "check", "training_step")
     print(json.dumps({"kernels": [{k2: r[k2] for k2 in keys if k2 in r} for r in rows]}),

@@ -313,12 +313,13 @@ class TestUsageErrors:
         assert f"error: {message}" in jax_err
 
     @pytest.mark.parametrize("argv,message", [
-        ([], "one of --emit-probe, --selftest, --calibrate, --report-fresh, "
-         "--probe-report-schema is required"),
-        (["--watch", "5"], "one of --emit-probe, --selftest, --calibrate, --report-fresh, "
-         "--probe-report-schema"),
+        ([], "the one-shot round requires --nodes-json FILE (the live node LIST is not "
+         "ported; or run one of --emit-probe, --selftest, --calibrate, --report-fresh, "
+         "--probe-report-schema)"),
+        (["--watch", "5"], "--watch requires --emit-probe (the fleet round's --watch loop "
+         "is not ported)"),
         (["--emit-probe", "-", "--probe-results-max-age", "60"],
-         "--probe-results-max-age requires --report-fresh"),
+         "--probe-results-max-age requires --probe-results or --report-fresh"),
         (["--emit-probe", "-", "--probe-level", "compute", "--probe-topology", "2x2"],
          "--probe-topology requires --probe-level collective (or higher)"),
         (["--emit-probe", "-", "--probe-level", "compute", "--probe-soak", "-1"],
@@ -331,8 +332,8 @@ class TestUsageErrors:
         assert code == 2 and f"error: {message}" in err
 
     @pytest.mark.parametrize("flag", [
-        ["--probe"], ["--history", "h.jsonl"], ["--trend", "t.jsonl"],
-        ["--serve", "0"], ["--probe-results", "/reports"],
+        ["--node-events"], ["--cordon-failed"], ["--trend", "t.jsonl"],
+        ["--serve", "0"], ["--kubeconfig", "/kube/config"],
     ])
     def test_unported_flag_is_unknown(self, capsys, flag):
         code, err = _usage_error(port_cli.parse_args,

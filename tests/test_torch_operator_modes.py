@@ -441,17 +441,18 @@ class TestUsageErrors:
         (["--selftest", "--perf-floor", "0.4"], "--probe or "),
     ])
     def test_mode_guard_names_the_ported_modes(self, capsys, argv, unported):
-        # JAX's words less its one-shot --probe, which the port does not have.
+        # JAX's words, its one-shot --probe included now that the port has it.
         _, port_err = _usage_error(port_cli.parse_args, argv, capsys)
         _, jax_err = _usage_error(jax_cli.parse_args, argv, capsys)
-        assert port_err.split(": error: ")[1] == \
-            jax_err.split(": error: ")[1].replace(unported, "")
+        assert port_err.split(": error: ")[1] == jax_err.split(": error: ")[1]
+        assert unported in port_err
 
     @pytest.mark.parametrize("argv,message", [
-        (["--emit-probe", "-", "--json"], "--json requires --selftest"),
-        (["--report-fresh", "r.json", "--json"], "--json requires --selftest"),
+        (["--emit-probe", "-", "--json"],
+         "--json requires --selftest or a one-shot round (not --emit-probe)"),
+        (["--report-fresh", "r.json", "--json"], "--report-fresh runs alone"),
         (["--selftest", "--probe-results-max-age", "60"],
-         "--probe-results-max-age requires --report-fresh"),
+         "--probe-results-max-age requires --probe-results or --report-fresh"),
         (["--calibrate", "2", "--probe-level", "compute", "--probe-topology", "2x2"],
          "--probe-topology requires --probe-level collective (or higher)"),
         (["--report-fresh", "r.json", "--metrics-port", "0", "--watch", "5"],

@@ -1,13 +1,17 @@
-"""tpu-node-checker's chip probe on PyTorch and CUDA, for NVIDIA Hopper cards.
+"""tpu-node-checker on PyTorch and CUDA, for NVIDIA Hopper cards.
 
 A second package beside the JAX one (which stays the reference): the same
-compute-level probe, its report and its schema, with the three kernels the
+probe at every level, its report and its schema, with the three kernels the
 JAX package writes in Pallas for the TPU written by hand in CUDA C++ for
-``sm_90a`` (``ops/csrc/``).  It imports torch and nothing of JAX.
+``sm_90a`` (``ops/csrc/``); the node-side emitter and its pod's modes; and
+the one-shot fleet round over a NodeList.  It imports torch and nothing of
+JAX.
 
-Entry point: ``python -m tpu_node_checker_torch`` with ``--emit-probe
-FILE|-`` (once, or every ``--watch`` seconds as the emitter DaemonSet runs
-it), ``--report-fresh FILE`` or ``--probe-report-schema``.
+Entry point: ``python -m tpu_node_checker_torch`` with ``--nodes-json FILE``
+(the one-shot round, with ``--probe``, ``--probe-results``, ``--history``
+and Slack), ``--emit-probe FILE|-`` (once, or every ``--watch`` seconds as
+the emitter DaemonSet runs it), ``--selftest``, ``--calibrate``,
+``--report-fresh FILE`` or ``--probe-report-schema``.
 """
 
 __all__ = ["__version__"]

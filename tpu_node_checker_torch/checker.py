@@ -1,0 +1,886 @@
+"""The one-shot fleet round: list → detect → probe → history → grade →
+notify → print → exit code.
+
+A copy of the JAX package's ``checker.py`` one-shot round, with its names
+and order:
+
+* Slack delivery happens **before** any stdout output, and ``--json``
+  suppresses the Slack console lines;
+* exit codes: 0 = at least one effectively Ready accelerator node, 2 = no
+  accelerator nodes, 3 = accelerator nodes exist but none effectively
+  Ready, or ``--strict-slices`` / ``--expected-chips`` failed; 1 is the
+  CLI's catch-all;
+* a Slack failure is never fatal.
+
+The node list comes from ``--nodes-json`` only: the live LIST, the
+``--node-events`` triage, remediation, analytics and the watch loop are
+the JAX package's and not ported yet, so their branches are absent here.
+``--probe`` runs the port's own probe (:func:`_run_probe`) on this host's
+card; ``--probe-results`` grades the reports of the fleet's emitters.
+"""
+
+from __future__ import annotations
+
+import fnmatch
+import json
+import math
+import os
+import sys
+import time
+from dataclasses import dataclass, field
+from typing import List, Optional, Sequence
+
+from tpu_node_checker_torch import notify, report
+from tpu_node_checker_torch.detect import (
+    HARD_PLANNED_DISRUPTIONS,
+    NodeInfo,
+    SliceInfo,
+    format_why_not_ready,
+    group_multislices,
+    group_slices,
+    select_accelerator_nodes,
+)
+
+# Generation detection is shared with probe.floors so label cross-checks and
+# floor grading cannot drift.  A label/kind mismatch is a warning, never a
+# failure grade.
+from tpu_node_checker_torch.generations import (
+    LABEL_GENERATION as _LABEL_GENERATION,
+    generations_of as _generations_of,
+)
+from tpu_node_checker_torch.resources import ResourceRegistry, default_registry
+from tpu_node_checker_torch.utils.timing import PhaseTimer
+
+EXIT_OK = 0
+EXIT_ERROR = 1
+EXIT_NO_ACCEL_NODES = 2
+EXIT_NONE_READY = 3
+
+# How far in the FUTURE a probe report's written_at may sit before it is
+# rejected as clock skew: 60 s tolerates a mis-stepped host without letting
+# a future-dated report defeat --probe-results-max-age.
+CLOCK_SKEW_ALLOWANCE_S = 60.0
+
+# Major version of the emitter → aggregator report contract.  The
+# aggregator refuses reports whose major it does not speak (reports with no
+# schema are accepted: the pre-versioning emitters).
+REPORT_SCHEMA_VERSION = 1
+
+
+@dataclass
+class CheckResult:
+    exit_code: int
+    accel: List[NodeInfo] = field(default_factory=list)
+    ready: List[NodeInfo] = field(default_factory=list)  # effective (probe-adjusted)
+    slices: List[SliceInfo] = field(default_factory=list)
+    multislices: List = field(default_factory=list)
+    payload: dict = field(default_factory=dict)
+    local_probe: Optional[dict] = None
+
+
+def _registry_from_args(args) -> ResourceRegistry:
+    reg = default_registry()
+    extra = getattr(args, "resource_key", None) or []
+    if extra:
+        reg = reg.with_extra_keys(extra)
+    return reg
+
+
+def _fetch_nodes(args, timer: PhaseTimer) -> List[dict]:
+    """Node source: the ``--nodes-json`` NodeList file (the live LIST is
+    not ported)."""
+    nodes_json = getattr(args, "nodes_json", None)
+    if not nodes_json:
+        raise ValueError("the one-shot round reads its nodes from --nodes-json FILE "
+                         "(the live LIST is not ported)")
+    with timer.phase("list"):
+        with open(nodes_json) as f:
+            doc = json.load(f)
+        # "items": null happens in Go-serialized NodeLists; treat as empty.
+        return (doc.get("items") or []) if isinstance(doc, dict) else doc
+
+
+def _run_probe(
+    args, accel: List[NodeInfo], result: CheckResult, slices: Sequence[SliceInfo] = ()
+) -> None:
+    """Attach the local card probe to the matching node (or the payload).
+
+    The probe speaks for the host it runs on (``NODE_NAME`` downward-API env
+    or the kernel hostname); its verdict adjusts that host's effective
+    readiness only.  When the probed host isn't in the node list, the
+    result is surfaced as ``local_probe`` but flips no node state.  The
+    probe runs on ``--device`` (``cuda:0`` unless the caller asks for
+    ``cpu``): a host with no card, or fewer than its node's allocatable
+    count, fails it.
+    """
+    from tpu_node_checker_torch.probe.liveness import run_local_probe
+
+    # Resolve the local node first so the probe can enforce the allocatable
+    # device count itself (run_local_probe's expected_devices check).
+    hostname = os.environ.get("NODE_NAME") or os.uname().nodename
+    local = next((n for n in accel if n.name == hostname), None)
+    distributed = getattr(args, "probe_distributed", False)
+    expected = local.accelerators if local else None
+    if distributed and local is not None:
+        # Global enumeration: the expectation is the whole slice's chip count.
+        for s in slices:
+            if any(h.name == local.name for h in s.hosts):
+                expected = s.expected_chips or s.chips
+                break
+    probed = run_local_probe(
+        level=getattr(args, "probe_level", "enumerate"),
+        timeout_s=getattr(args, "probe_timeout", None),  # None → per-level budget
+        expected_devices=expected,
+        device=getattr(args, "device", "cuda:0"),
+        distributed=distributed,
+        # An explicit --probe-topology always wins; otherwise, with global
+        # (distributed) enumeration the mesh spans the slice, so the node's
+        # topology label describes the probed fabric.
+        topology=getattr(args, "probe_topology", None)
+        or (local.tpu_topology if local and distributed else None),
+        soak_s=getattr(args, "probe_soak", 0.0) or 0.0,
+        coordinator=getattr(args, "probe_coordinator", None),
+        num_processes=getattr(args, "probe_num_processes", None),
+        process_id=getattr(args, "probe_process_id", None),
+        dist_init_timeout_s=getattr(args, "probe_rendezvous_timeout", None),
+        perf_floor=getattr(args, "perf_floor", None),
+    )
+    if local is not None:
+        local.probe = probed.to_dict()
+        _flag_kind_mismatch(local)
+        # Same dict on both surfaces: the label/kind annotation must show in
+        # payload["local_probe"] too, not only on the node entry.
+        result.local_probe = local.probe
+    else:
+        result.local_probe = probed.to_dict()
+
+
+def _flag_kind_mismatch(node: NodeInfo) -> None:
+    """Cross-check control plane vs data plane: the node LABEL promises one
+    TPU generation, the probe ENUMERATED another.  Flags only when the
+    enumerated kind clearly names a different known generation.
+    Informational (``kind_mismatch`` on the probe dict + a stderr note)."""
+    probe = node.probe or {}
+    kinds = probe.get("device_kinds") or []
+    expected = _LABEL_GENERATION.get(node.tpu_accelerator or "")
+    if not expected or not kinds:
+        return
+    seen: set = set()
+    for k in kinds:
+        seen |= _generations_of(k)
+    if not seen or expected in seen:
+        return
+    probe["kind_mismatch"] = {
+        "label": node.tpu_accelerator,
+        "expected_generation": expected,
+        "enumerated": list(kinds),
+        "enumerated_generations": sorted(seen),
+    }
+    print(
+        f"⚠️ {node.name}: label {node.tpu_accelerator!r} promises a "
+        f"{expected} device but the probe enumerated {kinds} — mislabeled "
+        "pool or wrong image?",
+        file=sys.stderr,
+    )
+
+
+def _attach_probe_results(args, accel: List[NodeInfo]) -> dict:
+    """Attach per-host probe reports from ``--probe-results DIR``.
+
+    Each emitter pod writes ``DIR/$NODE_NAME.json``; every node gains its
+    host's data-plane verdict.  A report must never improve a node's grade
+    wrongly:
+
+    * an unparseable report, or one with a non-numeric ``written_at``, is
+      skipped with a note;
+    * one older than ``--probe-results-max-age`` (by ``written_at``, else
+      the file's mtime) is skipped, and so is one dated more than
+      ``CLOCK_SKEW_ALLOWANCE_S`` in the future;
+    * one of another schema major, or violating the schema, is skipped;
+    * a node already carrying an in-process verdict (``--probe``) is never
+      overwritten by a file.
+
+    Returns skip counts by reason (``unreadable``/``schema``/``stale``/
+    ``future_skew``).
+    """
+    import glob
+
+    skipped = {"unreadable": 0, "schema": 0, "stale": 0, "future_skew": 0}
+    directory = getattr(args, "probe_results", None)
+    if not directory:
+        return skipped
+    from tpu_node_checker_torch.probe.schema import validate_report as _validate_report
+    max_age = getattr(args, "probe_results_max_age", None) or 900.0
+    now = time.time()
+    by_name = {n.name: n for n in accel}
+    for path in sorted(glob.glob(os.path.join(directory, "*.json"))):
+        try:
+            with open(path) as f:
+                data = json.load(f)
+            # ValueError/TypeError: a foreign emitter's written_at (e.g. an
+            # ISO-8601 string) must skip THIS report, not sink the round.
+            written_at = float(data.get("written_at") or os.stat(path).st_mtime)
+            if not math.isfinite(written_at):
+                # NaN compares False against both bounds below.
+                raise ValueError(f"non-finite written_at {written_at!r}")
+        except (OSError, json.JSONDecodeError, TypeError, ValueError) as exc:
+            print(f"Skipping unreadable probe report {path}: {exc}", file=sys.stderr)
+            skipped["unreadable"] += 1
+            continue
+        schema = data.get("schema")
+        if schema is not None and schema != REPORT_SCHEMA_VERSION:
+            print(
+                f"Skipping probe report {path}: schema {schema!r} != "
+                f"{REPORT_SCHEMA_VERSION} (emitter/aggregator version skew?)",
+                file=sys.stderr,
+            )
+            skipped["schema"] += 1
+            continue
+        age = now - written_at
+        if age < -CLOCK_SKEW_ALLOWANCE_S:
+            print(
+                f"Skipping future-dated probe report {path} (written "
+                f"{-age:.0f}s ahead of this host's clock; skew beyond "
+                f"{CLOCK_SKEW_ALLOWANCE_S:.0f}s — emitter clock broken?)",
+                file=sys.stderr,
+            )
+            skipped["future_skew"] += 1
+            continue
+        if age > max_age:
+            print(
+                f"Skipping stale probe report {path} (age {age:.0f}s > {max_age:.0f}s)",
+                file=sys.stderr,
+            )
+            skipped["stale"] += 1
+            continue
+        violations = _validate_report(data)
+        if violations:
+            # Checked after the freshness gates so a stale report still
+            # counts as stale.
+            print(
+                f"Skipping probe report {path}: schema violation — "
+                + "; ".join(violations[:5]),
+                file=sys.stderr,
+            )
+            skipped["schema"] += 1
+            continue
+        hostname = data.get("hostname") or os.path.splitext(os.path.basename(path))[0]
+        node = by_name.get(hostname)
+        if node is not None and node.probe is None:
+            node.probe = data
+            _flag_kind_mismatch(node)
+    if getattr(args, "probe_results_required", False):
+        # Coverage enforcement: every TPU node must carry a FRESH report (the
+        # JAX package's rule, kept as it is: a GPU node without one is not
+        # graded missing).
+        for node in accel:
+            if node.is_tpu and node.probe is None:
+                node.probe = {
+                    "ok": False,
+                    "level": "missing",
+                    "hostname": node.name,
+                    "error": f"no fresh probe report in {directory}",
+                }
+    return skipped
+
+
+# Live history tracker, cached across rounds within one process: the FSM
+# must keep advancing in memory even when the store file cannot be written,
+# and a big fleet must not re-parse the store every round.  Keyed by every
+# knob that shapes the machine, so a changed flag rebuilds.
+_HISTORY_CACHE: dict = {"key": None, "tracker": None}
+
+
+def _build_history(args):
+    """``--history FILE`` → ``{"store", "fsm"}`` (None when the flag is off).
+
+    Opens the per-node health store and seeds one hysteresis machine per
+    recorded node, so state survives process restarts.  Shared by the
+    one-shot round and the emitter.  Within one process the tracker is
+    cached: later rounds reuse the in-memory machine (with a fresh
+    per-round transition log) instead of reseeding from disk.
+    """
+    path = getattr(args, "history", None)
+    if not path:
+        return None
+    from tpu_node_checker_torch.history import HealthFSM, HistoryStore
+    from tpu_node_checker_torch.history.fsm import (
+        DEFAULT_CORDON_AFTER,
+        DEFAULT_FLAP_THRESHOLD,
+        DEFAULT_FLAP_WINDOW,
+        DEFAULT_UNCORDON_AFTER,
+    )
+    from tpu_node_checker_torch.history.store import DEFAULT_MAX_ROUNDS
+
+    key = (
+        os.path.abspath(path),
+        getattr(args, "history_max_rounds", None) or DEFAULT_MAX_ROUNDS,
+        getattr(args, "cordon_after", None) or DEFAULT_CORDON_AFTER,
+        getattr(args, "uncordon_after", None) or DEFAULT_UNCORDON_AFTER,
+        getattr(args, "flap_threshold", None) or DEFAULT_FLAP_THRESHOLD,
+        getattr(args, "flap_window", None) or DEFAULT_FLAP_WINDOW,
+    )
+    if _HISTORY_CACHE["key"] == key:
+        tracker = _HISTORY_CACHE["tracker"]
+        tracker["fsm"].transitions.clear()  # the log is per-round
+        return tracker
+    store = HistoryStore(key[0], key[1])
+    fsm = HealthFSM(
+        cordon_after=key[2],
+        uncordon_after=key[3],
+        flap_threshold=key[4],
+        flap_window=key[5],
+    )
+    for node, entries in store.load().items():
+        fsm.seed(node, entries)
+    tracker = {"store": store, "fsm": fsm}
+    _HISTORY_CACHE["key"], _HISTORY_CACHE["tracker"] = key, tracker
+    return tracker
+
+
+def _node_round_causes(n: NodeInfo) -> List[str]:
+    """Compact cause tokens for one node's round, recorded in the history
+    store."""
+    causes: List[str] = []
+    if not n.ready:
+        causes.append("not-ready")
+    elif not n.schedulable:
+        causes.append("no-allocatable")
+    if n.probe is not None and not n.probe.get("ok"):
+        causes.append(
+            "no-probe-report" if n.probe.get("level") == "missing" else "probe-failed"
+        )
+    elif n.probe is not None and n.probe.get("mesh_degraded"):
+        # Chips passed but the mesh link sweep graded a link SLOW: degraded,
+        # not failed.
+        causes.append("degraded-link")
+    return causes
+
+
+def _update_history(history: dict, accel: List[NodeInfo]) -> None:
+    """Feed this round's verdicts through the FSM and queue store lines.
+
+    Verdict rules:
+
+    * a node's round is good iff it is *effectively* ready (kubelet Ready,
+      schedulable, chips alive when probed), the readiness the exit code
+      consumes;
+    * a node WE quarantined with no probe evidence this round observes
+      ``None``: state holds;
+    * a kubelet-healthy node whose only badness is a MISSING probe report
+      (``--probe-results-required``'s ``level="missing"``) observes
+      ``None``: absence must not bank rounds toward ``--cordon-after``;
+    * a node that passed with a degraded mesh link observes ``DEGRADED``;
+    * a quarantined-by-us node that is no longer cordoned was uncordoned
+      out of band: the FSM resets it to RECOVERING.
+    """
+    from tpu_node_checker_torch.history.fsm import DEGRADED
+
+    fsm, store = history["fsm"], history["store"]
+    now = round(time.time(), 3)
+    for n in accel:
+        verdict: Optional[bool] = n.effectively_ready
+        if n.quarantined_by_us and n.probe is None:
+            verdict = None
+        elif (
+            not verdict
+            and n.ready
+            and n.schedulable
+            and n.probe is not None
+            and n.probe.get("level") == "missing"
+        ):
+            # Bad SOLELY because no report arrived: no evidence either way.
+            verdict = None
+        if (
+            verdict is True
+            and n.probe is not None
+            and n.probe.get("mesh_degraded")
+        ):
+            verdict = DEGRADED
+        out_of_band = n.quarantined_by_us and not n.cordoned
+        if verdict is None and n.name not in fsm.nodes and not out_of_band:
+            # No evidence about a node this machine has NEVER observed:
+            # record nothing and attach nothing.
+            continue
+        fsm.observe(n.name, verdict, uncordoned_out_of_band=out_of_band)
+        h = fsm.health(n.name)
+        n.health = {"state": h.state, "streak": h.streak, "flaps": h.flaps}
+        store.record(
+            {
+                "node": n.name,
+                "ts": now,
+                "ok": verdict,
+                "causes": _node_round_causes(n),
+                "state": h.state,
+                "streak": h.streak,
+                "flaps": h.flaps,
+                "flaps_total": h.flaps_total,
+            }
+        )
+
+
+def _history_payload(history: dict, accel: List[NodeInfo]) -> dict:
+    """The payload's ``history`` block.
+
+    State gauges cover this round's fleet only; ``flaps_total`` is a
+    counter and sums over every node the store remembers.
+    """
+    from tpu_node_checker_torch.history.fsm import CHRONIC, STATES
+
+    fsm = history["fsm"]
+    states = {s: 0 for s in STATES}
+    chronic = []
+    for n in accel:
+        # .get, never .health(): the roll-up must not MINT a machine for a
+        # node the FSM has never observed.
+        h = fsm.nodes.get(n.name)
+        if h is None:
+            continue
+        states[h.state] += 1
+        if h.state == CHRONIC:
+            chronic.append(n.name)
+    flaps_total = sum(h.flaps_total for h in fsm.nodes.values())
+    return {
+        "states": states,
+        "chronic": sorted(chronic),
+        "flaps_total": flaps_total,
+        "transitions": list(fsm.transitions),
+        "thresholds": {
+            "cordon_after": fsm.cordon_after,
+            "uncordon_after": fsm.uncordon_after,
+            "flap_threshold": fsm.flap_threshold,
+            "flap_window": fsm.flap_window,
+        },
+    }
+
+
+def resolve_cluster_name(args):
+    """This checker's cluster identity → ``(name, source)``.
+
+    Precedence: ``--cluster-name`` flag → ``$TNC_CLUSTER_NAME`` → the
+    hostname (the kubeconfig context the JAX package also consults belongs
+    to the live LIST, not ported).
+    """
+    flag = getattr(args, "cluster_name", None)
+    if flag:
+        return flag, "flag"
+    env = os.environ.get("TNC_CLUSTER_NAME")
+    if env:
+        return env, "env"
+    import socket
+
+    return socket.gethostname(), "hostname"
+
+
+def stamp_cluster_identity(payload: dict, args) -> None:
+    """Stamp the resolved cluster identity into one round payload."""
+    name, source = resolve_cluster_name(args)
+    payload["cluster"] = name
+    payload["cluster_source"] = source
+
+
+def grade_fleet(args, accel, effective_ready, slices):
+    """The exit-code ladder plus the ``--expected-chips`` capacity math.
+
+    Returns ``(exit_code, expected_key, expected_n, have_chips)``.
+    """
+    expectation = getattr(args, "expected_chips", None)
+    expected_key, expected_n, have_chips = None, None, None
+    if expectation is not None:
+        expected_key, expected_n = expectation
+        if expected_key is None:
+            have_chips = sum(n.accelerators for n in effective_ready)
+        else:
+            have_chips = sum(
+                v
+                for n in effective_ready
+                for k, v in n.breakdown.items()
+                if fnmatch.fnmatchcase(k, expected_key)
+            )
+    if not accel:
+        code = EXIT_NO_ACCEL_NODES
+    elif not effective_ready:
+        code = EXIT_NONE_READY
+    elif getattr(args, "strict_slices", False) and any(not s.complete for s in slices):
+        code = EXIT_NONE_READY
+    elif expected_n is not None and have_chips < expected_n:
+        # Cluster-level capacity assertion: some nodes may be Ready, but the
+        # fleet is short of the chips the caller requires.
+        code = EXIT_NONE_READY
+    else:
+        code = EXIT_OK
+    return code, expected_key, expected_n, have_chips
+
+
+def stamp_expected_chips(payload: dict, expected_key, expected_n, have_chips) -> None:
+    """The payload's ``expected_chips*`` keys."""
+    if expected_n is None:
+        return
+    payload["expected_chips"] = expected_n
+    if expected_key is not None:
+        payload["expected_chips_key"] = expected_key
+    payload["expected_chips_have"] = have_chips
+    payload["expected_chips_met"] = have_chips >= expected_n
+
+
+def _emit_link_spans(timer, probe: Optional[dict]) -> None:
+    """One named span per link leg of the local mesh sweep, backfilled into
+    the round trace from the p50 the probe child measured."""
+    record = getattr(timer, "record_timed_span", None)
+    if record is None or not probe:
+        return
+    links = (probe.get("collective_legs_ok") or {}).get("links")
+    if not isinstance(links, dict):
+        return
+    for link in sorted(links):
+        entry = links[link]
+        if not isinstance(entry, dict) or entry.get("p50_us") is None:
+            continue
+        record(
+            f"mesh-link:{link}", float(entry["p50_us"]) / 1e3,
+            verdict=entry.get("verdict"), budget_us=entry.get("budget_us"),
+        )
+
+
+def run_check(args) -> CheckResult:
+    """Everything of the round except printing and Slack I/O, so tests can
+    drive it directly; the payload carries the round's ``trace_id``."""
+    timer = PhaseTimer()
+    nodes = _fetch_nodes(args, timer)
+    result = CheckResult(exit_code=EXIT_OK)
+    with timer.phase("detect"):
+        accel, ready = select_accelerator_nodes(nodes, _registry_from_args(args))
+        slices = group_slices(accel)
+    result.accel, result.slices = accel, slices
+
+    if getattr(args, "probe", False):
+        with timer.phase("probe"):
+            _run_probe(args, accel, result, slices)
+        _emit_link_spans(timer, result.local_probe)
+    reports_skipped = _attach_probe_results(args, accel)
+
+    # Per-node health history + hysteresis (--history): verdicts feed the
+    # FSM after every probe surface attached.  None when the flag is off,
+    # and then the payload does not change by a byte.
+    history = _build_history(args)
+    if history is not None:
+        with timer.phase("history"):
+            _update_history(history, accel)
+
+    # Effective readiness: kubelet Ready minus unschedulable/probe-failed hosts.
+    effective_ready = [n for n in ready if n.effectively_ready]
+    result.ready = effective_ready
+
+    result.exit_code, expected_key, expected_n, have_chips = grade_fleet(
+        args, accel, effective_ready, slices
+    )
+    if history is not None:
+        history["store"].flush()
+
+    with timer.phase("render"):
+        payload = report.build_json_payload(accel, effective_ready, slices, timings_ms=None)
+        multislices = group_multislices(
+            slices, getattr(args, "multislice_label", None) or ()
+        )
+        if multislices:
+            payload["multislices"] = [m.to_dict() for m in multislices]
+            result.multislices = multislices
+        if result.local_probe is not None:
+            payload["local_probe"] = result.local_probe
+        if getattr(args, "probe_results", None):
+            # Fleet roll-up of per-host verdicts, only under --probe-results
+            # (a single-host --probe run must not produce a fleet-looking
+            # "hosts_failed: []").  Emitted even when no report was usable.
+            # Synthesized level="missing" entries are hosts that did NOT
+            # report, counted separately.
+            probed = [
+                n
+                for n in accel
+                if n.probe is not None and n.probe.get("level") != "missing"
+            ]
+            payload["probe_summary"] = {
+                "hosts_reported": len(probed),
+                "hosts_ok": sum(1 for n in probed if n.probe.get("ok")),
+                "hosts_failed": sorted(
+                    n.name for n in probed if not n.probe.get("ok")
+                ),
+                "hosts_missing": sorted(
+                    n.name
+                    for n in accel
+                    if n.probe is not None and n.probe.get("level") == "missing"
+                ),
+            }
+            floor_failed = sorted(
+                n.name
+                for n in probed
+                if not n.probe.get("ok")  # subset-of-hosts_failed invariant
+                and isinstance(n.probe.get("perf_floor"), dict)
+                and n.probe["perf_floor"].get("ok") is False
+            )
+            if floor_failed:
+                # "Dead" and "slow" are different repairs.
+                payload["probe_summary"]["hosts_floor_failed"] = floor_failed
+            if any(reports_skipped.values()):
+                # Reports present but refused: a sick emitter population is
+                # its own incident, distinct from hosts that never wrote.
+                payload["probe_summary"]["reports_skipped"] = {
+                    k: v for k, v in reports_skipped.items() if v
+                }
+        stamp_expected_chips(payload, expected_key, expected_n, have_chips)
+        if history is not None:
+            # Per-node state/streak/flaps ride on each node entry; this is
+            # the fleet roll-up plus the round's transition log.
+            payload["history"] = _history_payload(history, accel)
+        stamp_cluster_identity(payload, args)
+        payload["trace_id"] = timer.trace_id
+        payload["exit_code"] = result.exit_code
+    payload["timings_ms"] = timer.as_dict()
+    result.payload = payload
+    if getattr(args, "trace", None):
+        _write_trace_file(args.trace, timer)
+    return result
+
+
+def _write_trace_file(trace_path: str, timer) -> None:
+    """``--trace FILE``: one Chrome-trace document per round, written
+    atomically (tmp + rename), so a reader never sees torn JSON."""
+    try:
+        tmp = f"{trace_path}.tmp"
+        with open(tmp, "w") as f:
+            json.dump(timer.chrome_trace(), f)
+        os.replace(tmp, trace_path)
+        print(f"Trace written to {trace_path}.", file=sys.stderr)
+    except OSError as exc:
+        print(f"Cannot write trace {trace_path}: {exc}", file=sys.stderr)
+
+
+def _append_jsonl(path: str, entry: dict) -> None:
+    """Append one JSONL line, never raising: a full disk must not kill a
+    monitoring round (the round's and the emitter's logs both)."""
+    try:
+        with open(path, "a") as f:
+            f.write(json.dumps(entry, ensure_ascii=False) + "\n")
+    except OSError as exc:
+        print(f"Cannot append state log {path}: {exc}", file=sys.stderr)
+
+
+_CAUSES_CAP = 6
+
+
+def _round_causes(payload: dict) -> List[str]:
+    """Compact, capped "what was wrong" summary for one degraded round,
+    ordered by actionability: capacity, incomplete slices, probe-failed /
+    unreported hosts, chronic flappers, then sick individual nodes."""
+    causes: List[str] = []
+    if not payload.get("nodes"):
+        causes.append("no accelerator nodes")
+    if payload.get("expected_chips") is not None and not payload.get(
+        "expected_chips_met"
+    ):
+        key = payload.get("expected_chips_key")
+        what = f"{key} chips" if key else "chips"
+        causes.append(
+            f"expected ≥{payload['expected_chips']} {what}, "
+            f"have {payload.get('expected_chips_have')}"
+        )
+    for s in payload.get("slices", []):
+        if not s.get("complete"):
+            expected = s.get("expected_hosts") or s.get("hosts")
+            note = f" ({s['planned_context']})" if s.get("planned_context") else ""
+            causes.append(
+                f"slice {s.get('id')}: {s.get('ready_hosts')}/{expected} "
+                f"hosts ready{note}"
+            )
+    summary = payload.get("probe_summary") or {}
+    for h in summary.get("hosts_failed", []):
+        causes.append(f"probe-failed: {h}")
+    for h in summary.get("hosts_missing", []):
+        causes.append(f"no probe report: {h}")
+    for h in (payload.get("history") or {}).get("chronic", []):
+        causes.append(f"chronic-flapper: {h}")
+    for n in payload.get("nodes", []):
+        if not n.get("ready"):
+            nr = n.get("not_ready") or {}
+            why = format_why_not_ready(
+                nr.get("reason"), nr.get("message"),
+                n.get("adverse_conditions") or (),
+            )
+            causes.append(
+                f"not-ready: {n.get('name')}" + (f" ({why})" if why else "")
+            )
+        elif not n.get("schedulable", True):
+            causes.append(f"no allocatable devices: {n.get('name')}")
+        elif not summary and isinstance(n.get("probe"), dict) and not n["probe"].get("ok"):
+            # Single-host --probe runs have no fleet summary; name the host
+            # here instead.
+            causes.append(f"probe-failed: {n.get('name')}")
+    if len(causes) > _CAUSES_CAP:
+        omitted = len(causes) - (_CAUSES_CAP - 1)
+        causes = causes[: _CAUSES_CAP - 1] + [f"+{omitted} more"]
+    return causes
+
+
+def _round_is_planned(payload: dict, exit_code: int) -> bool:
+    """True when a degraded round is FULLY explained by planned disruption:
+    every unusable node carries a hard planned signal and no failed probe,
+    and every incomplete slice the matching context."""
+    if exit_code == EXIT_OK or not payload.get("nodes"):
+        return False
+
+    def _excused(n: dict) -> bool:
+        dis = set((n.get("planned") or {}).get("disruptions") or ())
+        if not dis & HARD_PLANNED_DISRUPTIONS:
+            return False
+        return not (
+            isinstance(n.get("probe"), dict) and not n["probe"].get("ok")
+        )
+
+    sick = [
+        n
+        for n in payload["nodes"]
+        if not n.get("ready")
+        or not n.get("schedulable", True)
+        or (isinstance(n.get("probe"), dict) and not n["probe"].get("ok"))
+    ]
+    if not sick:
+        return False
+    if any(not _excused(n) for n in sick):
+        return False
+    return all(
+        s.get("complete") or s.get("planned_context")
+        for s in payload.get("slices", [])
+    )
+
+
+def _append_state_log(args, result: Optional[CheckResult], error: Optional[str] = None) -> None:
+    """``--log-jsonl FILE``: append one line per check round, the trend
+    record ``--trend`` reads; degraded rounds also record capped
+    ``causes``."""
+    path = getattr(args, "log_jsonl", None)
+    if not path:
+        return
+    entry: dict = {"ts": round(time.time(), 3)}
+    if result is not None:
+        p = result.payload
+        entry.update(
+            exit_code=result.exit_code,
+            total_nodes=p.get("total_nodes"),
+            ready_nodes=p.get("ready_nodes"),
+            total_chips=p.get("total_chips"),
+            ready_chips=p.get("ready_chips"),
+            slices_complete=sum(1 for s in p.get("slices", []) if s.get("complete")),
+            slices=len(p.get("slices", [])),
+            duration_ms=p.get("timings_ms", {}).get("total"),
+        )
+        if p.get("degraded"):
+            entry["degraded"] = True
+        chronic = (p.get("history") or {}).get("chronic")
+        if chronic:
+            entry["chronic"] = list(chronic)
+        if result.exit_code != EXIT_OK:
+            causes = _round_causes(p)
+            if causes:
+                entry["causes"] = causes
+            if _round_is_planned(p, result.exit_code):
+                entry["planned"] = True
+    else:
+        entry.update(exit_code=EXIT_ERROR, error=error)
+    _append_jsonl(path, entry)
+
+
+def one_shot(args) -> int:
+    """Full run with side effects; returns the process exit code."""
+    result = run_check(args)
+    _append_state_log(args, result)
+    return render_and_notify(args, result)
+
+
+def render_and_notify(args, result: CheckResult) -> int:
+    """Deliver Slack (policy-gated) then print.  Returns the exit code."""
+    accel, ready, slices = result.accel, result.ready, result.slices
+
+    healthy = result.exit_code == EXIT_OK
+    history = result.payload.get("history")
+    # An actionable hysteresis transition (→FAILED, →CHRONIC, a re-earned
+    # HEALTHY) pages even under --slack-only-on-error on an exit-0 round.
+    transitions = bool(
+        history
+        and any(t.get("actionable") for t in history.get("transitions", []))
+    )
+    webhook = notify.get_slack_webhook_url(getattr(args, "slack_webhook", None))
+    if notify.should_send_slack_message(
+        webhook,
+        getattr(args, "slack_only_on_error", False),
+        healthy,
+        transitions=transitions,
+    ):
+        message = report.format_slack_message(
+            accel,
+            ready,
+            slices,
+            healthy=healthy,
+            multislices=result.multislices,
+            history=history,
+        )
+        sent = notify.send_slack_message(
+            webhook,
+            message,
+            username=getattr(args, "slack_username", notify.DEFAULT_USERNAME),
+            max_retries=getattr(args, "slack_retry_count", notify.DEFAULT_MAX_RETRIES),
+            retry_delay=getattr(args, "slack_retry_delay", notify.DEFAULT_RETRY_DELAY_S),
+            trace_id=result.payload.get("trace_id"),
+        )
+        if not getattr(args, "json", False):
+            # Console confirmation suppressed in JSON mode.
+            if sent:
+                print("Slack notification sent.")
+            else:
+                print("Slack notification failed (check stderr).", file=sys.stderr)
+
+    if getattr(args, "json", False):
+        print(report.dumps(result.payload))
+    else:
+        print(report.summary_line(accel, ready))
+        if result.payload.get("expected_chips") is not None and not result.payload.get(
+            "expected_chips_met"
+        ):
+            key = result.payload.get("expected_chips_key")
+            what = f"{key} chips" if key else "Ready chips"
+            print(
+                f"⚠️ Expected ≥{result.payload['expected_chips']} {what}, "
+                f"have {result.payload.get('expected_chips_have')}."
+            )
+        print()
+        print(report.format_node_table(accel))
+        slice_table = report.format_slice_table(slices)
+        if slice_table:
+            print()
+            print(slice_table)
+        ms_table = report.format_multislice_table(result.multislices)
+        if ms_table:
+            print()
+            print(ms_table)
+        if result.local_probe is not None:
+            status = "ok" if result.local_probe.get("ok") else "FAILED"
+            print()
+            print(
+                f"Local chip probe [{result.local_probe.get('level')}] {status}: "
+                f"{result.local_probe.get('device_count')} device(s), "
+                f"platform={result.local_probe.get('platform')}"
+            )
+            floor = result.local_probe.get("perf_floor")
+            if isinstance(floor, dict):
+                if floor.get("skipped"):
+                    print(f"Perf floors: skipped — {floor['skipped']}")
+                elif floor.get("ok"):
+                    worst = min(floor.get("ratios", {}).values(), default=None)
+                    note = f" (worst ratio {worst}× of peak)" if worst is not None else ""
+                    print(f"Perf floors: cleared at {floor.get('fraction')}× "
+                          f"{floor.get('generation')} peak{note}")
+                else:
+                    from tpu_node_checker_torch.probe.floors import floor_failure_message
+                    print(f"Perf floors: FAILED — {floor_failure_message(floor)}")
+        if getattr(args, "debug", False):
+            print()
+            print("Timings (ms): " + json.dumps(result.payload.get("timings_ms", {})))
+    return result.exit_code

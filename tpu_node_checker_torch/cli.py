@@ -1,12 +1,26 @@
-"""Command line of the PyTorch/CUDA probe: the node side of the checker.
+"""Command line of the PyTorch/CUDA checker: the one-shot fleet round over a
+NodeList, and the node side (the emitter and its pod's modes).
 
 ::
 
-    python -m tpu_node_checker_torch --emit-probe FILE|- \
+    python -m tpu_node_checker_torch --nodes-json FILE [--json] [--debug]
+        [--trace FILE] [--strict-slices] [--resource-key KEY]...
+        [--multislice-label KEY]... [--expected-chips [KEY=]N]
+        [--cluster-name NAME] [--log-jsonl FILE]
+        [--probe [--probe-level L] [--probe-timeout S] [--device cpu]
+         [--probe-soak S] [--probe-topology DIMS] [--perf-floor F]
+         [--probe-distributed ...]]
+        [--probe-results DIR [--probe-results-required]
+         [--probe-results-max-age S]]
+        [--history FILE [--history-max-rounds N] [--cordon-after K]
+         [--uncordon-after M] [--flap-threshold F] [--flap-window W]]
+        [--slack-webhook URL] [--slack-username NAME] [--slack-only-on-error]
+        [--slack-retry-count N] [--slack-retry-delay S]
+    python -m tpu_node_checker_torch --emit-probe FILE|- \\
         [--probe-level {enumerate,compute,collective,mesh,workload}]
         [--probe-timeout S] [--device cpu] [--probe-soak S]
         [--probe-topology DIMS] [--perf-floor F]
-        [--watch S [--metrics-port PORT]] [--log-jsonl FILE]
+        [--watch S [--metrics-port PORT]] [--log-jsonl FILE] [--history FILE ...]
         [--probe-distributed --probe-coordinator HOST:PORT
          --probe-num-processes N --probe-process-id I
          [--probe-rendezvous-timeout S]]
@@ -17,12 +31,17 @@
     python -m tpu_node_checker_torch --report-fresh FILE [--probe-results-max-age S]
     python -m tpu_node_checker_torch --probe-report-schema
 
-Exactly one mode runs.  ``--emit-probe`` writes one report, or with
-``--watch`` one every S seconds until SIGTERM (exit 143), serving the
-round's gauges on ``--metrics-port``; with ``--probe-distributed`` one
-emitter per host joins one rendezvous and probes every host's cards as one
-rank group.  ``--selftest`` rehearses every
-detector on this host (the emitter pod's initContainer), and
+With no mode flag the one-shot round runs: it grades the nodes of the
+``--nodes-json`` NodeList (the live LIST is not ported yet), with
+``--probe`` probes this host's card and attaches the verdict to its node
+(``NODE_NAME``, else the hostname), with ``--probe-results`` attaches the
+fleet's emitter reports, with ``--history`` debounces each node's verdict
+through the hysteresis machine, and posts to Slack before it prints.
+``--emit-probe`` writes one report, or with ``--watch`` one every S seconds
+until SIGTERM (exit 143), serving the round's gauges on ``--metrics-port``;
+with ``--probe-distributed`` one emitter per host joins one rendezvous and
+probes every host's cards as one rank group.  ``--selftest`` rehearses
+every detector on this host (the emitter pod's initContainer), and
 ``--calibrate`` prints this host's healthy figures as ``TNC_PERF_EXPECT``
 JSON, which ``--perf-floor`` grades against.  ``--report-fresh`` is the
 emitter pod's liveness verdict on its report.  ``--probe-report-schema``
@@ -30,9 +49,12 @@ prints the report's JSON Schema.  The flags keep the JAX checker's names,
 defaults, meanings and usage errors; a flag of the JAX checker that is not
 ported is an unknown argument here.
 
-Exit codes: 0 when the report is healthy (or fresh, or the drill behaved,
-or the calibration ran), 3 when it is not, 1 on an error that left no
-report (or a report that is not fresh), 2 on a usage error.
+Exit codes of the round: 0 when at least one accelerator node is
+effectively Ready, 2 when there is none, 3 when none is Ready (or the
+probe, ``--strict-slices`` or ``--expected-chips`` failed), 1 on an error
+(``{"error": ...}`` on stdout under ``--json``).  Of the node side: 0 when
+the report is healthy (or fresh, or the drill behaved, or the calibration
+ran), 3 when it is not, 1 on an error.  2 is a usage error.
 """
 
 from __future__ import annotations
@@ -40,6 +62,7 @@ from __future__ import annotations
 import argparse
 import json
 import sys
+import traceback
 from typing import List, Optional
 
 from tpu_node_checker_torch.probe.floors import DEFAULT_CALIBRATION_MARGIN
@@ -51,97 +74,224 @@ MODES = ("--emit-probe", "--selftest", "--calibrate", "--report-fresh",
          "--probe-report-schema")
 
 
+def _expected_chips(raw: str):
+    """``N`` or ``KEY=N`` → (key_or_None, n) for the capacity assertion."""
+    key, sep, count = raw.rpartition("=")
+    if sep and (not key or "=" in key or key != key.strip()):
+        # '=8' / '==8' is a typo (or an empty $KEY interpolation), not the
+        # unkeyed form.
+        raise argparse.ArgumentTypeError(f"malformed resource key in {raw!r}")
+    try:
+        n = int(count)
+    except ValueError:
+        raise argparse.ArgumentTypeError(
+            f"expected an integer chip count, got {count!r}"
+        )
+    if n <= 0:
+        raise argparse.ArgumentTypeError("chip count must be positive")
+    return (key or None, n)
+
+
 def build_parser() -> argparse.ArgumentParser:
-    # No abbreviations: a JAX checker flag the port lacks (--probe-results)
-    # must not parse as a prefix of one it has (--probe-results-max-age).
+    # No abbreviations: a JAX checker flag the port lacks must stay an unknown
+    # argument, never a prefix of one it has (--cordon-after).
     p = argparse.ArgumentParser(
         prog="python -m tpu_node_checker_torch",
-        description="Probe this host's NVIDIA card(s) and write probe reports "
-        "for the fleet checker's --probe-results.",
+        description="Check a Kubernetes NodeList for Ready accelerator nodes, probe "
+        "this host's NVIDIA card(s), and write probe reports for the fleet "
+        "checker's --probe-results. Exit codes of the round: 0 = at least one "
+        "Ready accelerator node; 2 = no accelerator nodes; 3 = accelerator nodes "
+        "exist but none Ready (or the probe / strict slice check failed); 1 = error.",
         allow_abbrev=False,
     )
-    p.add_argument("--emit-probe", metavar="FILE",
-                   help="write the probe report to FILE atomically ('-' for stdout)")
-    p.add_argument("--report-fresh", metavar="FILE",
-                   help="exit 0 iff FILE is a readable probe report whose "
-                   "written_at is younger than --probe-results-max-age, else 1 "
-                   "(the emitter pod's livenessProbe); runs alone")
-    p.add_argument("--probe-report-schema", action="store_true",
-                   help="print the probe report's JSON Schema (draft 2020-12) "
-                   "and exit; runs alone")
-    p.add_argument("--probe-level", choices=LEVELS, default="enumerate",
-                   help="enumerate, compute, collective, mesh or workload (each "
-                   "includes the previous); collective and up run one rank per card")
-    p.add_argument("--probe-timeout", type=float, default=None, metavar="S",
-                   help="kill the probe child after S seconds (default: the level's "
-                   "budget, plus --probe-soak)")
-    p.add_argument("--device", default="cuda:0",
-                   help="device to probe: cuda:0 (default) or cpu")
+    p.add_argument("--json", action="store_true",
+                   help="machine-readable JSON output (the round's payload, or "
+                   "--selftest's document)")
+    p.add_argument("--cluster-name", metavar="NAME",
+                   help="this checker's cluster identity (or $TNC_CLUSTER_NAME; "
+                   "default: the hostname), stamped into every payload as the "
+                   "'cluster' key")
+    p.add_argument("--resource-key", action="append", metavar="KEY",
+                   help="additional accelerator resource key or glob to detect (repeatable)")
+    p.add_argument("--nodes-json", metavar="FILE",
+                   help="read nodes from a JSON NodeList file (the one-shot round's "
+                   "node source; the live LIST is not ported)")
+    p.add_argument("--strict-slices", action="store_true",
+                   help="exit 3 if any multi-host TPU slice is incomplete")
+    p.add_argument("--multislice-label", action="append", metavar="KEY",
+                   help="node label key that groups slices into a DCN-joined "
+                   "multislice (repeatable; checked before the built-in "
+                   "cloud.google.com/gke-multislice-group convention)")
+    p.add_argument("--expected-chips", type=_expected_chips, metavar="[KEY=]N",
+                   help="exit 3 unless at least N chips are on Ready nodes "
+                   "(cluster-level capacity assertion); KEY restricts the count to "
+                   "one resource key or glob, e.g. 'nvidia.com/gpu=8' — without it "
+                   "every accelerator family counts")
+    p.add_argument("--debug", action="store_true", help="print phase timings")
+    p.add_argument("--trace", metavar="FILE",
+                   help="write a Chrome-trace-format timeline of the round's phases "
+                   "to FILE (open in Perfetto / chrome://tracing)")
     p.add_argument("--watch", type=float, metavar="SECONDS",
                    help="with --emit-probe: rewrite the report every SECONDS, "
                    "measured from the start of a round, until SIGTERM (exit 143)")
-    p.add_argument("--log-jsonl", metavar="FILE",
-                   help="with --emit-probe: append one JSON line per round to FILE "
-                   "(the fleet checker's --trend reads it)")
     p.add_argument("--metrics-port", type=int, metavar="PORT",
                    help="with --watch: serve Prometheus metrics on this port (0 = ephemeral)")
-    p.add_argument("--selftest", action="store_true",
-                   help="rehearse the fault-detection pipeline on this host: a clean "
-                   "baseline probe, then one injected fault per detector class (perf "
-                   "throttle, collective leg, link, slice boundary), each verified to be "
-                   "caught AND correctly named; exit 0 = drill passed, 3 = a detector "
-                   "missed — runs alone")
-    p.add_argument("--json", action="store_true",
-                   help="with --selftest: machine-readable JSON output")
-    p.add_argument("--calibrate", type=int, default=None, metavar="REPS",
-                   help="measure this host's healthy perf expectations: run the probe "
-                   "REPS times at --probe-level (compute or higher), print the "
-                   "margin-adjusted per-metric medians as TNC_PERF_EXPECT JSON on "
-                   "stdout, which --perf-floor grades against on cards the built-in "
-                   "table lacks (the H100); any failed rep aborts (never calibrate a "
-                   "sick host) — runs alone")
-    p.add_argument("--calibrate-margin", type=float, default=None, metavar="FRACTION",
-                   help="with --calibrate: expectation = FRACTION x median, keeping "
-                   "headroom under the healthy median so run-to-run jitter never sits "
-                   "above 'expected' (default 0.9)")
-    p.add_argument("--calibrate-out", metavar="FILE",
-                   help="with --calibrate: write the JSON to FILE (atomic) instead of stdout")
-    p.add_argument("--probe-results-max-age", type=float, default=900.0, metavar="SECONDS",
-                   help="with --report-fresh: the report's greatest age (default 900s)")
-    p.add_argument("--probe-soak", type=float, default=0.0, metavar="SECONDS",
-                   help="node-acceptance soak: at compute level and above, loop the "
-                   "matmul burn under sustained load for this long; fails on numerics "
-                   "errors or throughput collapse (probe timeout extends to fit)")
-    p.add_argument("--probe-topology", metavar="DIMS",
-                   help="torus label of the host's cards (e.g. 2x2); at collective "
-                   "level and above, one all_reduce per axis so a fault names its axis")
-    p.add_argument("--probe-distributed", action="store_true",
-                   help="with --emit-probe: join the rendezvous of one probe process per "
-                   "host before enumerating, so the probe sees every host's cards, "
-                   "verifies a cross-process psum, and its collectives cross hosts")
-    p.add_argument("--probe-coordinator", metavar="HOST:PORT",
-                   help="with --probe-distributed: the rendezvous coordinator, where "
-                   "process 0 hosts the store")
-    p.add_argument("--probe-num-processes", type=int, metavar="N",
-                   help="with --probe-distributed: total process count in the rendezvous")
-    p.add_argument("--probe-process-id", type=int, metavar="I",
-                   help="with --probe-distributed: this process's rank")
-    p.add_argument("--probe-rendezvous-timeout", type=float, default=None,
-                   metavar="SECONDS",
-                   help="with --probe-distributed: bound the rendezvous itself so an "
-                   "unreachable coordinator or a missing peer reports a structured "
-                   "error (default 60s)")
-    p.add_argument("--perf-floor", type=float, default=None, metavar="FRACTION",
-                   help="at compute level and above, grade the measured figures against "
-                   "this fraction of the device kind's expected figures (default 0.4; "
-                   "0 disables); $TNC_PERF_EXPECT (JSON {metric: expected}) gives the "
-                   "expectations where the built-in table has none, as for the H100")
+    p.add_argument("--log-jsonl", metavar="FILE",
+                   help="append one JSON line per check round (or emitter round) to "
+                   "FILE (trend log; the fleet checker's --trend reads it)")
+
+    probe = p.add_argument_group("Card probe (data-plane liveness)")
+    probe.add_argument("--probe", action="store_true",
+                       help="probe this host's card(s) in a child process and "
+                       "attach the verdict to this host's node (NODE_NAME, else the "
+                       "hostname), expecting its allocatable device count")
+    probe.add_argument("--probe-level", choices=LEVELS, default="enumerate",
+                       help="enumerate, compute, collective, mesh or workload (each "
+                       "includes the previous); collective and up run one rank per card")
+    probe.add_argument("--probe-timeout", type=float, default=None, metavar="S",
+                       help="kill the probe child after S seconds (default: the level's "
+                       "budget, plus --probe-soak)")
+    probe.add_argument("--device", default="cuda:0",
+                       help="device to probe: cuda:0 (default) or cpu")
+    probe.add_argument("--emit-probe", metavar="FILE",
+                       help="write the probe report to FILE atomically ('-' for stdout)")
+    probe.add_argument("--probe-results", metavar="DIR",
+                       help="attach per-host probe reports (written by --emit-probe on "
+                       "each host) from DIR to the matching nodes")
+    probe.add_argument("--report-fresh", metavar="FILE",
+                       help="exit 0 iff FILE is a readable probe report whose "
+                       "written_at is younger than --probe-results-max-age, else 1 "
+                       "(the emitter pod's livenessProbe); runs alone")
+    probe.add_argument("--probe-report-schema", action="store_true",
+                       help="print the probe report's JSON Schema (draft 2020-12) "
+                       "and exit; runs alone")
+    probe.add_argument("--selftest", action="store_true",
+                       help="rehearse the fault-detection pipeline on this host: a clean "
+                       "baseline probe, then one injected fault per detector class (perf "
+                       "throttle, collective leg, link, slice boundary), each verified to "
+                       "be caught AND correctly named; exit 0 = drill passed, 3 = a "
+                       "detector missed — runs alone")
+    probe.add_argument("--calibrate", type=int, default=None, metavar="REPS",
+                       help="measure this host's healthy perf expectations: run the probe "
+                       "REPS times at --probe-level (compute or higher), print the "
+                       "margin-adjusted per-metric medians as TNC_PERF_EXPECT JSON on "
+                       "stdout, which --perf-floor grades against on cards the built-in "
+                       "table lacks (the H100); any failed rep aborts (never calibrate a "
+                       "sick host) — runs alone")
+    probe.add_argument("--calibrate-margin", type=float, default=None, metavar="FRACTION",
+                       help="with --calibrate: expectation = FRACTION x median, keeping "
+                       "headroom under the healthy median so run-to-run jitter never "
+                       "sits above 'expected' (default 0.9)")
+    probe.add_argument("--calibrate-out", metavar="FILE",
+                       help="with --calibrate: write the JSON to FILE (atomic) instead "
+                       "of stdout")
+    probe.add_argument("--probe-results-max-age", type=float, default=900.0,
+                       metavar="SECONDS",
+                       help="ignore probe reports older than this (default 900s) so a "
+                       "wedged emitter can't keep vouching for dead cards; with "
+                       "--report-fresh, the report's greatest age")
+    probe.add_argument("--probe-results-required", action="store_true",
+                       help="with --probe-results: grade any TPU node WITHOUT a fresh "
+                       "report as probe-failed (full DaemonSet coverage expected)")
+    probe.add_argument("--probe-soak", type=float, default=0.0, metavar="SECONDS",
+                       help="node-acceptance soak: at compute level and above, loop the "
+                       "matmul burn under sustained load for this long; fails on "
+                       "numerics errors or throughput collapse (probe timeout extends "
+                       "to fit)")
+    probe.add_argument("--probe-topology", metavar="DIMS",
+                       help="torus label of the host's cards (e.g. 2x2); at collective "
+                       "level and above, one all_reduce per axis so a fault names its "
+                       "axis")
+    probe.add_argument("--probe-distributed", action="store_true",
+                       help="join the rendezvous of one probe process per host before "
+                       "enumerating, so the probe sees every host's cards, verifies a "
+                       "cross-process psum, and its collectives cross hosts")
+    probe.add_argument("--probe-coordinator", metavar="HOST:PORT",
+                       help="with --probe-distributed: the rendezvous coordinator, where "
+                       "process 0 hosts the store")
+    probe.add_argument("--probe-num-processes", type=int, metavar="N",
+                       help="with --probe-distributed: total process count in the "
+                       "rendezvous")
+    probe.add_argument("--probe-process-id", type=int, metavar="I",
+                       help="with --probe-distributed: this process's rank")
+    probe.add_argument("--probe-rendezvous-timeout", type=float, default=None,
+                       metavar="SECONDS",
+                       help="with --probe-distributed: bound the rendezvous itself so "
+                       "an unreachable coordinator or a missing peer reports a "
+                       "structured error (default 60s)")
+    probe.add_argument("--perf-floor", type=float, default=None, metavar="FRACTION",
+                       help="at compute level and above, grade the measured figures "
+                       "against this fraction of the device kind's expected figures "
+                       "(default 0.4; 0 disables); $TNC_PERF_EXPECT (JSON {metric: "
+                       "expected}) gives the expectations where the built-in table "
+                       "has none, as for the H100")
+
+    history = p.add_argument_group("Health history & hysteresis (flap-proof quarantine)")
+    history.add_argument("--history", metavar="FILE",
+                         help="persist per-node health history to FILE "
+                         "(schema-versioned append-only JSONL, bounded, compacted in "
+                         "place) and grade each node through a hysteresis state "
+                         "machine (HEALTHY→SUSPECT→FAILED→RECOVERING, plus a CHRONIC "
+                         "flap trap) instead of one round's snapshot; works in the "
+                         "one-shot round and in --emit-probe mode")
+    history.add_argument("--history-max-rounds", type=int, default=None, metavar="N",
+                         help="with --history: per-node rounds kept in the store "
+                         "(default 64); older lines are dropped at the next atomic "
+                         "compaction")
+    history.add_argument("--cordon-after", type=int, default=None, metavar="K",
+                         help="with --history: consecutive bad rounds before a node is "
+                         "FAILED (default 1 = the per-round behavior)")
+    history.add_argument("--uncordon-after", type=int, default=None, metavar="M",
+                         help="with --history: consecutive good rounds before a "
+                         "RECOVERING node re-earns HEALTHY (default 1)")
+    history.add_argument("--flap-threshold", type=int, default=None, metavar="F",
+                         help="with --history: verdict flips inside the flap window "
+                         "that mark a node CHRONIC — its own Slack line and trend "
+                         "cause (default 4)")
+    history.add_argument("--flap-window", type=int, default=None, metavar="W",
+                         help="with --history: sliding window (rounds) the flap "
+                         "detector counts flips over (default 10)")
+
+    slack = p.add_argument_group("Slack")
+    slack.add_argument("--slack-webhook", help="Slack incoming-webhook URL (or $SLACK_WEBHOOK_URL)")
+    slack.add_argument("--slack-username", default="tpu-node-checker")
+    slack.add_argument("--slack-only-on-error", action="store_true",
+                       help="notify only when the check outcome is non-zero: no "
+                       "accelerator nodes, none effectively Ready, a failed probe, "
+                       "an incomplete slice under --strict-slices, or an "
+                       "--expected-chips shortfall")
+    slack.add_argument("--slack-retry-count", type=int, default=3,
+                       help="delivery retries on connection-reset errors (default 3)")
+    slack.add_argument("--slack-retry-delay", type=float, default=30.0,
+                       help="seconds between Slack delivery retries (default 30)")
     return p
+
+
+# Flags that mean something only in the one-shot round: beside another mode
+# they would silently do nothing.
+_ROUND_FLAGS = (
+    ("--nodes-json", "nodes_json"), ("--probe", "probe"),
+    ("--probe-results", "probe_results"), ("--strict-slices", "strict_slices"),
+    ("--resource-key", "resource_key"), ("--multislice-label", "multislice_label"),
+    ("--expected-chips", "expected_chips"), ("--cluster-name", "cluster_name"),
+    ("--debug", "debug"), ("--trace", "trace"), ("--slack-username", "slack_username"),
+    ("--slack-retry-count", "slack_retry_count"),
+    ("--slack-retry-delay", "slack_retry_delay"),
+)
+# Flags of the probe: in the one-shot round they need --probe.
+_PROBE_FLAGS = (
+    ("--probe-level", "probe_level"), ("--probe-timeout", "probe_timeout"),
+    ("--device", "device"), ("--probe-topology", "probe_topology"),
+)
 
 
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     p = build_parser()
     args = p.parse_args(argv)
+
+    def given(dest: str) -> bool:
+        return getattr(args, dest) != p.get_default(dest)
+
     if args.probe_report_schema and any(
         v != p.get_default(k) for k, v in vars(args).items() if k != "probe_report_schema"
     ):
@@ -151,25 +301,88 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
         p.error("--watch interval must be a positive number of seconds")
     if args.metrics_port is not None and args.watch is None:
         p.error("--metrics-port requires --watch (one-shot runs serve no scrapes)")
+    if args.probe_results_required and not args.probe_results:
+        p.error("--probe-results-required requires --probe-results DIR")
+    for flag, val in (
+        ("--history-max-rounds", args.history_max_rounds),
+        ("--cordon-after", args.cordon_after),
+        ("--uncordon-after", args.uncordon_after),
+        ("--flap-threshold", args.flap_threshold),
+        ("--flap-window", args.flap_window),
+    ):
+        if val is not None and not args.history:
+            # Hysteresis knobs without the store would silently grade
+            # per-round: the operator thinks debouncing is on.
+            p.error(f"{flag} requires --history FILE")
+    if args.history_max_rounds is not None and args.history_max_rounds < 1:
+        p.error("--history-max-rounds must be at least 1")
+    for flag, val in (
+        ("--cordon-after", args.cordon_after),
+        ("--uncordon-after", args.uncordon_after),
+    ):
+        if val is not None and val < 1:
+            p.error(f"{flag} must be at least 1")
+    for flag, val in (
+        ("--flap-threshold", args.flap_threshold),
+        ("--flap-window", args.flap_window),
+    ):
+        if val is not None and val < 2:
+            # One flip is any single failure; a window of one can hold no
+            # flip at all: both would disable the detector silently.
+            p.error(f"{flag} must be at least 2")
+    if args.history:
+        # A store bound smaller than the flap window could never hold
+        # enough verdicts to trip the detector after a restart.
+        from tpu_node_checker_torch.history.fsm import DEFAULT_FLAP_WINDOW
+        from tpu_node_checker_torch.history.store import DEFAULT_MAX_ROUNDS
+
+        window = args.flap_window or DEFAULT_FLAP_WINDOW
+        if window > (args.history_max_rounds or DEFAULT_MAX_ROUNDS):
+            p.error(
+                "--flap-window cannot exceed --history-max-rounds (a "
+                "restarted checker reseeds from the store, which could "
+                "never hold enough rounds to trip the detector)"
+            )
     if args.selftest and (
         args.emit_probe
+        or args.probe
         or args.watch is not None
+        or args.probe_results
         or args.report_fresh
+        or args.history
         or args.calibrate is not None
+        or args.slack_webhook
         or args.log_jsonl
+        or args.nodes_json
+        or args.resource_key
+        or args.strict_slices
+        or args.expected_chips
+        or args.multislice_label
         or args.probe_topology
         or args.probe_level != "enumerate"
+        or args.trace
     ):
-        # A drill-only mode must not absorb emit flags the operator thinks ran.
+        # A drill-only mode must not absorb flags the operator thinks ran.
         p.error("--selftest runs alone (only --json and --probe-timeout "
                 "may accompany it)")
     if args.calibrate is not None:
         if (
             args.emit_probe
+            or args.probe
             or args.watch is not None
+            or args.probe_results
             or args.report_fresh
+            or args.history
+            or args.slack_webhook
+            or args.slack_only_on_error
             or args.log_jsonl
+            or args.nodes_json
+            or args.resource_key
+            or args.strict_slices
+            or args.expected_chips
+            or args.multislice_label
             or args.json
+            or args.trace
             or args.perf_floor is not None
         ):
             # Calibration's stdout is the TNC_PERF_EXPECT JSON (command
@@ -191,24 +404,28 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
             p.error("--calibrate-out requires --calibrate")
         if args.calibrate_margin is not None:
             p.error("--calibrate-margin requires --calibrate")
-    if args.json and not args.selftest:
-        # The drill's document is the port's only JSON output mode.
-        p.error("--json requires --selftest")
     if args.report_fresh and any(
         v != p.get_default(k) for k, v in vars(args).items()
         if k not in ("report_fresh", "probe_results_max_age")
     ):
-        # A liveness verdict stays a liveness verdict: an emission or probe
-        # flag beside it would silently do nothing.
+        # A liveness verdict stays a liveness verdict: an emission, round or
+        # probe flag beside it would silently do nothing.
         p.error(
             "--report-fresh runs alone (no --emit-probe/--watch/--log-jsonl/"
             "--probe-level/--probe-timeout/--probe-soak/--probe-topology/"
             "--perf-floor/--device)"
         )
-    if args.probe_distributed and not args.emit_probe:
+    if args.emit_probe:
+        for flag, on in (
+            ("--slack-webhook", args.slack_webhook),
+            ("--slack-only-on-error", args.slack_only_on_error),
+        ):
+            if on:
+                # Emitters never notify: Slack is the aggregator's job.
+                p.error(f"{flag} cannot be combined with --emit-probe")
+    if args.probe_distributed and not (args.probe or args.emit_probe):
         # A probe modifier that silently does nothing would let an operator
-        # believe a distributed probe ran.  JAX's words: the port has no
-        # --probe, so only --emit-probe satisfies the rule.
+        # believe a distributed probe ran.
         p.error("--probe-distributed requires --probe or --emit-probe")
     if not args.probe_distributed:
         for flag, val in (
@@ -219,17 +436,11 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
         ):
             if val is not None:
                 p.error(f"{flag} requires --probe-distributed")
-    if not (args.emit_probe or args.report_fresh or args.probe_report_schema
-            or args.selftest or args.calibrate is not None):
-        p.error(f"one of {', '.join(MODES)} is required")
-    if (not args.report_fresh
-            and args.probe_results_max_age != p.get_default("probe_results_max_age")):
-        p.error("--probe-results-max-age requires --report-fresh")
     if args.probe_soak:
         # Silently not soaking would grade a node healthy without ever
         # applying the sustained load the flag exists to apply.
-        if not (args.emit_probe or args.calibrate is not None):
-            p.error("--probe-soak requires --emit-probe or --calibrate")
+        if not (args.probe or args.emit_probe or args.calibrate is not None):
+            p.error("--probe-soak requires --probe, --emit-probe or --calibrate")
         if args.probe_soak < 0:
             p.error("--probe-soak must be >= 0 (0 disables)")
         if args.probe_level == "enumerate":
@@ -238,18 +449,62 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
         # Floors only grade figures a compute-level probe produces.
         if args.perf_floor < 0:
             p.error("--perf-floor must be >= 0 (0 disables)")
-        if not args.emit_probe:
-            p.error("--perf-floor requires --emit-probe")
+        if not (args.probe or args.emit_probe):
+            p.error("--perf-floor requires --probe or --emit-probe")
         if args.probe_level == "enumerate":
             p.error("--perf-floor requires --probe-level compute (or higher)")
     if args.probe_topology and args.probe_level in ("enumerate", "compute"):
         # The per-axis block runs at the collective level and above only.
         p.error("--probe-topology requires --probe-level collective (or higher)")
+
+    # The port's own rules, after JAX's: what the port has not ported must
+    # not be accepted and silently skipped.
+    mode = next((m for m, on in (
+        ("--emit-probe", args.emit_probe), ("--selftest", args.selftest),
+        ("--calibrate", args.calibrate is not None), ("--report-fresh", args.report_fresh),
+        ("--probe-report-schema", args.probe_report_schema)) if on), None)
+    if args.watch is not None and not args.emit_probe:
+        p.error("--watch requires --emit-probe (the fleet round's --watch loop "
+                "is not ported)")
+    if args.json and mode not in (None, "--selftest"):
+        p.error(f"--json requires --selftest or a one-shot round (not {mode})")
+    if args.probe_results_max_age != p.get_default("probe_results_max_age") and not (
+            args.probe_results or args.report_fresh):
+        p.error("--probe-results-max-age requires --probe-results or --report-fresh")
+    if mode is not None:
+        for flag, dest in _ROUND_FLAGS:
+            if given(dest):
+                p.error(f"{flag} belongs to the one-shot round: it cannot be "
+                        f"combined with {mode}")
+    else:
+        if not args.nodes_json:
+            p.error("the one-shot round requires --nodes-json FILE (the live node "
+                    f"LIST is not ported; or run one of {', '.join(MODES)})")
+        if not args.probe:
+            for flag, dest in _PROBE_FLAGS:
+                if given(dest):
+                    p.error(f"{flag} requires --probe or --emit-probe")
     return args
 
 
 def main(argv: Optional[List[str]] = None) -> int:
     args = parse_args(argv)
+    try:
+        return _dispatch(args)
+    except KeyboardInterrupt:
+        return 130
+    except Exception as exc:  # tnc: allow-broad-except(the CLI's catch-all, as JAX's main)
+        if args.json:
+            from tpu_node_checker_torch.report import error_payload
+
+            print(error_payload(str(exc)))
+        else:
+            print(f"Error: {exc}", file=sys.stderr)
+            traceback.print_exc()
+        return EXIT_ERROR
+
+
+def _dispatch(args) -> int:
     if args.selftest:
         from tpu_node_checker_torch.selftest import selftest
 
@@ -262,13 +517,17 @@ def main(argv: Optional[List[str]] = None) -> int:
             level=args.probe_level, timeout_s=args.probe_timeout,
             topology=args.probe_topology, soak_s=args.probe_soak, device=args.device,
         )
-    from tpu_node_checker_torch import emit
-
     if args.probe_report_schema:
         from tpu_node_checker_torch.probe.schema import as_json_schema
 
         print(json.dumps(as_json_schema(), indent=2))
         return EXIT_OK
+    from tpu_node_checker_torch import checker
+
+    if not args.emit_probe and not args.report_fresh:
+        return checker.one_shot(args)
+    from tpu_node_checker_torch import emit
+
     if args.report_fresh:
         return emit.report_fresh(args.report_fresh, args.probe_results_max_age)
     probe = dict(
@@ -278,19 +537,28 @@ def main(argv: Optional[List[str]] = None) -> int:
         num_processes=args.probe_num_processes, process_id=args.probe_process_id,
         dist_init_timeout_s=args.probe_rendezvous_timeout,
     )
+    # One history tracker for the emitter's lifetime (None without --history).
+    history = checker._build_history(args)
     if args.watch is not None:
         # Returns only on SIGTERM (143).
         return emit.emit_probe_loop(args.emit_probe, args.watch, log_jsonl=args.log_jsonl,
-                                    metrics_port=args.metrics_port, **probe)
-    try:
-        rc, doc = emit.emit_probe_once(args.emit_probe, **probe)
-    except (OSError, ValueError) as exc:
-        print(f"Error: {exc}", file=sys.stderr)
-        return EXIT_ERROR
-    if args.log_jsonl:
-        emit.append_jsonl(args.log_jsonl, emit.emitter_round_entry(rc, doc))
-    return rc
+                                    metrics_port=args.metrics_port, history=history,
+                                    **probe)
+    return emit.emit_probe(args.emit_probe, log_jsonl=args.log_jsonl, history=history,
+                           **probe)
 
 
 def entrypoint() -> None:
+    """Console entry: load ``.env`` (so ``SLACK_WEBHOOK_URL`` may come from
+    it), then exit with the run's code."""
+    import signal
+
+    try:
+        # Die quietly when stdout is a closed pipe (`... | head`).
+        signal.signal(signal.SIGPIPE, signal.SIG_DFL)
+    except (AttributeError, ValueError):  # non-POSIX or non-main thread
+        pass
+    from tpu_node_checker_torch.utils.env import load_dotenv
+
+    load_dotenv()
     sys.exit(main())

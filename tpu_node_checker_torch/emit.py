@@ -10,10 +10,12 @@ way the two packages meet.
 A DaemonSet pod runs :func:`emit_probe_loop` (``--watch``), which rewrites the
 report every interval, appends one ``--trend``-shaped line per round to
 ``--log-jsonl`` and serves the round's gauges on ``--metrics-port``; its
-livenessProbe runs :func:`report_fresh`.  These are copies of the JAX
-checker's emitter (``checker.py`` ``_emit_probe_once``,
-``_emitter_round_entry``, ``_append_jsonl``, ``emit_probe_loop`` without the
-history, ``report_fresh`` and the loop's signal and wait seams).
+livenessProbe runs :func:`report_fresh`.  With ``--history`` each round
+also feeds the host's own hysteresis machine, whose state rides in the
+round's line.  These are copies of the JAX checker's emitter
+(``checker.py`` ``_emit_probe_once``, ``_emitter_round_entry``,
+``emit_probe``, ``_emitter_history_round``, ``emit_probe_loop``,
+``report_fresh`` and the loop's signal and wait seams).
 """
 
 from __future__ import annotations
@@ -26,20 +28,20 @@ import threading
 import time
 from typing import Optional, Tuple
 
-from tpu_node_checker_torch.metrics import CheckResult, MetricsServer
+from tpu_node_checker_torch.checker import (  # noqa: F401 — re-exported API
+    CLOCK_SKEW_ALLOWANCE_S,
+    EXIT_ERROR,
+    EXIT_NONE_READY,
+    EXIT_OK,
+    REPORT_SCHEMA_VERSION,
+    CheckResult,
+)
+from tpu_node_checker_torch.checker import _append_jsonl as append_jsonl
+from tpu_node_checker_torch.metrics import MetricsServer
 from tpu_node_checker_torch.probe.liveness import run_local_probe
 from tpu_node_checker_torch.probe.schema import strict_mode, validate_report
 
-REPORT_SCHEMA_VERSION = 1
-EXIT_OK = 0
-EXIT_ERROR = 1
-EXIT_NONE_READY = 3
 EXIT_SIGTERM = 128 + 15
-
-# How far in the FUTURE a probe report's written_at may sit before it is
-# refused as clock skew (the JAX checker's own allowance, which its
-# aggregator applies to the same files).
-CLOCK_SKEW_ALLOWANCE_S = 60.0
 
 
 def emit_probe_once(
@@ -107,18 +109,56 @@ def emitter_round_entry(rc: int, doc: dict) -> dict:
     return entry
 
 
-def append_jsonl(path: str, entry: dict) -> None:
-    """Append one JSONL line, never raising: a full disk must not kill a
-    monitoring round."""
-    try:
-        with open(path, "a") as f:
-            f.write(json.dumps(entry, ensure_ascii=False) + "\n")
-    except OSError as exc:
-        print(f"Cannot append state log {path}: {exc}", file=sys.stderr)
+def emit_probe(target: str, log_jsonl: Optional[str] = None,
+               history: Optional[dict] = None, **probe) -> int:
+    """``--emit-probe FILE`` once: one probe, one report, and with
+    ``log_jsonl`` one round line, which carries the round's ``--history``
+    state when ``history`` (``checker._build_history``) is given.  Returns 0 when the host is healthy, else 3.
+    """
+    rc, doc = emit_probe_once(target, **probe)
+    entry = emitter_round_entry(rc, doc)
+    _emitter_history_round(history, doc, entry)
+    if log_jsonl:
+        append_jsonl(log_jsonl, entry)
+    return rc
+
+
+def _emitter_history_round(history, doc: dict, entry: dict) -> None:
+    """Emitter-mode ``--history``: the single-host hysteresis machine.
+
+    The pod tracks its OWN cards' history, keyed by the report's hostname
+    (the key the aggregator would use), so a flapping card reads CHRONIC
+    at the host edge, and the verdict rides in the ``--log-jsonl`` line.
+    """
+    if history is None:
+        return
+    fsm, store = history["fsm"], history["store"]
+    fsm.transitions.clear()  # per-emission log; nothing consumes older rounds
+    node = doc.get("hostname") or "local"
+    ok = bool(doc.get("ok"))
+    fsm.observe(node, ok)
+    h = fsm.health(node)
+    store.record(
+        {
+            "node": node,
+            "ts": round(time.time(), 3),
+            "ok": ok,
+            "causes": [] if ok else ["probe-failed"],
+            "state": h.state,
+            "streak": h.streak,
+            "flaps": h.flaps,
+            "flaps_total": h.flaps_total,
+        }
+    )
+    store.flush()
+    entry["state"] = h.state
+    if h.flaps:
+        entry["flaps"] = h.flaps
 
 
 def emit_probe_loop(target: str, interval: float, log_jsonl: Optional[str] = None,
-                    metrics_port: Optional[int] = None, **probe) -> int:
+                    metrics_port: Optional[int] = None, history: Optional[dict] = None,
+                    **probe) -> int:
     """``--emit-probe FILE --watch SECONDS``: the DaemonSet emitter loop.
 
     Rewrites the report every ``interval`` seconds, measured from the start
@@ -129,9 +169,11 @@ def emit_probe_loop(target: str, interval: float, log_jsonl: Optional[str] = Non
     and updated after each.  Each round spawns a fresh probe child.  One bad
     round (a shared-volume blip, a probe crash) is logged as an
     ``EXIT_ERROR`` round, flips the scrape's exit code, and the loop goes
-    on: a crash-looping pod would let the report go stale.  Runs until
-    SIGTERM, which stops the loop after the current emission and returns
-    143.  ``probe`` is passed to :func:`emit_probe_once`.
+    on: a crash-looping pod would let the report go stale.  With
+    ``history`` (``--history``), one tracker for the loop's lifetime
+    observes every round, and its state rides in the round's line.  Runs
+    until SIGTERM, which stops the loop after the current emission and
+    returns 143.  ``probe`` is passed to :func:`emit_probe_once`.
     """
     server = None
     if metrics_port is not None:
@@ -143,14 +185,16 @@ def emit_probe_loop(target: str, interval: float, log_jsonl: Optional[str] = Non
     stop = threading.Event()
     prev_handler = _install_stop_signal(stop)
     try:
-        return _emit_probe_rounds(target, interval, log_jsonl, server, probe, stop)
+        return _emit_probe_rounds(target, interval, log_jsonl, server, history, probe,
+                                  stop)
     finally:
         _restore_stop_signal(prev_handler)
         if server is not None:
             server.close()
 
 
-def _emit_probe_rounds(target, interval, log_jsonl, server, probe, stop) -> int:
+def _emit_probe_rounds(target, interval, log_jsonl, server, history, probe,
+                       stop) -> int:
     while True:
         round_start = time.monotonic()
         try:
@@ -162,6 +206,7 @@ def _emit_probe_rounds(target, interval, log_jsonl, server, probe, stop) -> int:
                 server.mark_error()
         else:
             entry = emitter_round_entry(rc, doc)
+            _emitter_history_round(history, doc, entry)
             if server is not None:
                 server.update(CheckResult(exit_code=rc, payload={"local_probe": doc}))
         if log_jsonl:

@@ -28,23 +28,14 @@ from __future__ import annotations
 
 import threading
 import time
-from dataclasses import dataclass, field
 from http.server import ThreadingHTTPServer
 from typing import List, Optional, Tuple
 
+from tpu_node_checker_torch.checker import CheckResult
 from tpu_node_checker_torch.server.router import Entity, RoutedHandler, Router, negotiate
 
 # Prometheus text exposition format, version 0.0.4: the scrape content type.
 METRICS_CONTENT_TYPE = "text/plain; version=0.0.4"
-
-
-@dataclass
-class CheckResult:
-    """What a round hands the scrape: the exit code the equivalent one-shot
-    run returns, and its payload (``{"local_probe": report}``)."""
-
-    exit_code: int
-    payload: dict = field(default_factory=dict)
 
 
 def _escape(value: str) -> str:
