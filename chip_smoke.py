@@ -104,11 +104,33 @@ Phases, one line each (any failure exits non-zero and prints no result):
    --history --log-jsonl`` round whose line carries its ``state``; and
    ``--slack-only-on-error`` to a loopback webhook, which must get one post
    from each CLI, on the failing round, with equal bodies;
-11. the ``kernels`` line (each kernel at the compute probe's shapes, its
+11. the live round, each line a subprocess of a CLI against a fake API
+   server this script serves from a thread (``/api/v1/nodes`` paged by
+   ``limit``/``continue`` and filtered by ``labelSelector``,
+   ``/api/v1/events`` by ``fieldSelector``) with a NodeList of 2,500 nodes
+   (this host Ready with its cards, 999 other ``nvidia.com/gpu`` nodes of
+   which 10 are NotReady with Warning events, 1,500 CPU nodes: three pages
+   at the client's limit of 1,000): ``--kubeconfig K --probe --probe-level
+   workload --node-events --strict-slices --json`` through the port (exit 0,
+   the probe healthy, schema-valid and attached to this host's node, its
+   launches equal to the workload path's, events on the 8 sick nodes the cap
+   allows and the 2 omitted named on stderr, 3 list pages and 8 events walks
+   sent, the round's ``timings_ms`` printed); the CronJob's own argv
+   (``--strict-slices --slack-only-on-error --json``) with ``--kubeconfig``,
+   in JSON and in text and with ``--label-selector``, through the port and
+   through the JAX checker's CLI (equal exit codes, equal payloads less
+   ``trace_id`` and ``timings_ms``, equal text); a 429 with ``Retry-After:
+   1`` on the first list request (equal exit codes and
+   ``retries_by_reason``); a closed port under ``--retry-budget 2`` (both
+   exit 1 with equal ``{"error": ...}``, the seconds printed); and the
+   CronJob's round over TLS with ``certificate-authority-data`` where
+   ``openssl`` can make a certificate;
+12. the ``kernels`` line (each kernel at the compute probe's shapes, its
    launches counted on the workload path, in each emitter round, in each
-   selftest leg, in each calibration rep, on the distributed workload path
-   and in the one-shot round's probe, flash also at the training step's
-   shape), then the ``nvidia-smi`` line, then the result line.
+   selftest leg, in each calibration rep, on the distributed workload path,
+   in the one-shot round's probe and in the live round's, flash also at the
+   training step's shape), then the ``nvidia-smi`` line, then the result
+   line.
 
 Bounds use the H100 SXM data sheet: 3.35 TB/s of device memory, 989 TFLOP/s
 bf16 on the tensor cores.  Times are steady-state CUDA-event times over many
@@ -1266,6 +1288,271 @@ def phase10_oneshot(torch, root, rows, validate_report) -> None:
     phase(10, "the one-shot round", seconds=time.perf_counter() - t_phase)
 
 
+class LiveApi:
+    """A fake Kubernetes API server on an ephemeral local port, served from a
+    thread: ``/api/v1/nodes`` in ``limit``/``continue`` pages (the token is
+    the offset) filtered by ``labelSelector`` terms ``key`` and
+    ``key=value``, and ``/api/v1/events`` for the node its ``fieldSelector``
+    names.  ``throttle`` answers that many node requests with 429 and
+    ``Retry-After: 1`` first; ``requests`` counts what was asked."""
+
+    def __init__(self, nodes: list, events: dict, tls_cert: Optional[tuple] = None):
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+        from urllib.parse import parse_qs, urlparse
+
+        self.nodes, self.events, self.throttle = nodes, events, 0
+        self.requests = {"nodes": 0, "events": 0, "throttled": 0}
+        self.lock = threading.Lock()
+        api = self
+
+        class Handler(BaseHTTPRequestHandler):
+            protocol_version = "HTTP/1.1"
+
+            def send(self, status: int, doc: dict, extra: Optional[dict] = None) -> None:
+                body = json.dumps(doc).encode()
+                self.send_response(status)
+                self.send_header("Content-Type", "application/json")
+                self.send_header("Content-Length", str(len(body)))
+                for k, v in (extra or {}).items():
+                    self.send_header(k, v)
+                self.end_headers()
+                self.wfile.write(body)
+
+            def do_GET(self):  # noqa: N802 — the handler protocol's name
+                url = urlparse(self.path)
+                q = {k: v[0] for k, v in parse_qs(url.query).items()}
+                if url.path == "/api/v1/events":
+                    with api.lock:
+                        api.requests["events"] += 1
+                    name = q.get("fieldSelector", "").split("involvedObject.name=")[-1]
+                    self.send(200, {"kind": "EventList", "metadata": {},
+                                    "items": api.events.get(name.split(",")[0], [])})
+                    return
+                if url.path != "/api/v1/nodes":
+                    self.send(404, {"kind": "Status", "message": "not found"})
+                    return
+                with api.lock:
+                    api.requests["nodes"] += 1
+                    throttled = api.throttle > 0
+                    api.throttle -= throttled
+                    api.requests["throttled"] += throttled
+                if throttled:
+                    self.send(429, {"kind": "Status", "message": "throttled"},
+                              {"Retry-After": "1"})
+                    return
+                terms = [t.partition("=") for t in q.get("labelSelector", "").split(",") if t]
+                items = [n for n in api.nodes if all(
+                    (k in n["metadata"]["labels"]) if not eq
+                    else n["metadata"]["labels"].get(k) == v for k, eq, v in terms)]
+                start = int(q.get("continue") or 0)
+                limit = int(q.get("limit") or len(items) or 1)
+                meta = {"resourceVersion": "1"}
+                if start + limit < len(items):
+                    meta["continue"] = str(start + limit)
+                self.send(200, {"kind": "NodeList", "apiVersion": "v1", "metadata": meta,
+                                "items": items[start:start + limit]})
+
+            def log_message(self, *args):
+                pass
+
+        self.server = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self.server.daemon_threads = True
+        scheme = "http"
+        if tls_cert is not None:
+            import ssl
+            ctx = ssl.SSLContext(ssl.PROTOCOL_TLS_SERVER)
+            ctx.load_cert_chain(*tls_cert)
+            self.server.socket = ctx.wrap_socket(self.server.socket, server_side=True)
+            scheme = "https"
+        self.url = f"{scheme}://127.0.0.1:{self.server.server_address[1]}"
+        self.thread = threading.Thread(target=self.server.serve_forever,
+                                       name="chip-smoke-apiserver", daemon=True)
+        self.thread.start()
+
+    def close(self) -> None:
+        self.server.shutdown()
+        self.server.server_close()
+        self.thread.join()
+
+
+def kubeconfig(path: str, server: str, cluster_extra: str = "") -> str:
+    """A kubeconfig with one context, ``smoke``, at ``server``."""
+    with open(path, "w") as f:
+        f.write("apiVersion: v1\nkind: Config\ncurrent-context: smoke\n"
+                "contexts:\n- name: smoke\n  context:\n    cluster: smoke\n    user: smoke\n"
+                f"clusters:\n- name: smoke\n  cluster:\n    server: {server}\n{cluster_extra}"
+                "users:\n- name: smoke\n  user:\n    token: smoke-token\n")
+    return path
+
+
+def self_signed_cert(work: str) -> Optional[tuple]:
+    """(cert, key) for 127.0.0.1 from the openssl CLI, or None without it."""
+    cert, key = os.path.join(work, "cert.pem"), os.path.join(work, "key.pem")
+    try:
+        proc = subprocess.run(
+            ["openssl", "req", "-x509", "-newkey", "rsa:2048", "-keyout", key, "-out", cert,
+             "-days", "1", "-nodes", "-subj", "/CN=127.0.0.1",
+             "-addext", "subjectAltName=IP:127.0.0.1"], capture_output=True, timeout=60)
+    except (OSError, subprocess.TimeoutExpired):
+        return None
+    return (cert, key) if proc.returncode == 0 else None
+
+
+def phase11_live_round(torch, root, rows, validate_report) -> None:
+    """Phase 11: the CronJob's live round against a fake API server: the
+    port's round with ``--probe`` and ``--node-events`` over 2,500 nodes,
+    then the deployed argv, a throttled LIST, a dead server and TLS beside
+    the JAX checker's CLI."""
+    t_phase = time.perf_counter()
+    n = torch.cuda.device_count()
+    host = "gke-h100-live-0"
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("TNC_", "KUBERNETES_SERVICE_"))
+           and k not in ("SLACK_WEBHOOK_URL", "KUBECONFIG")}
+    env.update(NODE_NAME=host, TNC_SCHEMA_STRICT="1")
+    work = tempfile.mkdtemp(prefix="chip-smoke-live-")
+    gpu_labels = {"cloud.google.com/gke-accelerator": "nvidia-h100-80gb",
+                  "cloud.google.com/gke-nodepool": "h100-pool"}
+    sick = {f"gke-h100-pool-{i}" for i in range(1, 1000, 100)}
+    nodes = []
+    for i, name in enumerate([host] + [f"gke-h100-pool-{i}" for i in range(1, 1000)]):
+        node = k8s_node(name, {"nvidia.com/gpu": str(n if i == 0 else 8)}, name not in sick)
+        node["metadata"]["labels"] = dict(gpu_labels)
+        nodes.append(node)
+    for i in range(1500):
+        node = k8s_node(f"gke-cpu-pool-{i}", {}, True)
+        node["metadata"]["labels"] = {"cloud.google.com/gke-nodepool": "cpu-pool"}
+        nodes.append(node)
+    events = {name: [
+        {"type": "Warning", "reason": "NodeNotReady", "count": 3,
+         "message": f"Node {name} status is now: NodeNotReady",
+         "lastTimestamp": "2026-10-17T10:04:00Z"},
+        {"type": "Warning", "reason": "SystemOOM", "count": 1,
+         "message": "System OOM encountered, victim process: python",
+         "lastTimestamp": "2026-10-17T10:03:00Z"},
+        {"type": "Normal", "reason": "Starting", "count": 1, "message": "Starting kubelet.",
+         "lastTimestamp": "2026-10-17T09:00:00Z"}] for name in sick}
+    api = LiveApi(nodes, events)
+    try:
+        kc = kubeconfig(os.path.join(work, "kubeconfig"), api.url)
+
+        # The slice's main path: the live round with this host's probe at the
+        # workload level (the counts start at 0 in the fresh probe child).
+        rc, payload, _, err, seconds = round_line(
+            root, "port", "--kubeconfig", kc, "--probe", "--probe-level", "workload",
+            "--node-events", "--strict-slices", "--json", env=env)
+        local = payload.get("local_probe") or {}
+        entry = next((x for x in payload.get("nodes", []) if x.get("name") == host), {})
+        launches = local.get("kernel_launches") or {}
+        with_events = sorted(x["name"] for x in payload.get("nodes", []) if x.get("events"))
+        note = "--node-events: 2 more sick node(s) beyond the 8-node fetch cap"
+        transport = payload.get("api_transport") or {}
+        phase(11, "--kubeconfig K --probe --probe-level workload --node-events --strict-slices"
+              " --json", exit_code=rc, seconds=seconds, ok=local.get("ok"),
+              error=local.get("error"), elapsed_ms=local.get("elapsed_ms"),
+              attached_to_this_node=entry.get("probe") == local,
+              total_nodes=payload.get("total_nodes"), ready_nodes=payload.get("ready_nodes"),
+              kernel_launches=launches, schema_violations=validate_report(local),
+              nodes_with_events=len(with_events), stderr_note=note in err,
+              api_transport=transport, server_requests=dict(api.requests),
+              timings_ms=payload.get("timings_ms"))
+        missed = [r["name"] for r in rows if not launches.get(r["name"])]
+        unlike = {r["name"]: (launches.get(r["name"]), r["launches"]) for r in rows
+                  if launches.get(r["name"]) != r["launches"]}
+        if (rc != 0 or local.get("ok") is not True or entry.get("probe") != local
+                or validate_report(local) or missed or unlike
+                or payload.get("total_nodes") != 1000 or payload.get("ready_nodes") != 990):
+            fail(f"the live round with --probe: exit {rc}, {local.get('error')}, kernels missed "
+                 f"{missed}, launches unlike the workload path's {unlike}: {err[-2000:]}")
+        if (len(with_events) != 8 or not set(with_events) <= sick or note not in err
+                or transport.get("requests_sent") != 3 + 8):
+            fail(f"--node-events: events on {with_events}, note {note in err}, "
+                 f"transport {transport}: {err[-2000:]}")
+        for r in rows:
+            r["live_round_launches"] = launches[r["name"]]
+
+        # The CronJob's own argv (deploy/cronjob.yaml), with a kubeconfig in
+        # place of the pod's service account, through both CLIs.
+        cron = ("--strict-slices", "--slack-only-on-error")
+        lines = {
+            "json": ("--kubeconfig", kc, *cron, "--json"),
+            "text": ("--kubeconfig", kc, *cron),
+            "--label-selector": ("--kubeconfig", kc, *cron, "--json", "--label-selector",
+                                 "cloud.google.com/gke-accelerator=nvidia-h100-80gb"),
+        }
+        compared = {}
+        for name, line in lines.items():
+            port, ref = round_line(root, "port", *line, env=env), round_line(root, "jax", *line,
+                                                                              env=env)
+            same = (stable(port[1]) == stable(ref[1]) if port[1] is not None
+                    else port[2] == ref[2])
+            compared[name] = {"exit_codes": [port[0], ref[0]], "seconds": [port[4], ref[4]],
+                              "equal": same,
+                              "requests_sent": (port[1] or {}).get("api_transport", {})
+                              .get("requests_sent")}
+        phase(11, "the CronJob's argv, the port's round beside the JAX checker's", **compared)
+        if (any(c["exit_codes"] != [0, 0] or not c["equal"] for c in compared.values())
+                or compared["json"]["requests_sent"] != 3
+                or compared["--label-selector"]["requests_sent"] != 1):
+            fail(f"the CronJob's argv: {compared}")
+
+        # A throttled apiserver: the first list request of each CLI is a 429
+        # with Retry-After: 1.
+        drill = {}
+        for side in ("port", "jax"):
+            api.throttle = 1
+            got = round_line(root, side, *lines["json"], env=env)
+            drill[side] = {"exit_code": got[0], "seconds": got[4], "payload": got[1]}
+        by_reason = {s: (d["payload"].get("api_transport") or {}).get("retries_by_reason")
+                     for s, d in drill.items()}
+        phase(11, "a 429 with Retry-After: 1 on the first list request",
+              exit_codes=[drill["port"]["exit_code"], drill["jax"]["exit_code"]],
+              seconds=[drill["port"]["seconds"], drill["jax"]["seconds"]],
+              retries_by_reason=by_reason, throttled=api.requests["throttled"],
+              equal=stable(drill["port"]["payload"]) == stable(drill["jax"]["payload"]))
+        if (drill["port"]["exit_code"] != 0 or drill["jax"]["exit_code"] != 0
+                or by_reason["port"] != by_reason["jax"] or by_reason["port"] != {"http_429": 1}
+                or stable(drill["port"]["payload"]) != stable(drill["jax"]["payload"])):
+            fail(f"the throttled round: {drill}")
+    finally:
+        api.close()
+
+    # A server that is not there: a closed port, under --retry-budget 2.
+    dead = kubeconfig(os.path.join(work, "dead"), f"http://127.0.0.1:{free_port()}")
+    got = {side: round_line(root, side, "--kubeconfig", dead, *cron, "--json",
+                            "--retry-budget", "2", env=env) for side in ("port", "jax")}
+    phase(11, "a closed port under --retry-budget 2",
+          exit_codes=[got["port"][0], got["jax"][0]], seconds=[got["port"][4], got["jax"][4]],
+          error=got["port"][1].get("error"), equal=got["port"][1] == got["jax"][1])
+    if got["port"][0] != 1 or got["jax"][0] != 1 or got["port"][1] != got["jax"][1] \
+            or set(got["port"][1]) != {"error"}:
+        fail(f"the dead server: {got}")
+
+    # TLS: the CronJob's round over HTTPS, the CA inline in the kubeconfig.
+    cert = self_signed_cert(work)
+    if cert is None:
+        phase(11, "TLS", skipped="no openssl on this machine: the transport over TLS is "
+              "not checked here")
+    else:
+        import base64
+        with open(cert[0], "rb") as f:
+            ca = base64.b64encode(f.read()).decode()
+        api = LiveApi(nodes, events, tls_cert=cert)
+        try:
+            tls = kubeconfig(os.path.join(work, "tls"), api.url,
+                             f"    certificate-authority-data: {ca}\n")
+            port, ref = (round_line(root, side, "--kubeconfig", tls, *cron, "--json", env=env)
+                         for side in ("port", "jax"))
+        finally:
+            api.close()
+        phase(11, "the CronJob's argv over TLS with certificate-authority-data",
+              exit_codes=[port[0], ref[0]], seconds=[port[4], ref[4]],
+              equal=stable(port[1]) == stable(ref[1]), server=api.url)
+        if port[0] != 0 or ref[0] != 0 or stable(port[1]) != stable(ref[1]):
+            fail(f"the TLS round: exit {port[0]}/{ref[0]}: {port[3][-2000:]}")
+    phase(11, "the live round", seconds=time.perf_counter() - t_phase)
+
+
 def main() -> int:
     try:
         import torch
@@ -1796,10 +2083,13 @@ def main() -> int:
     # -- 10. the one-shot fleet round over a NodeList
     phase10_oneshot(torch, root, rows, validate_report)
 
-    # -- 11. the kernels line, the card line, the result line
+    # -- 11. the CronJob's live round against a fake API server
+    phase11_live_round(torch, root, rows, validate_report)
+
+    # -- 12. the kernels line, the card line, the result line
     keys = ("name", "route", "source", "replaces", "launches", "compute_launches",
             "emitter_launches", "selftest_launches", "calibrate_launches",
-            "distributed_launches", "oneshot_launches",
+            "distributed_launches", "oneshot_launches", "live_round_launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "device_ms",
             "library_device_ms", "ok", "check", "training_step")
     print(json.dumps({"kernels": [{k2: r[k2] for k2 in keys if k2 in r} for r in rows]}),

@@ -17,6 +17,7 @@ tests/test_dependency_surface.py rejects any other ``import`` in tests/.
 """
 
 import importlib
+import math
 import time
 
 import jax
@@ -196,9 +197,14 @@ class TestMeshLinkSweep:
         assert port.error == ref.error
 
     def test_slow_link_degrades_and_is_named_as_jax(self, group):
+        # The injected leg's samples are scaled by CHAOS_SLOW_INFLATION
+        # (1000): on a loaded host a gloo hop past 5 ms would push the leg
+        # over HOP_DEADLINE_US and read DEAD.  This test is about SLOW, so
+        # neither side gets a deadline (the deadline's DEAD has its own tests).
         port = _on_ranks(group, port_sweep.mesh_link_sweep, payload=16, hop_iters=3,
-                         inject_slow_link="d:3")
-        ref = jax_sweep.mesh_link_sweep(payload=16, hop_iters=3, inject_slow_link="d:3")
+                         inject_slow_link="d:3", hop_deadline_us=math.inf)
+        ref = jax_sweep.mesh_link_sweep(payload=16, hop_iters=3, inject_slow_link="d:3",
+                                        hop_deadline_us=math.inf)
         assert port.ok and port.degraded and ref.ok and ref.degraded
         assert "d/3" in port.slow and "d/3" in ref.slow
         assert port.links["d/3"]["verdict"] == port_sweep.SLOW

@@ -2,15 +2,19 @@
 
 The port imports nothing of the JAX package, not even its stdlib-only
 modules, so it keeps copies: ``utils/quantity.py``, ``resources.py``,
-``detect.py``, ``report.py``, ``utils/env.py``, ``notify.py`` and
-``history/`` verbatim (only the package name and the module docstring
-differ).  Here each copy's code is held equal to its original (the syntax
-trees, docstrings dropped, the package name substituted), and the constants
-the fleet grades by are compared one by one, in the manner of
-``tests/test_torch_probe.py::test_floor_tables_equal_jax``.
+``detect.py``, ``report.py``, ``utils/env.py``, ``notify.py``,
+``history/``, and the live LIST's ``cluster.py``, ``utils/fanout.py``,
+``utils/retry.py``, ``utils/miniyaml.py`` and ``fastpath/`` verbatim (only
+the package name and the module docstring differ).  Here each copy's code
+is held equal to its original (the syntax trees, docstrings dropped, the
+package name substituted); ``watchstream.grading_view``, the one function
+the port keeps of its module, is held equal function by function; and the
+constants the fleet grades and lists by are compared one by one, in the
+manner of ``tests/test_torch_probe.py::test_floor_tables_equal_jax``.
 
 Also here: a fresh interpreter runs the port's one-shot round over a
-NodeList and finds neither ``jax`` nor the JAX package among its modules.
+NodeList file and over a live fake API server, and finds neither ``jax``
+nor the JAX package among its modules.
 
 The port is reached through ``importlib.import_module``:
 tests/test_dependency_surface.py rejects any other ``import`` in tests/.
@@ -26,19 +30,28 @@ from pathlib import Path
 import pytest
 
 from tests import fixtures as fx
+from tpu_node_checker import cluster as jax_cluster
 from tpu_node_checker import detect as jax_detect
 from tpu_node_checker import notify as jax_notify
 from tpu_node_checker import resources as jax_resources
 from tpu_node_checker.history import fsm as jax_fsm
 from tpu_node_checker.history import store as jax_store
+from tpu_node_checker.utils import fanout as jax_fanout
+from tpu_node_checker.utils import retry as jax_retry
 
 REPO = Path(__file__).resolve().parent.parent
 VERBATIM = ["utils/quantity.py", "resources.py", "detect.py", "report.py", "utils/env.py",
-            "notify.py", "history/__init__.py", "history/fsm.py", "history/store.py"]
+            "notify.py", "history/__init__.py", "history/fsm.py", "history/store.py",
+            "utils/fanout.py", "utils/retry.py", "utils/miniyaml.py", "fastpath/__init__.py",
+            "fastpath/projection.py", "cluster.py"]
 
 
 def _code(path: Path, package: str) -> str:
     """The module's syntax tree without docstrings, the package renamed."""
+    return ast.dump(_tree(path, package))
+
+
+def _tree(path: Path, package: str) -> ast.Module:
     tree = ast.parse(path.read_text().replace(package, "PKG"))
     for node in ast.walk(tree):
         body = getattr(node, "body", None)
@@ -46,7 +59,7 @@ def _code(path: Path, package: str) -> str:
                 and isinstance(body[0].value, ast.Constant)
                 and isinstance(body[0].value.value, str)):
             node.body = body[1:] or [ast.Pass()]
-    return ast.dump(tree)
+    return tree
 
 
 @pytest.mark.parametrize("module", VERBATIM)
@@ -54,6 +67,24 @@ def test_verbatim_copy_equals_jax(module):
     port = _code(REPO / "tpu_node_checker_torch" / module, "tpu_node_checker_torch")
     ref = _code(REPO / "tpu_node_checker" / module, "tpu_node_checker")
     assert port == ref
+
+
+def _functions(module: str, package: str) -> dict:
+    root = REPO / package
+    tree = _tree(root / module, package)
+    return {n.name: ast.dump(n) for n in tree.body if isinstance(n, ast.FunctionDef)}
+
+
+def test_grading_view_equals_jax():
+    # The port keeps one function of watchstream.py (the stream engine is
+    # not ported); it must equal the original, function by function.
+    port = _functions("watchstream.py", "tpu_node_checker_torch")
+    ref = _functions("watchstream.py", "tpu_node_checker")
+    assert list(port) == ["grading_view"]
+    assert port["grading_view"] == ref["grading_view"]
+    node = fx.make_node("gpu-0", allocatable={"nvidia.com/gpu": "8"})
+    assert _port("watchstream").grading_view(node) == \
+        importlib.import_module("tpu_node_checker.watchstream").grading_view(node)
 
 
 def _port(name):
@@ -75,11 +106,24 @@ def _port(name):
     ("notify", "DEFAULT_TIMEOUT_S"),
     ("notify", "DEFAULT_MAX_RETRIES"),
     ("notify", "DEFAULT_RETRY_DELAY_S"),
+    ("cluster", "DEFAULT_TIMEOUT_S"),
+    ("cluster", "SERVICE_ACCOUNT_DIR"),
+    ("cluster", "KubeClient.LIST_PAGE_LIMIT"),
+    ("cluster", "KubeClient.EVENTS_PAGE_LIMIT"),
+    ("cluster", "KubeClient.EVENTS_MAX_PAGES"),
+    ("utils.retry", "DEFAULT_BUDGET_S"),
+    ("utils.retry", "DEFAULT_MAX_ATTEMPTS"),
+    ("utils.retry", "RETRIABLE_STATUS"),
+    ("utils.fanout", "DEFAULT_API_CONCURRENCY"),
 ])
 def test_constant_equals_jax(module, name):
     ref = {"detect": jax_detect, "history.fsm": jax_fsm, "history.store": jax_store,
-           "notify": jax_notify}[module]
-    assert getattr(_port(module), name) == getattr(ref, name)
+           "notify": jax_notify, "cluster": jax_cluster, "utils.retry": jax_retry,
+           "utils.fanout": jax_fanout}[module]
+    port = _port(module)
+    for part in name.split("."):
+        port, ref = getattr(port, part), getattr(ref, part)
+    assert port == ref
 
 
 def test_default_matchers_equal_jax():
@@ -95,7 +139,8 @@ def test_round_constants_equal_jax():
 
     port = _port("checker")
     for name in ("EXIT_OK", "EXIT_ERROR", "EXIT_NO_ACCEL_NODES", "EXIT_NONE_READY",
-                 "CLOCK_SKEW_ALLOWANCE_S", "REPORT_SCHEMA_VERSION", "_CAUSES_CAP"):
+                 "CLOCK_SKEW_ALLOWANCE_S", "REPORT_SCHEMA_VERSION", "_CAUSES_CAP",
+                 "_EVENTS_NODE_CAP", "_EVENTS_PER_NODE", "_CLIENT_CACHE_MAX"):
         assert getattr(port, name) == getattr(jax_checker, name), name
 
 
@@ -105,24 +150,96 @@ def test_slack_defaults_of_the_cli_equal_jax():
     port, ref = _port("cli").build_parser(), jax_cli.build_parser()
     for dest in ("slack_username", "slack_retry_count", "slack_retry_delay",
                  "probe_results_max_age", "history_max_rounds", "cordon_after",
-                 "uncordon_after", "flap_threshold", "flap_window"):
+                 "uncordon_after", "flap_threshold", "flap_window", "kubeconfig", "context",
+                 "label_selector", "api_concurrency", "retry_budget", "node_events"):
         assert port.get_default(dest) == ref.get_default(dest), dest
 
 
+@pytest.mark.parametrize("flag", ["--kubeconfig", "--context", "--label-selector",
+                                  "--api-concurrency", "--retry-budget", "--node-events"])
+def test_live_list_flag_help_equals_jax(flag):
+    # The flag's words, as JAX gives them (--api-concurrency names only the
+    # fan-out the port has).
+    from tpu_node_checker import cli as jax_cli
+
+    def action(parser):
+        return next(a for a in parser._actions if flag in a.option_strings)
+
+    port, ref = action(_port("cli").build_parser()), action(jax_cli.build_parser())
+    assert (port.type, port.metavar, port.nargs, port.const) == \
+        (ref.type, ref.metavar, ref.nargs, ref.const)
+    if flag != "--api-concurrency":
+        assert port.help == ref.help
+
+
 def test_the_round_loads_nothing_of_jax(tmp_path):
+    # Two rounds in one fresh interpreter: over a NodeList file, then over a
+    # live fake API server (paged LIST and --node-events).
+    items = fx.mixed_cluster_one_notready()
     nodes = tmp_path / "nodes.json"
-    nodes.write_text(json.dumps(fx.node_list(fx.mixed_cluster_one_notready())))
+    nodes.write_text(json.dumps(fx.node_list(items)))
+    server = fx.serve_http(_nodes_and_events_handler(items))
+    kubeconfig = tmp_path / "kubeconfig"
+    kubeconfig.write_text(
+        "apiVersion: v1\ncurrent-context: c\n"
+        "contexts:\n- name: c\n  context:\n    cluster: cl\n    user: u\n"
+        "clusters:\n- name: cl\n  cluster:\n"
+        f"    server: http://127.0.0.1:{server.server_address[1]}\n"
+        "users:\n- name: u\n  user:\n    token: tok\n")
     script = (
-        "import sys\n"
+        "import json, sys\n"
         "from tpu_node_checker_torch import cli\n"
         f"rc = cli.main(['--nodes-json', {str(nodes)!r}, '--json', '--history', "
         f"{str(tmp_path / 'h.jsonl')!r}])\n"
+        "from tpu_node_checker_torch.cluster import KubeClient\n"
+        "f = KubeClient.list_nodes_projected\n"
+        "f.__defaults__ = f.__defaults__[:-1] + (2,)  # pages of 2 nodes\n"
+        f"live = cli.main(['--kubeconfig', {str(kubeconfig)!r}, '--node-events', '--json'])\n"
         "loaded = sorted(m for m in sys.modules\n"
         "                if m.split('.')[0] in ('jax', 'jaxlib', 'tpu_node_checker'))\n"
-        "print(rc, loaded, file=sys.stderr)\n"
+        "print(rc, live, loaded, file=sys.stderr)\n"
     )
-    proc = subprocess.run([sys.executable, "-c", script], capture_output=True, text=True,
-                          cwd=REPO, timeout=120)
+    try:
+        proc = subprocess.run([sys.executable, "-c", script], capture_output=True, text=True,
+                              cwd=REPO, timeout=120)
+    finally:
+        server.shutdown()
     assert proc.returncode == 0, proc.stderr
-    assert proc.stderr.strip().splitlines()[-1] == "0 []"
-    assert json.loads(proc.stdout)["exit_code"] == 0
+    assert proc.stderr.strip().splitlines()[-1] == "0 0 []"
+    first, end = json.JSONDecoder().raw_decode(proc.stdout)
+    live = json.loads(proc.stdout[end:])
+    assert first["exit_code"] == live["exit_code"] == 0
+    sick = [n for n in live["nodes"] if not n["ready"]]
+    assert [e["reason"] for n in sick for e in n["events"]] == ["NodeNotReady"]
+    pages = -(-len(items) // 2)
+    assert live["cluster"] == "c"
+    assert live["api_transport"]["requests_sent"] == pages + len(sick)
+
+
+def _nodes_and_events_handler(items):
+    """Paged ``/api/v1/nodes`` and one Warning event per node name."""
+    from http.server import BaseHTTPRequestHandler
+    from urllib.parse import parse_qs, urlparse
+
+    class Handler(BaseHTTPRequestHandler):
+        protocol_version = "HTTP/1.1"
+
+        def do_GET(self):  # noqa: N802 — the handler protocol's name
+            url = urlparse(self.path)
+            if url.path == "/api/v1/events":
+                sel = parse_qs(url.query)["fieldSelector"][0]
+                name = sel.split("involvedObject.name=")[1].split(",")[0]
+                body = json.dumps({"items": [{"type": "Warning", "reason": "NodeNotReady",
+                                              "message": f"{name} stopped posting"}]}).encode()
+            else:
+                body = fx.paged_nodelist_body(items, self.path, None)
+            self.send_response(200)
+            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def log_message(self, *args):
+            pass
+
+    return Handler

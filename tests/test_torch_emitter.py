@@ -313,9 +313,9 @@ class TestUsageErrors:
         assert f"error: {message}" in jax_err
 
     @pytest.mark.parametrize("argv,message", [
-        ([], "the one-shot round requires --nodes-json FILE (the live node LIST is not "
-         "ported; or run one of --emit-probe, --selftest, --calibrate, --report-fresh, "
-         "--probe-report-schema)"),
+        (["--emit-probe", "-", "--retry-budget", "5"],
+         "--retry-budget belongs to the one-shot round: it cannot be combined with "
+         "--emit-probe"),
         (["--watch", "5"], "--watch requires --emit-probe (the fleet round's --watch loop "
          "is not ported)"),
         (["--emit-probe", "-", "--probe-results-max-age", "60"],
@@ -332,8 +332,8 @@ class TestUsageErrors:
         assert code == 2 and f"error: {message}" in err
 
     @pytest.mark.parametrize("flag", [
-        ["--node-events"], ["--cordon-failed"], ["--trend", "t.jsonl"],
-        ["--serve", "0"], ["--kubeconfig", "/kube/config"],
+        ["--watch-stream"], ["--cordon-failed"], ["--trend", "t.jsonl"],
+        ["--serve", "0"], ["--slack-on-change"],
     ])
     def test_unported_flag_is_unknown(self, capsys, flag):
         code, err = _usage_error(port_cli.parse_args,

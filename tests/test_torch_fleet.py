@@ -489,8 +489,10 @@ class TestUsageErrors:
         assert port_err.split(": error: ")[1].startswith(message)
 
     @pytest.mark.parametrize("argv,message", [
-        ([], "the one-shot round requires --nodes-json FILE"),
-        (["--probe-results", "d"], "the one-shot round requires --nodes-json FILE"),
+        (["--emit-probe", "-", "--kubeconfig", "k"],
+         "--kubeconfig belongs to the one-shot round: it cannot be combined with --emit-probe"),
+        (["--selftest", "--retry-budget", "5"],
+         "--retry-budget belongs to the one-shot round: it cannot be combined with --selftest"),
         (["--watch", "5"], "--watch requires --emit-probe"),
         (N + ["--watch", "5"], "--watch requires --emit-probe"),
         (N + ["--probe-level", "compute"], "--probe-level requires --probe or --emit-probe"),
@@ -526,11 +528,11 @@ class TestUsageErrors:
                 assert value == getattr(jax, dest), dest
 
     @pytest.mark.parametrize("flag", [
-        ["--kubeconfig", "k"], ["--context", "c"], ["--label-selector", "a=b"],
-        ["--node-events"], ["--cordon-failed"], ["--uncordon-recovered"], ["--trend", "t"],
+        ["--cordon-max", "2"], ["--cordon-dry-run"], ["--cordon-degraded"],
+        ["--repair-cmd", "r"], ["--cordon-failed"], ["--uncordon-recovered"], ["--trend", "t"],
         ["--trend-nodes", "t"], ["--serve", "0"], ["--analytics", "d"], ["--federate", "e"],
-        ["--slack-on-change"], ["--watch-stream"], ["--retry-budget", "5"],
-        ["--api-concurrency", "2"], ["--event-log", "e"], ["--drain-failed"],
+        ["--slack-on-change"], ["--watch-stream"], ["--serve-token", "t"],
+        ["--disruption-budget", "2"], ["--event-log", "e"], ["--drain-failed"],
     ])
     def test_unported_jax_flag_is_unknown(self, capsys, flag):
         code, err = _usage(port_cli.parse_args, N + flag, capsys)

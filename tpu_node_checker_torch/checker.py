@@ -12,11 +12,16 @@ and order:
   CLI's catch-all;
 * a Slack failure is never fatal.
 
-The node list comes from ``--nodes-json`` only: the live LIST, the
-``--node-events`` triage, remediation, analytics and the watch loop are
-the JAX package's and not ported yet, so their branches are absent here.
-``--probe`` runs the port's own probe (:func:`_run_probe`) on this host's
-card; ``--probe-results`` grades the reports of the fleet's emitters.
+The nodes come from the live LIST (``cluster.KubeClient`` through the
+kubeconfig, ``$KUBECONFIG``, ``~/.kube/config`` or the in-cluster service
+account, paged and projected, ``--label-selector`` on the server, retried
+within ``--retry-budget``) or from a ``--nodes-json`` file.  ``--node-events``
+attaches the recent Events of sick nodes (a live cluster only; a failed
+fetch marks the round ``degraded``, never exit 1).  ``--probe`` runs the
+port's own probe (:func:`_run_probe`) on this host's card;
+``--probe-results`` grades the reports of the fleet's emitters.
+Remediation, analytics and the aggregator's watch loop are the JAX
+package's and not ported yet, so their branches are absent here.
 """
 
 from __future__ import annotations
@@ -28,7 +33,7 @@ import os
 import sys
 import time
 from dataclasses import dataclass, field
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Tuple
 
 from tpu_node_checker_torch import notify, report
 from tpu_node_checker_torch.detect import (
@@ -86,18 +91,116 @@ def _registry_from_args(args) -> ResourceRegistry:
     return reg
 
 
-def _fetch_nodes(args, timer: PhaseTimer) -> List[dict]:
-    """Node source: the ``--nodes-json`` NodeList file (the live LIST is
-    not ported)."""
+# Keep-alive client cache: one KubeClient (one pooled transport) per set of
+# resolved connection credentials.  Keyed by the RESOLVED config, not the
+# flag: config resolution runs every round, so a rotated token or an
+# exec-plugin refresh lands on a new key and a fresh client.
+_CLIENT_CACHE: dict = {}
+_CLIENT_CACHE_MAX = 8  # tests spin many fixture servers; evict, don't grow
+
+# The live client this round's API traffic rode: the source of the
+# payload's api_transport telemetry.
+_ROUND_CLIENT: dict = {"client": None}
+
+# This round's retry policy (a fresh shared wall-clock budget per round),
+# installed on whichever client the round resolves, cached ones included.
+_ROUND_POLICY: dict = {"policy": None}
+
+
+def _build_retry_policy(args):
+    """``--retry-budget`` → a per-round RetryPolicy (None disables retries).
+
+    The budget is SHARED by every API call in the round (the LIST and the
+    events fan-out's workers), so the round's worst-case added latency is
+    bounded by one number.
+    """
+    from tpu_node_checker_torch.utils.retry import (
+        DEFAULT_BUDGET_S,
+        RetryBudget,
+        RetryPolicy,
+    )
+
+    budget_s = getattr(args, "retry_budget", None)
+    if budget_s is None:
+        budget_s = DEFAULT_BUDGET_S
+    if budget_s <= 0:
+        return None  # 0 = retries off: the pre-retry transport, exactly
+    return RetryPolicy(budget=RetryBudget(budget_s))
+
+
+def _client_key(cfg) -> tuple:
+    return (
+        cfg.server,
+        cfg.token,
+        cfg.basic_auth,
+        cfg.client_cert,
+        cfg.ca_file,
+        cfg.insecure_skip_tls_verify,
+    )
+
+
+def _cached_client(cfg):
+    from tpu_node_checker_torch.cluster import KubeClient
+
+    key = _client_key(cfg)
+    client = _CLIENT_CACHE.get(key)
+    if client is None:
+        while len(_CLIENT_CACHE) >= _CLIENT_CACHE_MAX:
+            # Evict the least recently USED (hits below move their entry to
+            # the end).
+            _CLIENT_CACHE.pop(next(iter(_CLIENT_CACHE))).close()
+        client = KubeClient(cfg)
+    else:
+        del _CLIENT_CACHE[key]  # re-insert: move-to-end = mark recently used
+    _CLIENT_CACHE[key] = client
+    # Fresh budget every round, cached client or not.
+    client.set_retry_policy(_ROUND_POLICY["policy"])
+    _ROUND_CLIENT["client"] = client
+    return client
+
+
+def reset_client_cache() -> None:
+    """Drop (and close) every cached client, so the next round redials
+    instead of trusting a pool whose sockets (or credentials) may be dead."""
+    while _CLIENT_CACHE:
+        _, client = _CLIENT_CACHE.popitem()
+        client.close()
+
+
+def _api_concurrency(args) -> int:
+    """``--api-concurrency``: bound on concurrent API calls in the per-node
+    fan-out (the events fetches).  1 = serial."""
+    from tpu_node_checker_torch.utils.fanout import DEFAULT_API_CONCURRENCY
+
+    value = getattr(args, "api_concurrency", None)
+    return max(1, int(value)) if value is not None else DEFAULT_API_CONCURRENCY
+
+
+def _fetch_nodes(args, timer: PhaseTimer):
+    """Node source: the ``--nodes-json`` file, or one live LIST.
+
+    Returns ``(nodes, client)``; ``client`` is ``None`` offline.  A live
+    LIST rides the relist fast path (``list_nodes_projected``): ``nodes``
+    is then a :class:`~tpu_node_checker_torch.fastpath.ProjectedFleet`.
+    """
     nodes_json = getattr(args, "nodes_json", None)
-    if not nodes_json:
-        raise ValueError("the one-shot round reads its nodes from --nodes-json FILE "
-                         "(the live LIST is not ported)")
+    if nodes_json:
+        with timer.phase("list"):
+            with open(nodes_json) as f:
+                doc = json.load(f)
+            # "items": null happens in Go-serialized NodeLists; treat as empty.
+            return ((doc.get("items") or []) if isinstance(doc, dict) else doc), None
+    from tpu_node_checker_torch.cluster import resolve_cluster_config
+
+    with timer.phase("config"):
+        cfg = resolve_cluster_config(
+            getattr(args, "kubeconfig", None), getattr(args, "context", None)
+        )
     with timer.phase("list"):
-        with open(nodes_json) as f:
-            doc = json.load(f)
-        # "items": null happens in Go-serialized NodeLists; treat as empty.
-        return (doc.get("items") or []) if isinstance(doc, dict) else doc
+        client = _cached_client(cfg)
+        return client.list_nodes_projected(
+            label_selector=getattr(args, "label_selector", None)
+        ), client
 
 
 def _run_probe(
@@ -284,6 +387,124 @@ def _attach_probe_results(args, accel: List[NodeInfo]) -> dict:
     return skipped
 
 
+# --node-events fetch bounds: one bounded paged walk per sick node (see
+# cluster.KubeClient), at most _EVENTS_NODE_CAP nodes, fanned out over at
+# most --api-concurrency connections.  Past the cap the fetches stop,
+# visibly: a fleet-wide outage must not turn the checker into an event
+# storm against an already degraded control plane.
+_EVENTS_NODE_CAP = 8
+_EVENTS_PER_NODE = 3
+
+
+def _summarize_events(raw: Sequence) -> list:
+    """Raw Event objects → compact triage entries, Warnings first, newest
+    first, messages whitespace-collapsed and capped."""
+    evs = []
+    for e in raw:
+        if not isinstance(e, dict):
+            continue
+        last = (
+            e.get("lastTimestamp")
+            or e.get("eventTime")
+            or (e.get("series") or {}).get("lastObservedTime")
+            or e.get("firstTimestamp")
+            or ""
+        )
+        evs.append(
+            {
+                "type": e.get("type"),
+                "reason": e.get("reason"),
+                "message": " ".join(str(e.get("message") or "").split())[:200],
+                "count": e.get("count"),
+                "last_seen": last if isinstance(last, str) else "",
+            }
+        )
+    # Warnings outrank Normals; within a class, newest first (RFC-3339
+    # strings sort chronologically).
+    evs.sort(
+        key=lambda v: (v.get("type") == "Warning", v.get("last_seen") or ""),
+        reverse=True,
+    )
+    return evs[:_EVENTS_PER_NODE]
+
+
+def _attach_node_events(
+    args, accel: List[NodeInfo], client
+) -> Tuple[List[str], List[str]]:
+    """``--node-events``: recent k8s Events for SICK nodes.
+
+    Fetched only for nodes that are not effectively ready, capped at
+    ``_EVENTS_NODE_CAP`` (unplanned faults first), fanned out over
+    ``--api-concurrency`` workers, and never fatal to the round.
+
+    Returns ``(failure_notes, truncated_names)``, both empty when every
+    fetch landed whole: a failed fetch marks the round ``degraded`` instead
+    of sinking it to exit 1, and a walk that ran out of pages with its
+    continue token still set is named in the degradation detail.
+    """
+    errors: List[str] = []
+    truncated: List[str] = []
+    sick = [n for n in accel if not n.effectively_ready]
+    if not sick:
+        return errors, truncated
+    # Unplanned faults outrank maintenance drains for the fetch budget
+    # (the stable sort keeps cluster order within each class).
+    sick.sort(key=lambda n: n.sickness_planned)
+    try:
+        client = _resolve_client(args, client)
+    except Exception as exc:  # tnc: allow-broad-except(triage extra, never fatal)
+        print(f"Cannot fetch node events: {exc}", file=sys.stderr)
+        errors.append(f"no cluster client: {exc}")
+        return errors, truncated
+    from tpu_node_checker_torch.utils.fanout import bounded_map
+
+    paged_fetch = getattr(client, "list_node_events_paged", None)
+
+    # tnc: allow-exception-escape(bounded_map CAPTURES a worker's exception as its (False, exc) outcome — every raise becomes a per-node stderr note and errors entry below, never a silent death)
+    def _fetch(n):
+        # Drop-in clients without the truncation-aware walk still attach
+        # events; they just cannot report a capped walk.
+        if paged_fetch is not None:
+            return paged_fetch(n.name)
+        return client.list_node_events(n.name), False
+
+    targets = sick[:_EVENTS_NODE_CAP]
+    outcomes = bounded_map(_fetch, targets, _api_concurrency(args))
+    # Input-ordered results: attachment and stderr notes stay deterministic
+    # no matter which worker finished first.
+    for n, (ok, value) in zip(targets, outcomes):
+        if ok:
+            items, was_truncated = value
+            n.events = _summarize_events(items)
+            if was_truncated:
+                truncated.append(n.name)
+        else:
+            print(f"Cannot fetch events for {n.name}: {value}", file=sys.stderr)
+            errors.append(f"{n.name}: {value}")
+    omitted = len(sick) - _EVENTS_NODE_CAP
+    if omitted > 0:
+        print(
+            f"--node-events: {omitted} more sick node(s) beyond the "
+            f"{_EVENTS_NODE_CAP}-node fetch cap",
+            file=sys.stderr,
+        )
+    return errors, truncated
+
+
+def _resolve_client(args, client):
+    """Reuse the LIST call's client; otherwise resolve one on demand
+    (through the same keep-alive cache)."""
+    if client is not None:
+        return client
+    from tpu_node_checker_torch.cluster import resolve_cluster_config
+
+    return _cached_client(
+        resolve_cluster_config(
+            getattr(args, "kubeconfig", None), getattr(args, "context", None)
+        )
+    )
+
+
 # Live history tracker, cached across rounds within one process: the FSM
 # must keep advancing in memory even when the store file cannot be written,
 # and a big fleet must not re-parse the store every round.  Keyed by every
@@ -454,12 +675,11 @@ def _history_payload(history: dict, accel: List[NodeInfo]) -> dict:
     }
 
 
-def resolve_cluster_name(args):
+def resolve_cluster_name(args, client=None):
     """This checker's cluster identity → ``(name, source)``.
 
     Precedence: ``--cluster-name`` flag → ``$TNC_CLUSTER_NAME`` → the
-    hostname (the kubeconfig context the JAX package also consults belongs
-    to the live LIST, not ported).
+    kubeconfig context the round resolved through → the hostname.
     """
     flag = getattr(args, "cluster_name", None)
     if flag:
@@ -467,14 +687,17 @@ def resolve_cluster_name(args):
     env = os.environ.get("TNC_CLUSTER_NAME")
     if env:
         return env, "env"
+    context = getattr(getattr(client, "config", None), "context_name", None)
+    if context:
+        return context, "context"
     import socket
 
     return socket.gethostname(), "hostname"
 
 
-def stamp_cluster_identity(payload: dict, args) -> None:
+def stamp_cluster_identity(payload: dict, args, client=None) -> None:
     """Stamp the resolved cluster identity into one round payload."""
-    name, source = resolve_cluster_name(args)
+    name, source = resolve_cluster_name(args, client)
     payload["cluster"] = name
     payload["cluster_source"] = source
 
@@ -546,10 +769,33 @@ def run_check(args) -> CheckResult:
     """Everything of the round except printing and Slack I/O, so tests can
     drive it directly; the payload carries the round's ``trace_id``."""
     timer = PhaseTimer()
-    nodes = _fetch_nodes(args, timer)
+    _ROUND_CLIENT["client"] = None  # telemetry tracks THIS round's traffic
+    _ROUND_POLICY["policy"] = _build_retry_policy(args)
+    # Per-phase failure notes of the non-essential events phase: they mark
+    # the round degraded instead of sinking it.  A failed node LIST still
+    # raises out of here (exit 1).
+    degradation: dict = {}
+    nodes, kube_client = _fetch_nodes(args, timer)
     result = CheckResult(exit_code=EXIT_OK)
     with timer.phase("detect"):
-        accel, ready = select_accelerator_nodes(nodes, _registry_from_args(args))
+        from tpu_node_checker_torch import fastpath
+
+        entries = None
+        if isinstance(nodes, fastpath.ProjectedFleet):
+            if fastpath.reuse_allowed(args):
+                # Content-addressed reuse: an unchanged grading digest
+                # reuses the node's NodeInfo and its payload entry.
+                accel, ready, entries, _changed = nodes.reuse.select(
+                    nodes, _registry_from_args(args)
+                )
+            else:
+                # A per-round attachment source (probe/events/history)
+                # mutates NodeInfo per round: extract fresh.
+                accel, ready = select_accelerator_nodes(
+                    nodes.docs(), _registry_from_args(args)
+                )
+        else:
+            accel, ready = select_accelerator_nodes(nodes, _registry_from_args(args))
         slices = group_slices(accel)
     result.accel, result.slices = accel, slices
 
@@ -558,6 +804,17 @@ def run_check(args) -> CheckResult:
             _run_probe(args, accel, result, slices)
         _emit_link_spans(timer, result.local_probe)
     reports_skipped = _attach_probe_results(args, accel)
+
+    if getattr(args, "node_events", False):
+        with timer.phase("events"):
+            event_errors, events_truncated = _attach_node_events(
+                args, accel, kube_client
+            )
+        if event_errors:
+            degradation["events"] = event_errors[:_EVENTS_NODE_CAP]
+        if events_truncated:
+            # A capped events walk must never read as a complete one.
+            degradation["events_truncated"] = events_truncated[:_EVENTS_NODE_CAP]
 
     # Per-node health history + hysteresis (--history): verdicts feed the
     # FSM after every probe surface attached.  None when the flag is off,
@@ -578,7 +835,9 @@ def run_check(args) -> CheckResult:
         history["store"].flush()
 
     with timer.phase("render"):
-        payload = report.build_json_payload(accel, effective_ready, slices, timings_ms=None)
+        payload = report.build_json_payload(
+            accel, effective_ready, slices, timings_ms=None, entries=entries
+        )
         multislices = group_multislices(
             slices, getattr(args, "multislice_label", None) or ()
         )
@@ -631,7 +890,19 @@ def run_check(args) -> CheckResult:
             # Per-node state/streak/flaps ride on each node entry; this is
             # the fleet roll-up plus the round's transition log.
             payload["history"] = _history_payload(history, accel)
-        stamp_cluster_identity(payload, args)
+        if degradation:
+            # Partial degradation: the round's verdict stands, and the
+            # payload says which non-essential phase lost data and why.
+            payload["degraded"] = True
+            payload["degradation"] = degradation
+        # Keep-alive pool telemetry (session-lifetime counters) of the live
+        # client this round rode.
+        live_client = kube_client or _ROUND_CLIENT["client"]
+        if live_client is not None:
+            stats = getattr(live_client, "transport_stats", lambda: {})()
+            if stats:
+                payload["api_transport"] = stats
+        stamp_cluster_identity(payload, args, live_client)
         payload["trace_id"] = timer.trace_id
         payload["exit_code"] = result.exit_code
     payload["timings_ms"] = timer.as_dict()

@@ -1,9 +1,13 @@
-"""Command line of the PyTorch/CUDA checker: the one-shot fleet round over a
-NodeList, and the node side (the emitter and its pod's modes).
+"""Command line of the PyTorch/CUDA checker: the one-shot fleet round over the
+live node LIST or a NodeList file, and the node side (the emitter and its
+pod's modes).
 
 ::
 
-    python -m tpu_node_checker_torch --nodes-json FILE [--json] [--debug]
+    python -m tpu_node_checker_torch [--kubeconfig FILE] [--context NAME]
+        [--label-selector SEL] [--retry-budget S] [--api-concurrency N]
+        [--node-events] | --nodes-json FILE
+        [--json] [--debug]
         [--trace FILE] [--strict-slices] [--resource-key KEY]...
         [--multislice-label KEY]... [--expected-chips [KEY=]N]
         [--cluster-name NAME] [--log-jsonl FILE]
@@ -31,8 +35,10 @@ NodeList, and the node side (the emitter and its pod's modes).
     python -m tpu_node_checker_torch --report-fresh FILE [--probe-results-max-age S]
     python -m tpu_node_checker_torch --probe-report-schema
 
-With no mode flag the one-shot round runs: it grades the nodes of the
-``--nodes-json`` NodeList (the live LIST is not ported yet), with
+With no mode flag the one-shot round runs: it lists the cluster's nodes
+(``--kubeconfig``, else ``$KUBECONFIG``, ``~/.kube/config`` or the pod's
+service account), or reads them from ``--nodes-json``, and grades them;
+with ``--node-events`` it attaches the recent Events of sick nodes, with
 ``--probe`` probes this host's card and attaches the verdict to its node
 (``NODE_NAME``, else the hostname), with ``--probe-results`` attaches the
 fleet's emitter reports, with ``--history`` debounces each node's verdict
@@ -70,8 +76,6 @@ from tpu_node_checker_torch.probe.levels import LEVELS
 
 EXIT_OK = 0
 EXIT_ERROR = 1
-MODES = ("--emit-probe", "--selftest", "--calibrate", "--report-fresh",
-         "--probe-report-schema")
 
 
 def _expected_chips(raw: str):
@@ -104,20 +108,43 @@ def build_parser() -> argparse.ArgumentParser:
         "exist but none Ready (or the probe / strict slice check failed); 1 = error.",
         allow_abbrev=False,
     )
+    p.add_argument("--kubeconfig", help="path to kubeconfig (default: $KUBECONFIG, then ~/.kube/config, then in-cluster)")
+    p.add_argument("--context", help="kubeconfig context to use (default: current-context)")
     p.add_argument("--json", action="store_true",
                    help="machine-readable JSON output (the round's payload, or "
                    "--selftest's document)")
     p.add_argument("--cluster-name", metavar="NAME",
                    help="this checker's cluster identity (or $TNC_CLUSTER_NAME; "
-                   "default: the hostname), stamped into every payload as the "
-                   "'cluster' key")
+                   "default: the kubeconfig context, else the hostname), stamped "
+                   "into every payload as the 'cluster' key")
+    p.add_argument("--label-selector",
+                   help="server-side node label selector for the LIST call "
+                   "(e.g. 'cloud.google.com/gke-tpu-accelerator')")
     p.add_argument("--resource-key", action="append", metavar="KEY",
                    help="additional accelerator resource key or glob to detect (repeatable)")
     p.add_argument("--nodes-json", metavar="FILE",
-                   help="read nodes from a JSON NodeList file (the one-shot round's "
-                   "node source; the live LIST is not ported)")
+                   help="read nodes from a JSON NodeList file instead of a live cluster "
+                   "(offline mode for CI fixtures and demos)")
     p.add_argument("--strict-slices", action="store_true",
                    help="exit 3 if any multi-host TPU slice is incomplete")
+    p.add_argument("--api-concurrency", type=int, default=None, metavar="N",
+                   help="max concurrent Kubernetes API calls in the per-node "
+                   "fan-out (--node-events fetches); each worker keeps its own "
+                   "pooled keep-alive connection (default 4; 1 = serial)")
+    p.add_argument("--retry-budget", type=float, default=None, metavar="SECONDS",
+                   help="shared wall-clock budget for transparent API retries "
+                   "per check round (default 15; 0 disables): transient "
+                   "faults — connect refused/reset, socket timeout, HTTP "
+                   "429/500/502/503/504 — retry with full-jitter exponential "
+                   "backoff (Retry-After honored) until the budget or the "
+                   "per-call attempt cap runs out; GETs retry freely, a "
+                   "PATCH only when the request provably never left the "
+                   "socket")
+    p.add_argument("--node-events", action="store_true",
+                   help="fetch recent k8s Events for sick nodes (the kubectl-"
+                   "describe triage block: OOM kills, evictions, plugin crash "
+                   "loops) into the JSON payload and Slack bullets; capped "
+                   "fetches, needs 'events: list' RBAC, live cluster only")
     p.add_argument("--multislice-label", action="append", metavar="KEY",
                    help="node label key that groups slices into a DCN-joined "
                    "multislice (repeatable; checked before the built-in "
@@ -270,6 +297,9 @@ def build_parser() -> argparse.ArgumentParser:
 # Flags that mean something only in the one-shot round: beside another mode
 # they would silently do nothing.
 _ROUND_FLAGS = (
+    ("--kubeconfig", "kubeconfig"), ("--context", "context"),
+    ("--label-selector", "label_selector"), ("--api-concurrency", "api_concurrency"),
+    ("--retry-budget", "retry_budget"), ("--node-events", "node_events"),
     ("--nodes-json", "nodes_json"), ("--probe", "probe"),
     ("--probe-results", "probe_results"), ("--strict-slices", "strict_slices"),
     ("--resource-key", "resource_key"), ("--multislice-label", "multislice_label"),
@@ -299,6 +329,10 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
         p.error("--probe-report-schema runs alone")
     if args.watch is not None and args.watch <= 0:
         p.error("--watch interval must be a positive number of seconds")
+    if args.api_concurrency is not None and args.api_concurrency < 1:
+        p.error("--api-concurrency must be at least 1 (1 = serial)")
+    if args.retry_budget is not None and args.retry_budget < 0:
+        p.error("--retry-budget must be >= 0 (0 disables retries)")
     if args.metrics_port is not None and args.watch is None:
         p.error("--metrics-port requires --watch (one-shot runs serve no scrapes)")
     if args.probe_results_required and not args.probe_results:
@@ -345,6 +379,7 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
             )
     if args.selftest and (
         args.emit_probe
+        or args.node_events
         or args.probe
         or args.watch is not None
         or args.probe_results
@@ -354,6 +389,7 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
         or args.slack_webhook
         or args.log_jsonl
         or args.nodes_json
+        or args.label_selector
         or args.resource_key
         or args.strict_slices
         or args.expected_chips
@@ -368,6 +404,7 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     if args.calibrate is not None:
         if (
             args.emit_probe
+            or args.node_events
             or args.probe
             or args.watch is not None
             or args.probe_results
@@ -377,6 +414,7 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
             or args.slack_only_on_error
             or args.log_jsonl
             or args.nodes_json
+            or args.label_selector
             or args.resource_key
             or args.strict_slices
             or args.expected_chips
@@ -423,6 +461,13 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
             if on:
                 # Emitters never notify: Slack is the aggregator's job.
                 p.error(f"{flag} cannot be combined with --emit-probe")
+    if args.node_events:
+        if args.nodes_json:
+            # Offline fixtures have no event stream; silently fetching
+            # nothing would let an operator believe triage ran.
+            p.error("--node-events requires a live cluster (not --nodes-json)")
+        if args.emit_probe:
+            p.error("--node-events cannot be combined with --emit-probe")
     if args.probe_distributed and not (args.probe or args.emit_probe):
         # A probe modifier that silently does nothing would let an operator
         # believe a distributed probe ran.
@@ -476,14 +521,10 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
             if given(dest):
                 p.error(f"{flag} belongs to the one-shot round: it cannot be "
                         f"combined with {mode}")
-    else:
-        if not args.nodes_json:
-            p.error("the one-shot round requires --nodes-json FILE (the live node "
-                    f"LIST is not ported; or run one of {', '.join(MODES)})")
-        if not args.probe:
-            for flag, dest in _PROBE_FLAGS:
-                if given(dest):
-                    p.error(f"{flag} requires --probe or --emit-probe")
+    elif not args.probe:
+        for flag, dest in _PROBE_FLAGS:
+            if given(dest):
+                p.error(f"{flag} requires --probe or --emit-probe")
     return args
 
 
