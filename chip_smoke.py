@@ -125,12 +125,31 @@ Phases, one line each (any failure exits non-zero and prints no result):
    exit 1 with equal ``{"error": ...}``, the seconds printed); and the
    CronJob's round over TLS with ``certificate-authority-data`` where
    ``openssl`` can make a certificate;
-12. the ``kernels`` line (each kernel at the compute probe's shapes, its
+12. the aggregator Deployment's ``--watch`` loop, each run a subprocess
+   of a CLI (through ``WATCH_CLI_SCRIPT``, which records each round's check
+   and wait) against a fake API server serving 1,000 GPU nodes, whose
+   scripted answers change between rounds: ``--kubeconfig K --watch 1
+   --probe --probe-level workload --strict-slices --probe-results DIR
+   --probe-results-required --slack-on-change --metrics-port 0 --log-jsonl
+   L --history H --cordon-after 2 --uncordon-after 3 --event-log E
+   --retry-budget 0`` with Slack to a loopback webhook, over a history in
+   which one node already FAILED: a healthy round, the same, a same-code
+   node swap, four rounds answered 500 (the breaker opens at the third),
+   the healed rounds, SIGTERM as the ninth round starts (exit 143 after
+   it); each probed round launching every kernel as the workload path does,
+   with the kernels' compares true; the waits 0 after a probed round and 1,
+   1, 2, 4 s after the failures; seven posts; the breaker and
+   state-machine events with their rounds' ``trace_id``; the stderr lines;
+   ``/metrics`` after the second round and with the breaker open; then the
+   same script without the probe through the port and through the JAX
+   checker's CLI (equal exit codes, posts, log keys and events, each
+   loading no package but its own);
+13. the ``kernels`` line (each kernel at the compute probe's shapes, its
    launches counted on the workload path, in each emitter round, in each
    selftest leg, in each calibration rep, on the distributed workload path,
-   in the one-shot round's probe and in the live round's, flash also at the
-   training step's shape), then the ``nvidia-smi`` line, then the result
-   line.
+   in the one-shot round's probe, in the live round's and in each probed
+   round of the loop, flash also at the training step's shape), then the
+   ``nvidia-smi`` line, then the result line.
 
 Bounds use the H100 SXM data sheet: 3.35 TB/s of device memory, 989 TFLOP/s
 bf16 on the tensor cores.  Times are steady-state CUDA-event times over many
@@ -144,6 +163,7 @@ import concurrent.futures
 import contextlib
 import gzip
 import http.client
+import importlib.util
 import json
 import os
 import re
@@ -1294,13 +1314,16 @@ class LiveApi:
     the offset) filtered by ``labelSelector`` terms ``key`` and
     ``key=value``, and ``/api/v1/events`` for the node its ``fieldSelector``
     names.  ``throttle`` answers that many node requests with 429 and
-    ``Retry-After: 1`` first; ``requests`` counts what was asked."""
+    ``Retry-After: 1`` first; ``rounds``, where set, is a script: the n-th
+    LIST (its first page) serves ``rounds[n]``, the last entry from then on,
+    and None answers 500; ``requests`` counts what was asked."""
 
     def __init__(self, nodes: list, events: dict, tls_cert: Optional[tuple] = None):
         from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
         from urllib.parse import parse_qs, urlparse
 
         self.nodes, self.events, self.throttle = nodes, events, 0
+        self.rounds, self.round = None, 0
         self.requests = {"nodes": 0, "events": 0, "throttled": 0}
         self.lock = threading.Lock()
         api = self
@@ -1336,9 +1359,18 @@ class LiveApi:
                     throttled = api.throttle > 0
                     api.throttle -= throttled
                     api.requests["throttled"] += throttled
+                    down = False
+                    if api.rounds is not None and not q.get("continue"):
+                        served = api.rounds[min(api.round, len(api.rounds) - 1)]
+                        api.round += 1
+                        down = served is None
+                        api.nodes = api.nodes if down else served
                 if throttled:
                     self.send(429, {"kind": "Status", "message": "throttled"},
                               {"Retry-After": "1"})
+                    return
+                if down:
+                    self.send(500, {"kind": "Status", "message": "etcdserver: leader changed"})
                     return
                 terms = [t.partition("=") for t in q.get("labelSelector", "").split(",") if t]
                 items = [n for n in api.nodes if all(
@@ -1551,6 +1583,306 @@ def phase11_live_round(torch, root, rows, validate_report) -> None:
         if port[0] != 0 or ref[0] != 0 or stable(port[1]) != stable(ref[1]):
             fail(f"the TLS round: exit {port[0]}/{ref[0]}: {port[3][-2000:]}")
     phase(11, "the live round", seconds=time.perf_counter() - t_phase)
+
+
+# The CLI of the package named after the record path (the port's or the JAX
+# checker's) with the argv after it, in a process that also appends to that
+# record one line when each round's check starts, one when it ends (its
+# seconds, exit code, phases and probe report), one for each inter-round wait
+# the loop asks for (the seconds, and when), and at exit the packages loaded.
+WATCH_CLI_SCRIPT = """
+import importlib, json, sys, time
+
+checker = importlib.import_module(sys.argv[2] + ".checker")
+cli = importlib.import_module(sys.argv[2] + ".cli")
+record = open(sys.argv[1], "a")
+check, wait_for = checker.run_check, checker._wait_for_next_round
+
+
+def write(**entry):
+    record.write(json.dumps(dict(entry, at=time.time())) + "\\n")
+    record.flush()
+
+
+def run_check(args, **kw):
+    trace_id = kw["tracer"].trace_id
+    write(event="start", trace_id=trace_id)
+    t0 = time.perf_counter()
+    try:
+        result = check(args, **kw)
+    except Exception as exc:
+        write(event="end", trace_id=trace_id, seconds=time.perf_counter() - t0, error=str(exc))
+        raise
+    write(event="end", trace_id=trace_id, seconds=time.perf_counter() - t0,
+          exit_code=result.exit_code, timings_ms=result.payload.get("timings_ms"),
+          probe=result.local_probe)
+    return result
+
+
+def wait(stop, seconds):
+    write(event="wait", seconds=seconds)
+    return wait_for(stop, seconds)
+
+
+checker.run_check, checker._wait_for_next_round = run_check, wait
+rc = cli.main(sys.argv[3:])
+write(event="exit", exit_code=rc, packages=sorted({m.split(".")[0] for m in sys.modules} & {
+    "jax", "jaxlib", "tpu_node_checker", "tpu_node_checker_torch"}))
+sys.exit(rc)
+"""
+
+
+def watch_fleet(host: str, n: int, sick: set) -> list:
+    """The aggregator's fleet: this host with its cards, 999 more H100 nodes
+    of 8 cards, the ``sick`` ones NotReady (one LIST page of 1,000)."""
+    labels = {"cloud.google.com/gke-accelerator": "nvidia-h100-80gb",
+              "cloud.google.com/gke-nodepool": "h100-pool"}
+    nodes = []
+    for i, name in enumerate([host] + [f"gke-h100-pool-{i}" for i in range(1, 1000)]):
+        node = k8s_node(name, {"nvidia.com/gpu": str(n if i == 0 else 8)}, name not in sick)
+        node["metadata"]["labels"] = dict(labels)
+        nodes.append(node)
+    return nodes
+
+
+def read_jsonl(path: str) -> list:
+    if not os.path.exists(path):
+        return []
+    with open(path) as f:
+        return [json.loads(x) for x in f.read().splitlines() if x.strip()]
+
+
+def watch_run(root: str, side: str, api, script: list, argv: list, env: dict,
+              work: str) -> dict:
+    """One run of a loop (``side`` "port" or "jax") over ``script``, through
+    WATCH_CLI_SCRIPT: the server answers the n-th node LIST with
+    ``script[n]`` (None is a 500).  ``/metrics`` is read after the second
+    round's line and after the breaker opens; SIGTERM goes as the ninth
+    round's check starts.  Returns what the run printed, logged and served."""
+    os.makedirs(work)
+    paths = {k: os.path.join(work, f) for k, f in (
+        ("log", "rounds.jsonl"), ("events", "events.jsonl"), ("record", "record.jsonl"),
+        ("out", "stdout.txt"), ("err", "stderr.txt"), ("history", "history.jsonl"))}
+    with open(os.path.join(os.path.dirname(work), "seed.jsonl"), "rb") as f, \
+            open(paths["history"], "wb") as g:
+        g.write(f.read())
+    package = "tpu_node_checker_torch" if side == "port" else "tpu_node_checker"
+    cmd = [sys.executable, "-c", WATCH_CLI_SCRIPT, paths["record"], package,
+           *(a.replace("{dir}", work) for a in argv)]
+    with api.lock:
+        api.rounds, api.round = script, 0
+    scrapes, out = [], {}
+    t0 = time.perf_counter()
+    with open(paths["out"], "w") as fo, open(paths["err"], "w") as fe:
+        proc = subprocess.Popen(cmd, stdout=fo, stderr=fe, cwd=root, env=env)
+        try:
+            deadline, port = time.perf_counter() + 600, None
+            while time.perf_counter() < deadline and proc.poll() is None:
+                if port is None:
+                    with open(paths["err"]) as f:
+                        m = re.search(r"Serving /metrics on port (\d+)", f.read())
+                    port = int(m.group(1)) if m else None
+                lines = read_jsonl(paths["log"])
+                if port is not None and len(scrapes) == 0 and len(lines) >= 2:
+                    scrapes.append(("after round 2", http_get(port)))
+                if port is not None and len(scrapes) == 1 and len(lines) >= 6:
+                    scrapes.append(("breaker open, after round 6", http_get(port)))
+                starts = [r for r in read_jsonl(paths["record"]) if r["event"] == "start"]
+                if len(starts) >= 9:
+                    break
+                time.sleep(0.01)
+            else:
+                fail(f"the {side} loop ended or stalled before its last round "
+                     f"(exit {proc.poll()}): {open(paths['err']).read()[-2000:]}")
+            t_term = time.perf_counter()
+            proc.send_signal(signal.SIGTERM)
+            out["exit_code"] = proc.wait(timeout=120)
+            out["sigterm_to_exit_s"] = time.perf_counter() - t_term
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    out["seconds"] = time.perf_counter() - t0
+    with api.lock:
+        api.rounds = None
+    out["log"] = read_jsonl(paths["log"])
+    out["events"] = read_jsonl(paths["events"])
+    out["record"] = read_jsonl(paths["record"])
+    out["scrapes"] = scrapes
+    with open(paths["err"]) as f:
+        out["stderr"] = f.read().splitlines()
+    return out
+
+
+def phase12_watch_loop(torch, root, rows, validate_report) -> None:
+    """Phase 12: the aggregator Deployment's loop, with this host's probe
+    every round, against a fake API server whose fleet the script changes
+    between rounds; then the same script without the probe through the port
+    and through the JAX checker's CLI."""
+    t_phase = time.perf_counter()
+    n = torch.cuda.device_count()
+    host, a, b = "gke-h100-watch-0", "gke-h100-pool-100", "gke-h100-pool-200"
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("TNC_", "KUBERNETES_SERVICE_"))
+           and k not in ("SLACK_WEBHOOK_URL", "KUBECONFIG")}
+    env.update(NODE_NAME=host, TNC_SCHEMA_STRICT="1")
+    work = tempfile.mkdtemp(prefix="chip-smoke-watch-")
+    fleets = {k: watch_fleet(host, n, s) for k, s in (("a", {a}), ("b", {b}))}
+    # Round 1 healthy (a was FAILED before the loop started), round 2 the
+    # same, round 3 a swapped for b under the same exit code, rounds 4-7 a
+    # 500 each (the breaker opens at the third), then healed.
+    script = [fleets["a"], fleets["a"], fleets["b"], None, None, None, None, fleets["b"]]
+    api = LiveApi(fleets["a"], {})
+    try:
+        kc = kubeconfig(os.path.join(work, "kubeconfig"), api.url)
+        # The history the loop starts from: a failed two rounds in a row.
+        seed = os.path.join(work, "seed.jsonl")
+        for _ in range(2):
+            rc, *_ = round_line(root, "port", "--kubeconfig", kc, "--history", seed,
+                                "--cordon-after", "2", "--uncordon-after", "3", env=env)
+            if rc != 0:
+                fail(f"seeding the loop's history: exit {rc}")
+        results = os.path.join(work, "reports")
+        os.mkdir(results)
+        argv = ["--kubeconfig", kc, "--watch", "1", "--strict-slices", "--probe-results",
+                results, "--probe-results-required", "--slack-on-change", "--metrics-port", "0",
+                "--log-jsonl", "{dir}/rounds.jsonl", "--history", "{dir}/history.jsonl",
+                "--cordon-after", "2", "--uncordon-after", "3", "--event-log",
+                "{dir}/events.jsonl", "--retry-budget", "0"]
+        probe = ["--probe", "--probe-level", "workload"]
+        runs, posts_of = {}, {}
+        with webhook() as (url, posts):
+            for name, side, extra in (("probed", "port", probe), ("port", "port", []),
+                                      ("jax", "jax", [])):
+                start = len(posts)
+                runs[name] = watch_run(root, side, api, script, argv + extra,
+                                       dict(env, SLACK_WEBHOOK_URL=url),
+                                       os.path.join(work, name))
+                posts_of[name] = [p[2]["text"].rsplit("\n`trace: ", 1)[0]
+                                  for p in posts[start:]]
+    finally:
+        api.close()
+
+    # The probed run: each round's check, the waits and the gaps.
+    run = runs["probed"]
+    ends = [r for r in run["record"] if r["event"] == "end"]
+    starts = [r for r in run["record"] if r["event"] == "start"]
+    waits = [r for r in run["record"] if r["event"] == "wait"]
+    probed = [r for r in ends if r.get("probe")]
+    per_round = []
+    for r in ends:
+        entry = {"seconds": r["seconds"], "exit_code": r.get("exit_code"),
+                 "error": r.get("error")}
+        if r.get("probe"):
+            p = r["probe"]
+            entry.update(probe_ok=p.get("ok"), probe_error=p.get("error"),
+                         kernel_launches=p.get("kernel_launches"),
+                         kernels_match_plain={k: p.get(k) for k in (
+                             "pallas_ok", "dma_ok", "flash_attention_ok")},
+                         schema_violations=validate_report(p),
+                         timings_ms=r.get("timings_ms"))
+        per_round.append(entry)
+    gaps = [s2["at"] - s1["at"] for s1, s2 in zip(starts, starts[1:])]
+    # After each check: render, Slack, the trace's completion, the scrape's
+    # update and the log line, up to the loop's wait.
+    after_check_ms = [(w["at"] - e["at"]) * 1e3 for e, w in zip(ends, waits)]
+    phase(12, "the aggregator's --watch 1 loop with --probe --probe-level workload",
+          exit_code=run["exit_code"], rounds=per_round, waits_asked_s=[w["seconds"] for w in waits],
+          gap_between_round_starts_s=gaps, after_check_ms=after_check_ms,
+          sigterm_to_exit_s=run["sigterm_to_exit_s"], seconds=run["seconds"])
+    want = [r["launches"] for r in rows]
+    bad = [i + 1 for i, r in enumerate(ends) if r.get("probe") and (
+        r["probe"].get("ok") is not True or validate_report(r["probe"])
+        or [r["probe"].get("kernel_launches", {}).get(k["name"]) for k in rows] != want
+        or not all(r["probe"].get(k) is True for k in ("pallas_ok", "dma_ok",
+                                                         "flash_attention_ok")))]
+    if len(probed) != 5 or bad:
+        fail(f"the probed loop: {len(probed)} rounds probed, rounds {bad} unlike the "
+             f"workload path's {want}: {run['stderr'][-20:]}")
+    for r in rows:
+        r["watch_launches"] = [e["probe"]["kernel_launches"][r["name"]] for e in probed]
+    if any(w["seconds"] != 0.0 for w, e in zip(waits, ends) if e.get("probe")):
+        fail(f"a probed round outlasts the 1 s interval, yet the loop waited: {waits}")
+
+    # What every run must show, and the three runs side by side: the rounds
+    # of the script and the one SIGTERM lands in, the waits of 1, 1, 2 and
+    # 4 s after the four failures, and no package but its own loaded.
+    seen = {}
+    own = {"probed": "tpu_node_checker_torch", "port": "tpu_node_checker_torch",
+           "jax": "tpu_node_checker"}
+    for name, run in runs.items():
+        rounds = len(run["log"])
+        events = [(e["event"], e.get("node")) for e in run["events"]]
+        record = run["record"]
+        ends = [r for r in record if r["event"] == "end"]
+        starts = [r["at"] for r in record if r["event"] == "start"]
+        exit_line = next((r for r in record if r["event"] == "exit"), {})
+        stderr = run["stderr"]
+        got = {
+            "exit_code": run["exit_code"], "rounds": rounds,
+            "log_exit_codes": [x["exit_code"] for x in run["log"]],
+            "log_keys": sorted({k for x in run["log"] for k in x}),
+            "posts": posts_of[name], "events": events,
+            "events_with_their_rounds_trace_id": all(
+                e.get("trace_id") in {r["trace_id"] for r in ends} for e in run["events"]),
+            "stderr_checks": {
+                "sick-node set": sum("State change: sick-node set [('gke-h100-pool-100', "
+                                     "'FAILED')] → [] (exit 0 unchanged)" in x for x in stderr),
+                "check round failed": sum(x.startswith("Check round failed: ") for x in stderr),
+                "breaker open": sum(x.startswith("Watch breaker OPEN") for x in stderr),
+                "recovered": sum(x.startswith("Monitor recovered") for x in stderr),
+                "sigterm": sum(x.startswith("SIGTERM: watch loop stopped cleanly") for x in stderr),
+            },
+            "round_seconds": [r["seconds"] for r in ends],
+            "gap_between_round_starts_s": [b - a for a, b in zip(starts, starts[1:])],
+            "sigterm_to_exit_s": run["sigterm_to_exit_s"],
+            "packages_loaded": exit_line.get("packages"),
+        }
+        scraped = {}
+        for label, (status, _, body, ms) in run["scrapes"]:
+            s = samples(body)
+            scraped[label] = {
+                "status": status, "ms": ms,
+                "fleet": s.get('tpu_node_checker_nodes{state="total"}'),
+                "breaker_open": s.get("tpu_node_checker_watch_breaker_open"),
+                "phases": sorted({k.split('phase="')[1].split('"')[0] for k in s
+                                  if k.startswith("tpu_node_checker_round_phase_duration_ms_count")}),
+                "probe_ok": next((v for k, v in s.items()
+                                  if k.startswith("tpu_node_checker_probe_ok{")), None),
+                "probe_matmul_tflops": s.get("tpu_node_checker_probe_matmul_tflops"),
+            }
+        got["scrapes"] = scraped
+        seen[name] = got
+        phase(12, f"the loop's script, {name} run",
+              **dict(got, posts=[p.splitlines()[0] for p in got["posts"]]))
+        failure_gaps = got["gap_between_round_starts_s"][3:7]
+        if (got["exit_code"] != 143 or rounds != 9 or len(ends) != 9
+                or got["log_exit_codes"] != [0, 0, 0, 1, 1, 1, 1, 0, 0]
+                or len(got["posts"]) != 7
+                or "FAILED to run" not in got["posts"][2] or "DEGRADED" not in got["posts"][3]
+                or "RECOVERED" not in got["posts"][4]
+                or events != [("breaker-opened", None), ("breaker-closed", None),
+                              ("fsm-transition", b), ("fsm-transition", a)]
+                or not got["events_with_their_rounds_trace_id"]
+                or got["stderr_checks"] != {"sick-node set": 1, "check round failed": 4,
+                                            "breaker open": 2, "recovered": 1, "sigterm": 1}
+                or len(failure_gaps) != 4
+                or any(abs(g - x) > 0.5 for g, x in zip(failure_gaps, (1, 1, 2, 4)))
+                or got["sigterm_to_exit_s"] > 30 or got["packages_loaded"] != [own[name]]
+                or len(scraped) != 2 or scraped["after round 2"]["fleet"] != 1000
+                or scraped["after round 2"]["breaker_open"] != 0.0
+                or scraped["breaker open, after round 6"]["breaker_open"] != 1.0
+                or "list" not in scraped["after round 2"]["phases"]
+                or (name == "probed") != (scraped["after round 2"]["probe_ok"] == 1.0)):
+            fail(f"the {name} loop: {got}")
+    same = {k: seen["port"][k] == seen["jax"][k] for k in (
+        "exit_code", "rounds", "log_exit_codes", "log_keys", "posts", "events")}
+    phase(12, "the port's loop without --probe beside the JAX checker's", **same,
+          jax_installed=importlib.util.find_spec("jax") is not None,
+          packages_loaded={k: seen[k]["packages_loaded"] for k in ("port", "jax")})
+    if not all(same.values()):
+        fail(f"the port's loop unlike the JAX checker's: {same}")
+    phase(12, "the aggregator's loop", seconds=time.perf_counter() - t_phase)
 
 
 def main() -> int:
@@ -2086,10 +2418,13 @@ def main() -> int:
     # -- 11. the CronJob's live round against a fake API server
     phase11_live_round(torch, root, rows, validate_report)
 
-    # -- 12. the kernels line, the card line, the result line
+    # -- 12. the aggregator's --watch loop against a fake API server
+    phase12_watch_loop(torch, root, rows, validate_report)
+
+    # -- 13. the kernels line, the card line, the result line
     keys = ("name", "route", "source", "replaces", "launches", "compute_launches",
             "emitter_launches", "selftest_launches", "calibrate_launches",
-            "distributed_launches", "oneshot_launches", "live_round_launches",
+            "distributed_launches", "oneshot_launches", "live_round_launches", "watch_launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "device_ms",
             "library_device_ms", "ok", "check", "training_step")
     print(json.dumps({"kernels": [{k2: r[k2] for k2 in keys if k2 in r} for r in rows]}),

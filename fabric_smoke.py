@@ -57,12 +57,14 @@ non-zero and prints no result):
    ``CUDA_VISIBLE_DEVICES`` and its own ``NCCL_HOSTID``, so NCCL sees two
    hosts) in one ``--probe-distributed`` rendezvous: the enumerate level,
    the CLI's default (healthy on both, the psum ``n/2 × 1 + n/2 × 2``),
-   the collective level under ``--probe-topology 2x{n/2}`` (healthy on
-   both, the same psum, both axes true; NCCL's transports read from its
-   ``NCCL_DEBUG=INFO`` files, where every edge between the halves must use
-   NET and no edge within a half may), ``TNC_CHAOS_SLICES=2``
-   with ``dcn`` on the process boundary (healthy) and with
-   ``TNC_CHAOS_AXIS=dcn`` (named on both), ``TNC_CHAOS_RING_LINK`` on the
+   the collective level under each host's label ``--probe-topology
+   1x{n/2}``, where each host is one slice (``num_slices`` 2) and the DCN
+   fault-domain block runs over dcn × the host's torus (healthy on both,
+   the same psum, every axis true, the bus bandwidth of each printed;
+   NCCL's transports read from its ``NCCL_DEBUG=INFO`` files, where every
+   edge between the halves must use NET and no edge within a half may),
+   the same under ``TNC_CHAOS_SLICES=2`` (the rehearsal's override, equal
+   layout), ``TNC_CHAOS_AXIS=dcn`` (named on both), ``TNC_CHAOS_RING_LINK`` on the
    link into host-b's first rank (named on both), and the workload level
    (healthy, data × model over every card, equal losses on both); then the
    JAX fleet checker grading both workload reports, and the one-host
@@ -348,12 +350,18 @@ def distributed_check(root: str, n: int) -> None:
     runs = distributed_round("enumerate (the default level)", "enumerate")
     healthy(runs, "the enumerate level")
 
-    topo = f"2x{half}"
-    runs = distributed_round(f"collective --probe-topology {topo}", "collective",
-                             "--probe-topology", topo, debug=True)
+    # Each host is one slice: its label describes its own cards, and the
+    # fault-domain block runs over dcn (the host boundary) x its torus.
+    topo = f"1x{half}"
+    runs = distributed_round(f"collective --probe-topology {topo}, each host a slice",
+                             "collective", "--probe-topology", topo, debug=True)
     healthy(runs, "the collective level")
-    if any(rep.get("ici_axis_ok") != {"t0": True, "t1": True} for _, rep, _ in runs):
-        fail(f"the {topo} axes across the hosts: {[rep.get('ici_axis_ok') for _, rep, _ in runs]}")
+    for host, (_, rep, _) in zip(hosts, runs):
+        if (rep.get("num_slices") != 2 or rep.get("slice_indices") != [0, 1]
+                or rep.get("fault_domain_ok") != {"dcn": True, "t0": True, "t1": True}
+                or not (rep.get("dcn_busbw_gbps") or 0) > 0):
+            fail(f"the dcn block on {host}: slices {rep.get('num_slices')}, "
+                 f"{rep.get('fault_domain_ok')}, {rep.get('dcn_busbw_gbps')} GB/s")
     # NCCL's transport on each edge, from its INIT/P2P/NET lines
     # ("Channel 00/0 : 1[1] -> 2[2] [send] via NET/Socket/0").  The rank is
     # the communicator's, so an edge is placed by the bracketed id, the
@@ -397,7 +405,7 @@ def distributed_check(root: str, n: int) -> None:
                  f"{rep.get('dcn_busbw_gbps')} GB/s")
 
     runs = distributed_round("TNC_CHAOS_AXIS=dcn drill", "collective", "--probe-topology",
-                             f"1x{half}", extra={"TNC_CHAOS_SLICES": "2", "TNC_CHAOS_AXIS": "dcn"})
+                             f"1x{half}", extra={"TNC_CHAOS_AXIS": "dcn"})
     for host, (rc, rep, _) in zip(hosts, runs):
         if (rc != 3 or "DCN slice boundary" not in (rep.get("error") or "")
                 or rep.get("fault_domain_ok") != {"dcn": False, "t0": True, "t1": True}):

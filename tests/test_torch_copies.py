@@ -4,17 +4,22 @@ The port imports nothing of the JAX package, not even its stdlib-only
 modules, so it keeps copies: ``utils/quantity.py``, ``resources.py``,
 ``detect.py``, ``report.py``, ``utils/env.py``, ``notify.py``,
 ``history/``, and the live LIST's ``cluster.py``, ``utils/fanout.py``,
-``utils/retry.py``, ``utils/miniyaml.py`` and ``fastpath/`` verbatim (only
-the package name and the module docstring differ).  Here each copy's code
-is held equal to its original (the syntax trees, docstrings dropped, the
-package name substituted); ``watchstream.grading_view``, the one function
-the port keeps of its module, is held equal function by function; and the
-constants the fleet grades and lists by are compared one by one, in the
-manner of ``tests/test_torch_probe.py::test_floor_tables_equal_jax``.
+``utils/retry.py``, ``utils/miniyaml.py``, ``fastpath/`` and the watch
+loop's ``obs/`` verbatim (only the package name and the module docstring
+differ).  Here each copy's code is held equal to its original (the syntax
+trees, docstrings dropped, the package name substituted where it names a
+module, never inside a metric name); the modules copied in part are held
+equal function by function (``watchstream.grading_view``, ``metrics.py``
+with its ``MetricsServer`` class, ``remediation/budget.py``'s
+``denial_fingerprint`` and ``_domain_name``, and the watch loop's helpers
+in ``checker.py``); and the constants the fleet grades, lists and loops by
+are compared one by one, in the manner of
+``tests/test_torch_probe.py::test_floor_tables_equal_jax``.
 
 Also here: a fresh interpreter runs the port's one-shot round over a
-NodeList file and over a live fake API server, and finds neither ``jax``
-nor the JAX package among its modules.
+NodeList file and over a live fake API server, then two rounds of its
+``--watch`` loop, and finds neither ``jax`` nor the JAX package among its
+modules.
 
 The port is reached through ``importlib.import_module``:
 tests/test_dependency_surface.py rejects any other ``import`` in tests/.
@@ -23,6 +28,7 @@ tests/test_dependency_surface.py rejects any other ``import`` in tests/.
 import ast
 import importlib
 import json
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -30,6 +36,7 @@ from pathlib import Path
 import pytest
 
 from tests import fixtures as fx
+from tpu_node_checker import checker as jax_checker
 from tpu_node_checker import cluster as jax_cluster
 from tpu_node_checker import detect as jax_detect
 from tpu_node_checker import notify as jax_notify
@@ -43,7 +50,8 @@ REPO = Path(__file__).resolve().parent.parent
 VERBATIM = ["utils/quantity.py", "resources.py", "detect.py", "report.py", "utils/env.py",
             "notify.py", "history/__init__.py", "history/fsm.py", "history/store.py",
             "utils/fanout.py", "utils/retry.py", "utils/miniyaml.py", "fastpath/__init__.py",
-            "fastpath/projection.py", "cluster.py"]
+            "fastpath/projection.py", "cluster.py", "obs/__init__.py", "obs/events.py",
+            "obs/hist.py", "obs/trace.py"]
 
 
 def _code(path: Path, package: str) -> str:
@@ -52,7 +60,8 @@ def _code(path: Path, package: str) -> str:
 
 
 def _tree(path: Path, package: str) -> ast.Module:
-    tree = ast.parse(path.read_text().replace(package, "PKG"))
+    # The package's name as a module, not the metric prefix it starts.
+    tree = ast.parse(re.sub(rf"\b{package}\b", "PKG", path.read_text()))
     for node in ast.walk(tree):
         body = getattr(node, "body", None)
         if (isinstance(body, list) and body and isinstance(body[0], ast.Expr)
@@ -91,6 +100,106 @@ def _port(name):
     return importlib.import_module(f"tpu_node_checker_torch.{name}")
 
 
+def _classes(module: str, package: str) -> dict:
+    tree = _tree(REPO / package / module, package)
+    return {n.name: ast.dump(n) for n in tree.body if isinstance(n, ast.ClassDef)}
+
+
+def test_metrics_equals_jax_function_by_function():
+    # Every function of the module and the MetricsServer class; only the
+    # imports differ (Entity comes from the port's server/router.py).
+    port = _functions("metrics.py", "tpu_node_checker_torch")
+    ref = _functions("metrics.py", "tpu_node_checker")
+    assert list(port) == list(ref) == ["_escape", "_line", "_breaker_lines", "render_metrics"]
+    assert port == ref
+    assert _classes("metrics.py", "tpu_node_checker_torch") == \
+        _classes("metrics.py", "tpu_node_checker")
+    assert _port("metrics").METRICS_CONTENT_TYPE == \
+        importlib.import_module("tpu_node_checker.metrics").METRICS_CONTENT_TYPE
+
+
+def test_metric_families_of_the_port_equal_jax():
+    # The family names the two renderers can emit (57 in all).
+    def families(package):
+        text = (REPO / package / "metrics.py").read_text()
+        return sorted(set(re.findall(r'"(tpu_node_checker_[a-z_]+)"', text)))
+
+    port, ref = families("tpu_node_checker_torch"), families("tpu_node_checker")
+    assert port == ref and len(ref) == 57
+
+
+def test_denial_fingerprint_equals_jax():
+    port = _functions("remediation/budget.py", "tpu_node_checker_torch")
+    ref = _functions("remediation/budget.py", "tpu_node_checker")
+    assert list(port) == ["denial_fingerprint", "_domain_name"]
+    for name in port:
+        assert port[name] == ref[name], name
+    from tpu_node_checker.remediation import budget as jax_budget
+
+    denials = [{"domain": "pool/2x4", "reason": "slice-floor", "node": "a"},
+               {"domain": "pool/2x4", "reason": "slice-floor", "node": "b"},
+               {"node": "c", "reason": "cordon-max"}]
+    assert _port("remediation.budget").denial_fingerprint(denials) == \
+        jax_budget.denial_fingerprint(denials)
+
+
+LOOP_HELPERS = ["_install_stop_signal", "_restore_stop_signal", "_wait_for_next_round",
+                "_round_denials_fp", "_round_sick_set", "_recover_last_code",
+                "_write_trace_file", "_emit_link_spans", "_mesh_link_samples",
+                "_node_mesh_links", "_node_link_domain"]
+
+
+@pytest.mark.parametrize("name", LOOP_HELPERS)
+def test_loop_helper_equals_jax(name):
+    port = _functions("checker.py", "tpu_node_checker_torch")
+    ref = _functions("checker.py", "tpu_node_checker")
+    assert port[name] == ref[name]
+
+
+class _LessStreamAndServe(ast.NodeTransformer):
+    """JAX's ``watch`` without its ``--watch-stream`` engine and ``--serve``
+    fleet server, the two branches the port leaves out: every statement
+    that assigns or tests ``engine`` or ``fleet_server`` goes (an ``if``
+    keeps its ``else``), and ``result, delta = (run_check(...), None)``
+    becomes ``result = run_check(...)``."""
+
+    GONE = {"engine", "fleet_server"}
+
+    def _names(self, node):
+        return {n.id for n in ast.walk(node) if isinstance(n, ast.Name)}
+
+    def visit_If(self, node):
+        assigned = {t.id for n in node.body for t in getattr(n, "targets", [])
+                    if isinstance(t, ast.Name)}
+        if (self._names(node.test) | assigned) & self.GONE:
+            return [self.visit(n) for n in node.orelse]
+        return self.generic_visit(node)
+
+    def visit_Assign(self, node):
+        targets = self._names(ast.Module(body=node.targets, type_ignores=[]))
+        if targets & self.GONE:
+            return None
+        if targets == {"result", "delta"}:
+            return ast.Assign(targets=[node.targets[0].elts[0]], value=node.value.elts[0],
+                              lineno=node.lineno)
+        return node
+
+
+def test_watch_equals_jax_less_the_stream_and_the_server():
+    def watch(package, transform=None):
+        fn = next(n for n in _tree(REPO / package / "checker.py", package).body
+                  if isinstance(n, ast.FunctionDef) and n.name == "watch")
+        return ast.dump(transform.visit(fn) if transform else fn)
+
+    assert watch("tpu_node_checker_torch") == watch("tpu_node_checker", _LessStreamAndServe())
+
+
+def test_watch_breaker_equals_jax():
+    port = _classes("checker.py", "tpu_node_checker_torch")
+    ref = _classes("checker.py", "tpu_node_checker")
+    assert port["WatchBreaker"] == ref["WatchBreaker"]
+
+
 @pytest.mark.parametrize("module,name", [
     ("detect", "QUARANTINE_ANNOTATION"),
     ("detect", "HARD_PLANNED_DISRUPTIONS"),
@@ -115,11 +224,17 @@ def _port(name):
     ("utils.retry", "DEFAULT_MAX_ATTEMPTS"),
     ("utils.retry", "RETRIABLE_STATUS"),
     ("utils.fanout", "DEFAULT_API_CONCURRENCY"),
+    ("checker", "BREAKER_THRESHOLD"),
+    ("checker", "BREAKER_MAX_SCALE"),
+    ("obs", "DEFAULT_RING_SIZE"),
+    ("obs", "DEFAULT_LATENCY_BUCKETS_MS"),
+    ("obs", "MESH_LINK_BUCKETS_US"),
 ])
 def test_constant_equals_jax(module, name):
     ref = {"detect": jax_detect, "history.fsm": jax_fsm, "history.store": jax_store,
            "notify": jax_notify, "cluster": jax_cluster, "utils.retry": jax_retry,
-           "utils.fanout": jax_fanout}[module]
+           "utils.fanout": jax_fanout, "checker": jax_checker,
+           "obs": importlib.import_module("tpu_node_checker.obs")}[module]
     port = _port(module)
     for part in name.split("."):
         port, ref = getattr(port, part), getattr(ref, part)
@@ -135,8 +250,6 @@ def test_default_matchers_equal_jax():
 
 
 def test_round_constants_equal_jax():
-    from tpu_node_checker import checker as jax_checker
-
     port = _port("checker")
     for name in ("EXIT_OK", "EXIT_ERROR", "EXIT_NO_ACCEL_NODES", "EXIT_NONE_READY",
                  "CLOCK_SKEW_ALLOWANCE_S", "REPORT_SCHEMA_VERSION", "_CAUSES_CAP",
@@ -151,12 +264,14 @@ def test_slack_defaults_of_the_cli_equal_jax():
     for dest in ("slack_username", "slack_retry_count", "slack_retry_delay",
                  "probe_results_max_age", "history_max_rounds", "cordon_after",
                  "uncordon_after", "flap_threshold", "flap_window", "kubeconfig", "context",
-                 "label_selector", "api_concurrency", "retry_budget", "node_events"):
+                 "label_selector", "api_concurrency", "retry_budget", "node_events",
+                 "slack_on_change", "event_log", "watch", "metrics_port"):
         assert port.get_default(dest) == ref.get_default(dest), dest
 
 
 @pytest.mark.parametrize("flag", ["--kubeconfig", "--context", "--label-selector",
-                                  "--api-concurrency", "--retry-budget", "--node-events"])
+                                  "--api-concurrency", "--retry-budget", "--node-events",
+                                  "--slack-on-change", "--event-log"])
 def test_live_list_flag_help_equals_jax(flag):
     # The flag's words, as JAX gives them (--api-concurrency names only the
     # fan-out the port has).
@@ -173,8 +288,9 @@ def test_live_list_flag_help_equals_jax(flag):
 
 
 def test_the_round_loads_nothing_of_jax(tmp_path):
-    # Two rounds in one fresh interpreter: over a NodeList file, then over a
-    # live fake API server (paged LIST and --node-events).
+    # In one fresh interpreter: a round over a NodeList file, one over a
+    # live fake API server (paged LIST and --node-events), then two rounds of
+    # the --watch loop over that server (its wait ends after the second).
     items = fx.mixed_cluster_one_notready()
     nodes = tmp_path / "nodes.json"
     nodes.write_text(json.dumps(fx.node_list(items)))
@@ -197,7 +313,16 @@ def test_the_round_loads_nothing_of_jax(tmp_path):
         f"live = cli.main(['--kubeconfig', {str(kubeconfig)!r}, '--node-events', '--json'])\n"
         "loaded = sorted(m for m in sys.modules\n"
         "                if m.split('.')[0] in ('jax', 'jaxlib', 'tpu_node_checker'))\n"
-        "print(rc, live, loaded, file=sys.stderr)\n"
+        "from tpu_node_checker_torch import checker\n"
+        "waits = []\n"
+        "checker._wait_for_next_round = lambda stop, s: waits.append(s) or len(waits) == 2\n"
+        f"loop = cli.main(['--kubeconfig', {str(kubeconfig)!r}, '--watch', '1', "
+        f"'--slack-on-change', '--metrics-port', '0', '--history', "
+        f"{str(tmp_path / 'w.jsonl')!r}, '--log-jsonl', {str(tmp_path / 'l.jsonl')!r}, "
+        f"'--event-log', {str(tmp_path / 'e.jsonl')!r}, '--json'])\n"
+        "loaded = sorted(m for m in sys.modules\n"
+        "                if m.split('.')[0] in ('jax', 'jaxlib', 'tpu_node_checker'))\n"
+        "print(rc, live, loop, len(waits), loaded, file=sys.stderr)\n"
     )
     try:
         proc = subprocess.run([sys.executable, "-c", script], capture_output=True, text=True,
@@ -205,15 +330,26 @@ def test_the_round_loads_nothing_of_jax(tmp_path):
     finally:
         server.shutdown()
     assert proc.returncode == 0, proc.stderr
-    assert proc.stderr.strip().splitlines()[-1] == "0 0 []"
-    first, end = json.JSONDecoder().raw_decode(proc.stdout)
-    live = json.loads(proc.stdout[end:])
+    assert proc.stderr.strip().splitlines()[-1] == "0 0 143 2 []"
+    first, live, *rounds = _json_docs(proc.stdout)
+    assert [r["exit_code"] for r in rounds] == [0, 0]
+    assert (tmp_path / "l.jsonl").read_text().count("\n") == 2
     assert first["exit_code"] == live["exit_code"] == 0
     sick = [n for n in live["nodes"] if not n["ready"]]
     assert [e["reason"] for n in sick for e in n["events"]] == ["NodeNotReady"]
     pages = -(-len(items) // 2)
     assert live["cluster"] == "c"
     assert live["api_transport"]["requests_sent"] == pages + len(sick)
+
+
+def _json_docs(text):
+    """The JSON documents printed one after another."""
+    docs, decoder, i = [], json.JSONDecoder(), 0
+    while text[i:].strip():
+        i += len(text[i:]) - len(text[i:].lstrip())
+        doc, i = decoder.raw_decode(text, i)
+        docs.append(doc)
+    return docs
 
 
 def _nodes_and_events_handler(items):

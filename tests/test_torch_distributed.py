@@ -9,9 +9,11 @@ on ``127.0.0.1`` at an ephemeral port.  The JAX children run with one CPU
 device each, so both sides probe 2 processes × 1 device from identical
 inputs: the verdicts must be equal and the cross-process psum exact.
 
-Beyond parity: a ``2x2`` topology whose axes both mix processes, the DCN
-fault domain lying on the process boundary and a fault on it named by
-every process, a ring link faulted at a receiver in another process, the
+Beyond parity: each process of a group with equal card counts is one
+slice, so the DCN fault domain lies on the process boundary (graded
+healthy, a fault on it named by every process, unequal counts forming no
+slices, ``TNC_CHAOS_SLICES`` overriding the processes' slices), a ``2x2``
+label over four one-card processes, a ring link faulted at a receiver in another process, the
 workload level over the processes with equal losses, the failure modes of
 the rendezvous (nothing listening, a peer that never comes, a peer that
 skips a global block, a second round on the same port), the parent's
@@ -173,7 +175,8 @@ class TestParityWithJax:
 @pytest.fixture(scope="module")
 def quad_topology(probe_env):
     """Four processes at the collective level under a 2x2 label: rank r is
-    process r, so both axes of the mesh mix processes."""
+    process r.  Each process is one slice (equal card counts), so the slice
+    boundary is the DCN axis, every line of which mixes processes."""
     return _run_set(_port_probe, 4, "collective", topology="2x2", timeout_s=600)
 
 
@@ -184,18 +187,25 @@ class TestAcrossFourProcesses:
             d = r.details
             assert r.device_count == 4 and d["process_index"] == pid
             assert d["distributed_psum"] == 1.0 + 2.0 + 3.0 + 4.0
-            assert d["ici_topology"] == "2x2"
-            assert d["ici_axis_ok"] == {"t0": True, "t1": True}
+            # The label describes one slice, and a slice here is one card:
+            # as in the JAX child of a multislice job, the block runs over
+            # dcn x the slice's flat axis, and no per-axis block over the label.
+            assert d["num_slices"] == 4 and d["slice_indices"] == [0, 1, 2, 3]
+            assert d["fault_domain_topology"] == "4x1"
+            assert d["fault_domain_ok"] == {"dcn": True, "d": True}
+            assert "ici_topology" not in d and "ici_axis_ok" not in d
             assert d["collective_ok"] is True and d["ring_ok"] is True
 
     def test_dcn_on_the_process_boundary(self, probe_env):
         # Two rehearsal slices of a 1x2 torus: the dcn axis splits ranks
-        # {0, 1} from {2, 3}, processes from processes.
+        # {0, 1} from {2, 3}, processes from processes.  TNC_CHAOS_SLICES
+        # overrides the four slices the group stamps, as in the JAX child.
         probe_env.setenv("TNC_CHAOS_SLICES", "2")
         reports = _run_set(_port_probe, 4, "collective", topology="1x2", timeout_s=600)
         probe_env.delenv("TNC_CHAOS_SLICES")
         for pid, r in enumerate(reports):
             assert r.ok, (pid, r.error)
+            assert r.details["num_slices"] == 4
             assert r.details["fault_domain_ok"] == {"dcn": True, "t0": True, "t1": True}
             assert r.details["fault_domain_topology"] == "2x1x2"
             assert r.details["dcn_busbw_gbps"] > 0
@@ -218,6 +228,64 @@ class TestAcrossFourProcesses:
             assert r.details["fault_domain_ok"] == {"dcn": False, "t0": True, "t1": True}
             assert r.details["ring_bad_links"] == ["1->2"]
             assert r.details["distributed_psum_ok"] is True
+
+
+@pytest.fixture(scope="module")
+def two_slices(probe_env):
+    """Two processes of one card each at the collective level, healthy and
+    with the slice boundary faulted (``TNC_CHAOS_AXIS=dcn``)."""
+    out = {"healthy": _run_set(_port_probe, 2, "collective", timeout_s=600)}
+    probe_env.setenv("TNC_CHAOS_AXIS", "dcn")
+    try:
+        out["dcn_fault"] = _run_set(_port_probe, 2, "collective", timeout_s=600)
+    finally:
+        probe_env.delenv("TNC_CHAOS_AXIS")
+    return out
+
+
+class TestEachProcessIsASlice:
+    """A group of processes with equal card counts: each process is one
+    slice, and the host boundary is the fault-domain block's DCN axis (the
+    JAX child stamps ``num_slices`` from PJRT's slice index instead)."""
+
+    def test_two_processes_stamp_two_slices_and_grade_the_dcn_domain(self, two_slices):
+        for pid, r in enumerate(two_slices["healthy"]):
+            assert r.ok, (pid, r.error)
+            d = r.details
+            assert d["num_slices"] == 2 and d["slice_indices"] == [0, 1]
+            assert d["fault_domain_topology"] == "2x1"
+            assert d["fault_domain_ok"] == {"dcn": True, "d": True}
+            assert d["dcn_busbw_gbps"] > 0
+            assert d["fault_domain_busbw_gbps"]["dcn"] == d["dcn_busbw_gbps"]
+            assert port_schema.validate_report(r.to_dict()) == []
+
+    def test_a_dcn_fault_fails_that_leg_alone(self, two_slices):
+        for pid, r in enumerate(two_slices["dcn_fault"]):
+            assert not r.ok, pid
+            assert "DCN slice boundary" in r.error, r.error
+            d = r.details
+            assert d["fault_domain_ok"] == {"dcn": False, "d": True}
+            assert d["collective_ok"] is True and d["ring_ok"] is True
+            assert d["distributed_psum_ok"] is True
+
+    @pytest.mark.parametrize("counts,slices", [
+        ((1, 1), [0, 1]), ((2, 2, 2), [0, 1, 2]), ((2, 1), None), ((1, 2, 1), None), ((3,), None),
+    ])
+    def test_unequal_card_counts_stamp_no_slices(self, counts, slices):
+        # The real meeting, one thread a process, each with its card count.
+        coord = f"127.0.0.1:{_free_port()}"
+
+        def meet(pid):
+            m = port_mesh.Meeting(port_mesh.Rendezvous(coord, len(counts), pid, RDV_TIMEOUT_S),
+                                  counts[pid])
+            try:
+                return list(m.counts), m.slice_indices
+            finally:
+                m.close()
+
+        with ThreadPoolExecutor(max_workers=len(counts)) as pool:
+            got = list(pool.map(meet, range(len(counts))))
+        assert got == [(list(counts), slices)] * len(counts)
 
 
 class TestWorkloadAcrossProcesses:

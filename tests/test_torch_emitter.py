@@ -316,8 +316,7 @@ class TestUsageErrors:
         (["--emit-probe", "-", "--retry-budget", "5"],
          "--retry-budget belongs to the one-shot round: it cannot be combined with "
          "--emit-probe"),
-        (["--watch", "5"], "--watch requires --emit-probe (the fleet round's --watch loop "
-         "is not ported)"),
+        (["--slack-on-change"], "--slack-on-change requires --watch"),
         (["--emit-probe", "-", "--probe-results-max-age", "60"],
          "--probe-results-max-age requires --probe-results or --report-fresh"),
         (["--emit-probe", "-", "--probe-level", "compute", "--probe-topology", "2x2"],
@@ -333,7 +332,7 @@ class TestUsageErrors:
 
     @pytest.mark.parametrize("flag", [
         ["--watch-stream"], ["--cordon-failed"], ["--trend", "t.jsonl"],
-        ["--serve", "0"], ["--slack-on-change"],
+        ["--serve", "0"], ["--analytics", "d"],
     ])
     def test_unported_flag_is_unknown(self, capsys, flag):
         code, err = _usage_error(port_cli.parse_args,

@@ -493,8 +493,8 @@ class TestUsageErrors:
          "--kubeconfig belongs to the one-shot round: it cannot be combined with --emit-probe"),
         (["--selftest", "--retry-budget", "5"],
          "--retry-budget belongs to the one-shot round: it cannot be combined with --selftest"),
-        (["--watch", "5"], "--watch requires --emit-probe"),
-        (N + ["--watch", "5"], "--watch requires --emit-probe"),
+        (["--event-log", "e"], "--event-log records daemon-mode events: it requires --watch"),
+        (N + ["--slack-on-change"], "--slack-on-change requires --watch"),
         (N + ["--probe-level", "compute"], "--probe-level requires --probe or --emit-probe"),
         (N + ["--device", "cpu"], "--device requires --probe or --emit-probe"),
         (["--emit-probe", "-", "--nodes-json", "n"],
@@ -531,8 +531,8 @@ class TestUsageErrors:
         ["--cordon-max", "2"], ["--cordon-dry-run"], ["--cordon-degraded"],
         ["--repair-cmd", "r"], ["--cordon-failed"], ["--uncordon-recovered"], ["--trend", "t"],
         ["--trend-nodes", "t"], ["--serve", "0"], ["--analytics", "d"], ["--federate", "e"],
-        ["--slack-on-change"], ["--watch-stream"], ["--serve-token", "t"],
-        ["--disruption-budget", "2"], ["--event-log", "e"], ["--drain-failed"],
+        ["--federate-interval", "5"], ["--watch-stream"], ["--serve-token", "t"],
+        ["--disruption-budget", "2"], ["--serve-workers", "2"], ["--drain-failed"],
     ])
     def test_unported_jax_flag_is_unknown(self, capsys, flag):
         code, err = _usage(port_cli.parse_args, N + flag, capsys)

@@ -360,22 +360,19 @@ class TestUsage:
                 assert value == getattr(jax, dest), dest
 
     @pytest.mark.parametrize("flag", [
-        ["--watch", "5"], ["--watch-stream"], ["--no-watch-stream"], ["--cordon-failed"],
+        ["--federate-workers", "2"], ["--watch-stream"], ["--no-watch-stream"],
+        ["--cordon-failed"],
         ["--cordon-max", "2"], ["--cordon-dry-run"], ["--uncordon-recovered"],
         ["--cordon-degraded"], ["--drain-failed"], ["--repair-cmd", "r"],
         ["--disruption-budget", "2"], ["--slice-floor-pct", "50"], ["--trend", "t"],
         ["--trend-nodes", "t"], ["--analytics", "d"], ["--serve", "0"],
-        ["--serve-token", "t"], ["--federate", "e"], ["--slack-on-change"],
-        ["--event-log", "e"],
+        ["--serve-token", "t"], ["--federate", "e"], ["--write-rps", "5"],
+        ["--repair-webhook", "u"],
     ])
     def test_queue_4_flags_still_refused(self, capsys, flag):
-        # The live LIST is ported; the aggregator's loop, remediation,
-        # analytics, serving and federation are not, and each is refused
-        # (never accepted and ignored) beside a live round.
+        # The live LIST and the polling loop are ported; the watch stream,
+        # remediation, analytics, serving and federation are not, and each
+        # is refused (never accepted and ignored) beside a live round.
         code, err = _usage(port_cli.parse_args, ["--kubeconfig", "k", *flag], capsys)
         assert code == 2
-        if flag[0] == "--watch":
-            assert err.endswith("error: --watch requires --emit-probe (the fleet round's "
-                                "--watch loop is not ported)")
-        else:
-            assert f"unrecognized arguments: {' '.join(flag)}" in err
+        assert f"unrecognized arguments: {' '.join(flag)}" in err

@@ -1,8 +1,8 @@
-"""The one-shot fleet round: list → detect → probe → history → grade →
-notify → print → exit code.
+"""The fleet round: list → detect → probe → history → grade → notify →
+print → exit code, once or in the aggregator's ``--watch`` loop.
 
-A copy of the JAX package's ``checker.py`` one-shot round, with its names
-and order:
+A copy of the JAX package's ``checker.py`` round and polling loop, with
+their names and order:
 
 * Slack delivery happens **before** any stdout output, and ``--json``
   suppresses the Slack console lines;
@@ -20,7 +20,13 @@ attaches the recent Events of sick nodes (a live cluster only; a failed
 fetch marks the round ``degraded``, never exit 1).  ``--probe`` runs the
 port's own probe (:func:`_run_probe`) on this host's card;
 ``--probe-results`` grades the reports of the fleet's emitters.
-Remediation, analytics and the aggregator's watch loop are the JAX
+
+:func:`watch` repeats the round every ``--watch`` seconds at a fixed
+cadence until SIGTERM (exit 143 after the round in flight), alerts on a
+change of the exit code or the sick-node set under ``--slack-on-change``,
+serves ``--metrics-port``, writes ``--event-log``, and opens a circuit
+breaker (:class:`WatchBreaker`) over consecutive failed rounds.
+Remediation, analytics, ``--watch-stream`` and ``--serve`` are the JAX
 package's and not ported yet, so their branches are absent here.
 """
 
@@ -765,17 +771,69 @@ def _emit_link_spans(timer, probe: Optional[dict]) -> None:
         )
 
 
-def run_check(args) -> CheckResult:
+def _node_link_domain(n: NodeInfo) -> Optional[str]:
+    """The budget-domain name a node's links are qualified under (the
+    remediation engine's ``_domain_name`` over ``slice_group_key``), or
+    ``None`` for a node outside any slice grouping."""
+    from tpu_node_checker_torch.detect import slice_group_key
+    from tpu_node_checker_torch.remediation.budget import _domain_name
+
+    key = slice_group_key(n)
+    return _domain_name(key) if key is not None else None
+
+
+def _node_mesh_links(n: NodeInfo) -> dict:
+    """One node's per-link timing matrix (``collective_legs_ok.links``)
+    from its probe report, or ``{}``."""
+    links = ((n.probe or {}).get("collective_legs_ok") or {}).get("links")
+    return links if isinstance(links, dict) else {}
+
+
+def _mesh_link_samples(accel: List[NodeInfo]) -> List[tuple]:
+    """This round's mesh histogram feed: ``(slice_domain, axis, p50_us)``
+    per link, deduplicated by (domain, link): every host of a slice reports
+    the same sweep."""
+    samples: List[tuple] = []
+    seen: set = set()
+    for n in accel:
+        links = _node_mesh_links(n)
+        if not links:
+            continue
+        domain = _node_link_domain(n) or "-"
+        for link in sorted(links):
+            entry = links[link]
+            if not isinstance(entry, dict) or entry.get("p50_us") is None:
+                continue
+            key = (domain, link)
+            if key in seen:
+                continue
+            seen.add(key)
+            samples.append((domain, link.split("/")[0], float(entry["p50_us"])))
+    return samples
+
+
+def run_check(args, nodes: Optional[List[dict]] = None,
+              tracer=None, events=None) -> CheckResult:
     """Everything of the round except printing and Slack I/O, so tests can
-    drive it directly; the payload carries the round's ``trace_id``."""
-    timer = PhaseTimer()
+    drive it directly; the payload carries the round's ``trace_id``.
+
+    ``tracer`` (the watch loop) is the round's :class:`~tpu_node_checker_torch.
+    obs.trace.Tracer`: the round's phases become its spans, and the loop
+    writes it to ``--trace`` after the round.  Without one a fresh tracer is
+    minted (the one-shot round).  ``nodes`` replaces the node list's fetch.
+    ``events`` is the loop's event log, kept for the JAX signature: its one
+    reader, the remediation audit, is not ported yet.
+    """
+    timer = tracer if tracer is not None else PhaseTimer()
+    kube_client = None
     _ROUND_CLIENT["client"] = None  # telemetry tracks THIS round's traffic
     _ROUND_POLICY["policy"] = _build_retry_policy(args)
     # Per-phase failure notes of the non-essential events phase: they mark
     # the round degraded instead of sinking it.  A failed node LIST still
     # raises out of here (exit 1).
     degradation: dict = {}
-    nodes, kube_client = _fetch_nodes(args, timer)
+    if nodes is None:
+        nodes, kube_client = _fetch_nodes(args, timer)
     result = CheckResult(exit_code=EXIT_OK)
     with timer.phase("detect"):
         from tpu_node_checker_torch import fastpath
@@ -907,20 +965,26 @@ def run_check(args) -> CheckResult:
         payload["exit_code"] = result.exit_code
     payload["timings_ms"] = timer.as_dict()
     result.payload = payload
-    if getattr(args, "trace", None):
-        _write_trace_file(args.trace, timer)
+    if tracer is None and getattr(args, "trace", None):
+        # One-shot (caller-owned tracers are written by the round loop,
+        # AFTER the publish span lands on the same trace).
+        _write_trace_file(
+            args.trace, timer, announce=getattr(args, "watch", None) is None
+        )
     return result
 
 
-def _write_trace_file(trace_path: str, timer) -> None:
+def _write_trace_file(trace_path: str, timer, announce: bool = False) -> None:
     """``--trace FILE``: one Chrome-trace document per round, written
-    atomically (tmp + rename), so a reader never sees torn JSON."""
+    atomically (tmp + rename), so a reader never sees torn JSON; the watch
+    loop rewrites it every round."""
     try:
         tmp = f"{trace_path}.tmp"
         with open(tmp, "w") as f:
             json.dump(timer.chrome_trace(), f)
         os.replace(tmp, trace_path)
-        print(f"Trace written to {trace_path}.", file=sys.stderr)
+        if announce:
+            print(f"Trace written to {trace_path}.", file=sys.stderr)
     except OSError as exc:
         print(f"Cannot write trace {trace_path}: {exc}", file=sys.stderr)
 
@@ -1066,8 +1130,10 @@ def one_shot(args) -> int:
     return render_and_notify(args, result)
 
 
-def render_and_notify(args, result: CheckResult) -> int:
-    """Deliver Slack (policy-gated) then print.  Returns the exit code."""
+def render_and_notify(args, result: CheckResult, notify_enabled: bool = True) -> int:
+    """Deliver Slack (policy-gated; the watch loop's ``--slack-on-change``
+    turns it off for an unchanged round) then print.  Returns the exit
+    code."""
     accel, ready, slices = result.accel, result.ready, result.slices
 
     healthy = result.exit_code == EXIT_OK
@@ -1079,7 +1145,7 @@ def render_and_notify(args, result: CheckResult) -> int:
         and any(t.get("actionable") for t in history.get("transitions", []))
     )
     webhook = notify.get_slack_webhook_url(getattr(args, "slack_webhook", None))
-    if notify.should_send_slack_message(
+    if notify_enabled and notify.should_send_slack_message(
         webhook,
         getattr(args, "slack_only_on_error", False),
         healthy,
@@ -1155,3 +1221,397 @@ def render_and_notify(args, result: CheckResult) -> int:
             print()
             print("Timings (ms): " + json.dumps(result.payload.get("timings_ms", {})))
     return result.exit_code
+
+
+# Circuit-breaker tuning for the watch loop: the breaker OPENS after this
+# many CONSECUTIVE failed rounds (run_check raised: "the monitor is down",
+# not a degraded fleet verdict), and while open the inter-round interval
+# widens by doubling, capped at this multiple of the configured interval.
+BREAKER_THRESHOLD = 3
+BREAKER_MAX_SCALE = 8
+
+
+class WatchBreaker:
+    """Watch-mode circuit breaker over consecutive failed rounds.
+
+    State machine::
+
+        CLOSED --(threshold consecutive failures)--> OPEN   ["opened"]
+        OPEN   --(any successful round)-----------> CLOSED  ["closed"]
+
+    While OPEN: the effective interval widens (``interval_scale``), and the
+    per-round "monitor failed" alerts are suppressed — ONE "monitor
+    degraded" alert fired at the open transition covers them, and the close
+    transition alerts recovery.  A breaker round is never written as fleet
+    state: the trend log keeps recording exit-1 rounds as before.
+    """
+
+    def __init__(self, threshold: int = BREAKER_THRESHOLD, max_scale: int = BREAKER_MAX_SCALE):
+        self.threshold = max(1, threshold)
+        self.max_scale = max(1, max_scale)
+        self.consecutive_failures = 0
+        self.open = False
+
+    def record_failure(self) -> Optional[str]:
+        """Returns "opened" when this failure trips the breaker."""
+        self.consecutive_failures += 1
+        if not self.open and self.consecutive_failures >= self.threshold:
+            self.open = True
+            return "opened"
+        return None
+
+    def record_success(self) -> Optional[str]:
+        """Returns "closed" when this success recovers an open breaker."""
+        self.consecutive_failures = 0
+        if self.open:
+            self.open = False
+            return "closed"
+        return None
+
+    def interval_scale(self) -> int:
+        """Multiplier on the configured interval: 1 while closed; doubling
+        from 2 per further failed round while open, capped."""
+        if not self.open:
+            return 1
+        return min(self.max_scale, 2 ** (self.consecutive_failures - self.threshold + 1))
+
+    def as_dict(self) -> dict:
+        return {
+            "open": self.open,
+            "consecutive_failures": self.consecutive_failures,
+        }
+
+
+def _install_stop_signal(stop) -> object:
+    """SIGTERM → set ``stop`` so the loop exits at the next wait instead of
+    dying mid-round with the round's state unlogged (a Deployment rollout
+    sends SIGTERM, waits terminationGracePeriodSeconds, then KILLs).
+    Returns the previous handler for restoration, or None where signals
+    aren't installable (non-POSIX, non-main thread — tests)."""
+    import signal
+
+    def _handler(signum, frame):
+        stop.set()
+
+    try:
+        return signal.signal(signal.SIGTERM, _handler)
+    except (AttributeError, ValueError, OSError):
+        return None
+
+
+def _restore_stop_signal(prev) -> None:
+    if prev is None:
+        return
+    import signal
+
+    try:
+        signal.signal(signal.SIGTERM, prev)
+    except (AttributeError, ValueError, OSError):
+        pass
+
+
+def _wait_for_next_round(stop, seconds: float) -> bool:
+    """Event-based inter-round wait: returns True when shutdown was
+    requested (promptly — mid-wait, not after sleeping the interval out).
+    The seam the loop tests fake their clock through."""
+    return stop.wait(max(0.0, seconds))
+
+
+def watch(args) -> int:
+    """``--watch SECONDS``: run the round repeatedly (the aggregator
+    Deployment's daemon mode).
+
+    With ``--slack-on-change`` notifications fire only when the round's
+    fingerprint (exit code, sick-node set, an actionable hysteresis
+    transition) changes instead of every round.  Errors in a round are
+    reported and the loop continues; consecutive failures trip a circuit
+    breaker (:class:`WatchBreaker`) that widens the interval and collapses
+    per-round failure alerts into one degraded/recovered pair.  Runs until
+    interrupted — SIGTERM stops the loop cleanly after the current round
+    (state log flushed) and returns 143.
+    """
+    import threading
+
+    from tpu_node_checker_torch.obs import Observability
+
+    interval = args.watch
+    on_change = getattr(args, "slack_on_change", False)
+    webhook = notify.get_slack_webhook_url(getattr(args, "slack_webhook", None))
+    # Per-round traces (debug ring + --trace), round-phase histograms on the
+    # scrape, and the event log (--event-log) the breaker/FSM lines ride.
+    obs = Observability.from_args(args)
+    metrics_server = None
+    if getattr(args, "metrics_port", None) is not None:
+        from tpu_node_checker_torch.metrics import MetricsServer
+
+        metrics_server = MetricsServer(args.metrics_port, obs=obs)
+        print(f"Serving /metrics on port {metrics_server.port}", file=sys.stderr)
+    last_code: Optional[int] = None
+    # The previous round's sick-node set (None = unknown: first round,
+    # resumed from a log that records only the code, or an error round).
+    # Part of the change fingerprint so a same-code node swap still alerts.
+    last_sick: Optional[tuple] = None
+    # The previous round's budget/lease denial fingerprint (empty until the
+    # remediation engine is ported).
+    last_denials: Optional[tuple] = None
+    if on_change:
+        # Resume across restarts: recover the last recorded outcome from the
+        # trend log so a pod restart doesn't re-alert on an unchanged state.
+        last_code = _recover_last_code(args)
+        if last_code is not None:
+            print(
+                f"Resuming state-transition alerting from exit {last_code} "
+                f"(recovered from {args.log_jsonl})",
+                file=sys.stderr,
+            )
+    breaker = WatchBreaker()
+    stop = threading.Event()
+    prev_handler = _install_stop_signal(stop)
+    username = getattr(args, "slack_username", notify.DEFAULT_USERNAME)
+    round_seq = 0
+    try:
+        while True:
+            round_start = time.monotonic()
+            round_seq += 1
+            # One trace per round: the check's phases and the round's events
+            # share its trace_id.
+            tracer = obs.tracer(round_seq)
+            # The try covers ONLY the check itself: a failure here means "the
+            # monitor is down" — a state of its own (EXIT_ERROR) so that
+            # recovery also registers as a transition.  Render/notify problems
+            # afterwards are reported but do not reclassify a successful round.
+            try:
+                result = run_check(args, tracer=tracer, events=obs.events)
+            except KeyboardInterrupt:
+                raise
+            except Exception as exc:  # tnc: allow-broad-except(a bad round must not kill the daemon)
+                code = EXIT_ERROR
+                tracer.set_error(str(exc))
+                print(f"Check round failed: {exc}", file=sys.stderr)
+                # The cached keep-alive client just failed a round: drop it so
+                # the next round redials (and re-resolves credentials) instead
+                # of re-trusting a pool that may hold only dead sockets.
+                reset_client_cache()
+                transition = breaker.record_failure()
+                if metrics_server is not None:
+                    metrics_server.set_breaker(breaker.as_dict())
+                    metrics_server.mark_error(EXIT_ERROR)
+                _append_state_log(args, None, error=str(exc))
+                if transition == "opened":
+                    obs.events.emit(
+                        "breaker-opened",
+                        trace_id=tracer.trace_id,
+                        consecutive_failures=breaker.consecutive_failures,
+                        error=str(exc),
+                    )
+                sick = denials = None  # an error round observed no nodes
+                changed = last_code is None or code != last_code
+                if webhook:
+                    if transition == "opened":
+                        # ONE degraded alert covers the whole open stretch —
+                        # not one page per failed round.
+                        notify.send_slack_message(
+                            webhook,
+                            f"🚨 *Accelerator node monitor DEGRADED*: "
+                            f"{breaker.consecutive_failures} consecutive check "
+                            f"rounds failed (last: {exc}). Widening the check "
+                            "interval; further failure alerts suppressed "
+                            "until recovery.",
+                            username=username,
+                            max_retries=0,  # don't stall the watch loop
+                        )
+                    elif breaker.open:
+                        pass  # suppressed: the degraded alert covers it
+                    elif (not on_change) or changed:
+                        notify.send_slack_message(
+                            webhook,
+                            f"❌ *Accelerator node check FAILED to run*: {exc}",
+                            username=username,
+                            max_retries=0,  # don't stall the watch loop on retries
+                        )
+            else:
+                code = result.exit_code
+                transition = breaker.record_success()
+                if transition == "closed":
+                    obs.events.emit(
+                        "breaker-closed", trace_id=tracer.trace_id
+                    )
+                for t in (result.payload.get("history") or {}).get(
+                    "transitions", []
+                ):
+                    if t.get("actionable"):
+                        # The quarantine lifecycle, joinable to its round:
+                        # →FAILED / →CHRONIC / a re-earned HEALTHY.
+                        obs.events.emit(
+                            "fsm-transition",
+                            trace_id=tracer.trace_id,
+                            node=t.get("node"),
+                            transition=t,
+                        )
+                # BEFORE the scrape surface refreshes: update(result)
+                # renders obs.prometheus_lines(), and this round's link
+                # samples must already be in the family it renders.
+                obs.record_mesh_links(_mesh_link_samples(result.accel or []))
+                if metrics_server is not None:
+                    metrics_server.set_breaker(breaker.as_dict())
+                    metrics_server.update(result)
+                _append_state_log(args, result)
+                sick = _round_sick_set(result)
+                denials = _round_denials_fp(result)
+                # Change fingerprint = exit code + sick-node set: a node
+                # swap inside an unchanged code is still a transition.  The
+                # set half compares only when both sides are known — after
+                # a restart the log yields the code alone, and an unchanged
+                # code must not re-alert just because the set is unknown.
+                # An actionable hysteresis transition is a change by itself:
+                # a RECOVERING node re-earning HEALTHY left the sick set
+                # rounds ago, so neither half above moves when its
+                # quarantine finally lifts — yet that lift must page.
+                hist = result.payload.get("history")
+                actionable = bool(
+                    hist
+                    and any(
+                        t.get("actionable") for t in hist.get("transitions", [])
+                    )
+                )
+                changed = (
+                    last_code is None
+                    or code != last_code
+                    or actionable
+                    or (last_sick is not None and sick != last_sick)
+                    # A NEW (domain, reason) refusal — or one clearing —
+                    # is a transition; the same refusal repeating every
+                    # round of a standing storm is not.
+                    or (last_denials is None and bool(denials))
+                    or (last_denials is not None and denials is not None
+                        and denials != last_denials)
+                )
+                if transition == "closed":
+                    print(
+                        "Monitor recovered: check rounds succeeding again; "
+                        "interval restored.",
+                        file=sys.stderr,
+                    )
+                    if webhook:
+                        notify.send_slack_message(
+                            webhook,
+                            "✅ *Accelerator node monitor RECOVERED*: check "
+                            "rounds are succeeding again (interval restored).",
+                            username=username,
+                            max_retries=0,
+                        )
+                try:
+                    render_and_notify(args, result, notify_enabled=(not on_change) or changed)
+                except Exception as exc:  # tnc: allow-broad-except(e.g. stdout pipe gone)
+                    print(f"Render/notify failed (check itself OK): {exc}", file=sys.stderr)
+            # The round's trace is done: freeze it, feed the phase
+            # histograms, keep it in the debug ring — failed rounds too,
+            # labeled with their error.
+            obs.complete(tracer)
+            if getattr(args, "trace", None):
+                _write_trace_file(args.trace, tracer)
+            if last_code is not None and code != last_code:
+                print(f"State change: exit {last_code} → {code}", file=sys.stderr)
+            elif last_sick is not None and sick is not None and sick != last_sick:
+                print(
+                    f"State change: sick-node set {list(last_sick)} → "
+                    f"{list(sick)} (exit {code} unchanged)",
+                    file=sys.stderr,
+                )
+            last_code = code
+            last_sick = sick
+            last_denials = denials
+            effective_interval = interval * breaker.interval_scale()
+            if breaker.open:
+                print(
+                    f"Watch breaker OPEN ({breaker.consecutive_failures} "
+                    f"consecutive failed rounds): next round in "
+                    f"{effective_interval:g}s.",
+                    file=sys.stderr,
+                )
+            # Fixed cadence, not fixed gap: the round's own cost (a
+            # workload-level probe takes seconds) comes out of the interval,
+            # so round N starts ~N*interval after the first and
+            # --probe-results-max-age freshness math stays honest.  A round
+            # slower than the interval runs back to back rather than
+            # drifting further.  The wait is EVENT-based: SIGTERM wakes it
+            # immediately instead of serving out the sleep.
+            if _wait_for_next_round(
+                stop, max(0.0, effective_interval - (time.monotonic() - round_start))
+            ):
+                print(
+                    "SIGTERM: watch loop stopped cleanly (last round's state "
+                    "log flushed).",
+                    file=sys.stderr,
+                )
+                return 128 + 15  # conventional SIGTERM exit
+    finally:
+        _restore_stop_signal(prev_handler)
+
+
+def _round_denials_fp(result: CheckResult) -> tuple:
+    """Budget/lease denial fingerprint for ``--slack-on-change`` dedup —
+    one definition (remediation.budget.denial_fingerprint): a 30-node
+    storm inside one slice is ONE standing refusal, not 30 alerts, and
+    not a fresh alert per round while it persists."""
+    from tpu_node_checker_torch.remediation.budget import denial_fingerprint
+
+    return denial_fingerprint(
+        (result.payload.get("remediation") or {}).get("denials") or []
+    )
+
+
+def _round_sick_set(result: CheckResult) -> tuple:
+    """The round's sick-node fingerprint for ``--slack-on-change``.
+
+    The exit code alone under-fingerprints: a same-round node swap (A
+    recovers, B fails) keeps the aggregate code and would stay silent, yet
+    both events are pages.  Without history, the set is the raw
+    not-effectively-ready nodes; with ``--history`` it is the DEBOUNCED
+    (name, state) pairs in FAILED/CHRONIC — sub-threshold SUSPECT/
+    RECOVERING wobble must not re-create the per-round alert churn the
+    hysteresis exists to absorb (and FAILED→CHRONIC, same sick set, still
+    alerts because the state rides in the pair).
+    """
+    if result.payload.get("history") is not None:
+        from tpu_node_checker_torch.history.fsm import CHRONIC, FAILED
+
+        return tuple(
+            sorted(
+                (n.name, (n.health or {}).get("state") or "")
+                for n in result.accel
+                if (n.health or {}).get("state") in (FAILED, CHRONIC)
+            )
+        )
+    # The same effectively_ready the exit code consumed — NOT a payload
+    # re-derivation that could drift from it.
+    return tuple(sorted(n.name for n in result.accel if not n.effectively_ready))
+
+
+def _recover_last_code(args) -> Optional[int]:
+    """Last recorded ``exit_code`` from the ``--log-jsonl`` trend log, if any.
+
+    The checkpoint/resume surface of watch mode: the trend log doubles as the
+    durable state record, so ``--slack-on-change`` survives pod restarts
+    without duplicate alerts.  Corrupt/missing logs degrade to ``None``
+    (first round then alerts, the safe direction).
+    """
+    path = getattr(args, "log_jsonl", None)
+    if not path:
+        return None
+    try:
+        with open(path, "rb") as f:
+            # Tail read: the log grows unboundedly; only the end matters.
+            f.seek(0, os.SEEK_END)
+            f.seek(max(0, f.tell() - 8192))
+            lines = f.read().decode("utf-8", errors="replace").strip().splitlines()
+    except OSError:
+        return None
+    for line in reversed(lines):
+        try:
+            code = json.loads(line).get("exit_code")
+        except (json.JSONDecodeError, AttributeError):
+            continue
+        if isinstance(code, int):
+            return code
+    return None

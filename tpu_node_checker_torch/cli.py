@@ -1,6 +1,6 @@
-"""Command line of the PyTorch/CUDA checker: the one-shot fleet round over the
-live node LIST or a NodeList file, and the node side (the emitter and its
-pod's modes).
+"""Command line of the PyTorch/CUDA checker: the fleet round over the live
+node LIST or a NodeList file, once or in the aggregator's ``--watch`` loop,
+and the node side (the emitter and its pod's modes).
 
 ::
 
@@ -20,6 +20,7 @@ pod's modes).
          [--uncordon-after M] [--flap-threshold F] [--flap-window W]]
         [--slack-webhook URL] [--slack-username NAME] [--slack-only-on-error]
         [--slack-retry-count N] [--slack-retry-delay S]
+        [--watch S [--slack-on-change] [--metrics-port PORT] [--event-log FILE]]
     python -m tpu_node_checker_torch --emit-probe FILE|- \\
         [--probe-level {enumerate,compute,collective,mesh,workload}]
         [--probe-timeout S] [--device cpu] [--probe-soak S]
@@ -34,6 +35,7 @@ pod's modes).
         [--probe-soak S] [--probe-topology DIMS] [--device cpu]
     python -m tpu_node_checker_torch --report-fresh FILE [--probe-results-max-age S]
     python -m tpu_node_checker_torch --probe-report-schema
+    python -m tpu_node_checker_torch --version
 
 With no mode flag the one-shot round runs: it lists the cluster's nodes
 (``--kubeconfig``, else ``$KUBECONFIG``, ``~/.kube/config`` or the pod's
@@ -43,6 +45,10 @@ with ``--node-events`` it attaches the recent Events of sick nodes, with
 (``NODE_NAME``, else the hostname), with ``--probe-results`` attaches the
 fleet's emitter reports, with ``--history`` debounces each node's verdict
 through the hysteresis machine, and posts to Slack before it prints.
+With ``--watch`` the round repeats every S seconds until SIGTERM (exit 143):
+``--slack-on-change`` posts only when the outcome changes, a circuit breaker
+widens the interval over consecutive failed rounds, ``--metrics-port``
+serves the round's gauges and ``--event-log`` records the loop's events.
 ``--emit-probe`` writes one report, or with ``--watch`` one every S seconds
 until SIGTERM (exit 143), serving the round's gauges on ``--metrics-port``;
 with ``--probe-distributed`` one emitter per host joins one rendezvous and
@@ -71,6 +77,7 @@ import sys
 import traceback
 from typing import List, Optional
 
+from tpu_node_checker_torch import __version__
 from tpu_node_checker_torch.probe.floors import DEFAULT_CALIBRATION_MARGIN
 from tpu_node_checker_torch.probe.levels import LEVELS
 
@@ -108,6 +115,8 @@ def build_parser() -> argparse.ArgumentParser:
         "exist but none Ready (or the probe / strict slice check failed); 1 = error.",
         allow_abbrev=False,
     )
+    # The JAX checker's words: its prog is the console script's name.
+    p.add_argument("--version", action="version", version=f"tpu-node-checker {__version__}")
     p.add_argument("--kubeconfig", help="path to kubeconfig (default: $KUBECONFIG, then ~/.kube/config, then in-cluster)")
     p.add_argument("--context", help="kubeconfig context to use (default: current-context)")
     p.add_argument("--json", action="store_true",
@@ -158,9 +167,19 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--trace", metavar="FILE",
                    help="write a Chrome-trace-format timeline of the round's phases "
                    "to FILE (open in Perfetto / chrome://tracing)")
+    p.add_argument("--event-log", metavar="FILE",
+                   help="append the unified structured event stream (fleet-"
+                   "API write audits, shard degraded/recovered, breaker "
+                   "open/close, FSM actionable transitions — one JSON line "
+                   "each, stamped with trace_id and cluster) to FILE; events "
+                   "always also go to stderr (requires --watch, --serve or "
+                   "--federate: one-shot runs emit no events)")
     p.add_argument("--watch", type=float, metavar="SECONDS",
-                   help="with --emit-probe: rewrite the report every SECONDS, "
-                   "measured from the start of a round, until SIGTERM (exit 143)")
+                   help="daemon mode: repeat the check every SECONDS, measured "
+                   "from the start of a round, until SIGTERM (exit 143); with "
+                   "--emit-probe, rewrite the report every SECONDS")
+    p.add_argument("--slack-on-change", action="store_true",
+                   help="with --watch: notify only when the check outcome changes")
     p.add_argument("--metrics-port", type=int, metavar="PORT",
                    help="with --watch: serve Prometheus metrics on this port (0 = ephemeral)")
     p.add_argument("--log-jsonl", metavar="FILE",
@@ -335,6 +354,15 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
         p.error("--retry-budget must be >= 0 (0 disables retries)")
     if args.metrics_port is not None and args.watch is None:
         p.error("--metrics-port requires --watch (one-shot runs serve no scrapes)")
+    if args.slack_on_change and args.watch is None:
+        p.error("--slack-on-change requires --watch")
+    if args.event_log and args.watch is None:
+        # One-shot runs emit no events (breaker/FSM lines are daemon-mode
+        # surfaces); the port has no --serve or --federate daemon yet.
+        p.error(
+            "--event-log records daemon-mode events: it requires --watch, "
+            "--serve or --federate"
+        )
     if args.probe_results_required and not args.probe_results:
         p.error("--probe-results-required requires --probe-results DIR")
     for flag, val in (
@@ -457,6 +485,10 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
         for flag, on in (
             ("--slack-webhook", args.slack_webhook),
             ("--slack-only-on-error", args.slack_only_on_error),
+            ("--slack-on-change", args.slack_on_change),
+            # The emitter loop runs no round engine: no breaker/FSM events
+            # exist to log.
+            ("--event-log", args.event_log),
         ):
             if on:
                 # Emitters never notify: Slack is the aggregator's job.
@@ -508,9 +540,6 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
         ("--emit-probe", args.emit_probe), ("--selftest", args.selftest),
         ("--calibrate", args.calibrate is not None), ("--report-fresh", args.report_fresh),
         ("--probe-report-schema", args.probe_report_schema)) if on), None)
-    if args.watch is not None and not args.emit_probe:
-        p.error("--watch requires --emit-probe (the fleet round's --watch loop "
-                "is not ported)")
     if args.json and mode not in (None, "--selftest"):
         p.error(f"--json requires --selftest or a one-shot round (not {mode})")
     if args.probe_results_max_age != p.get_default("probe_results_max_age") and not (
@@ -566,6 +595,9 @@ def _dispatch(args) -> int:
     from tpu_node_checker_torch import checker
 
     if not args.emit_probe and not args.report_fresh:
+        if args.watch is not None:
+            # The aggregator's loop: returns only on SIGTERM (143).
+            return checker.watch(args)
         return checker.one_shot(args)
     from tpu_node_checker_torch import emit
 

@@ -1,27 +1,29 @@
-"""The emitter's Prometheus scrape: ``--metrics-port`` on the ``--watch`` loop.
+"""Prometheus-format metrics: the ``--metrics-port`` scrape of both loops.
 
-A copy of the part of the JAX package's ``metrics.py`` that an emitter pod
-serves.  Each round's payload is ``{"local_probe": report}``, which renders:
+A copy of the JAX package's ``metrics.py``.  :func:`render_metrics` turns a
+round's :class:`~tpu_node_checker_torch.checker.CheckResult` into the text
+exposition format (version 0.0.4).  Family names, label sets, HELP and TYPE
+text are the JAX package's byte for byte (the TPU words in the HELP text
+included): the PrometheusRule and the dashboards read them, and tests hold
+the two scrapes equal.  What renders depends on the payload:
 
-* ``tpu_node_checker_probe_ok{level}`` and the probe's numeric telemetry
-  (``tpu_node_checker_probe_{devices,matmul_tflops,int8_tops,hbm_gbps,
-  dma_gbps,collective_busbw_gbps,dcn_busbw_gbps,dispatch_overhead_ms,
-  ring_link_gbps,workload_step_ms}``);
-* the fabric verdicts ``tpu_node_checker_probe_{collective_ok,ring_ok}``,
-  ``..._probe_ici_axis_ok{axis}``, ``..._probe_axis_busbw_gbps{axis}``,
-  ``..._probe_fault_domain_ok{axis}``, ``..._probe_ring_bad_links`` and
-  ``..._probe_ring_bad_link{link}``;
-* ``tpu_node_checker_probe_hbm_capacity_ok{generation}``,
-  ``..._probe_hbm_min_gb``, ``..._probe_perf_floor_ok{generation}`` and
-  ``..._probe_perf_floor_ratio{metric}``;
-* ``tpu_node_checker_exit_code``, ``tpu_node_checker_check_duration_ms``
-  (the probe's ``elapsed_ms``) and
-  ``tpu_node_checker_last_run_timestamp_seconds``.
+* the fleet round of the aggregator's ``--watch`` loop renders the fleet
+  families (``tpu_node_checker_nodes{state}``, ``..._chips{state}``,
+  ``..._node_notready{reason}``, the slice, multislice, probe-host,
+  history, transport and degradation families);
+* with ``--probe``, or in an emitter round (payload
+  ``{"local_probe": report}``), the ``tpu_node_checker_probe_*`` families of
+  the probe's report;
+* every round renders ``tpu_node_checker_exit_code``,
+  ``..._check_duration_ms`` and ``..._last_run_timestamp_seconds``, and in
+  the ``--watch`` loop ``tpu_node_checker_watch_breaker_open`` and
+  ``..._watch_breaker_consecutive_failures``.
 
-Family names, label sets, HELP and TYPE text are the JAX package's byte for
-byte (the TPU words in the HELP text included): the PrometheusRule and the
-dashboards read them, and a test holds the two scrapes equal.  An emitter
-lists no nodes, so no fleet family renders here.
+Families fed by modules the port does not have yet (the watch stream, the
+fleet API server, federation, remediation, analytics) render only from
+payload keys those modules write, so they stay absent here.
+:class:`MetricsServer` serves the latest body on a thread of its own, with
+the round's phase histograms (``obs``) appended.
 """
 
 from __future__ import annotations
@@ -31,10 +33,10 @@ import time
 from http.server import ThreadingHTTPServer
 from typing import List, Optional, Tuple
 
-from tpu_node_checker_torch.checker import CheckResult
+from tpu_node_checker_torch.checker import CheckResult  # noqa: F401 (the result rendered)
 from tpu_node_checker_torch.server.router import Entity, RoutedHandler, Router, negotiate
 
-# Prometheus text exposition format, version 0.0.4: the scrape content type.
+# Prometheus text exposition format, version 0.0.4 — the scrape content type.
 METRICS_CONTENT_TYPE = "text/plain; version=0.0.4"
 
 
@@ -49,21 +51,184 @@ def _line(name: str, value: float, labels: Optional[dict] = None) -> str:
     return f"{name} {value}"
 
 
-def _numeric(value) -> bool:
-    return isinstance(value, (int, float)) and not isinstance(value, bool)
+def _breaker_lines(breaker: dict, cluster: Optional[str] = None) -> List[str]:
+    """The watch-breaker gauge families — ONE definition, shared by the
+    normal render and mark_error's no-result-yet branch (a pod that comes
+    up against a dead API server is exactly when these matter).
+
+    ``cluster`` rides along so an explicitly configured ``--cluster-name``
+    labels these families like every other round family (the breaker is
+    exactly the series a multi-cluster dashboard aggregates ``by
+    (cluster)``); mark_error's no-result-yet branch has no resolved
+    identity yet and renders bare until the first completed round."""
+    labels = {"cluster": cluster} if cluster else None
+    return [
+        "# HELP tpu_node_checker_watch_breaker_open 1 while the watch-mode "
+        "circuit breaker is open (consecutive failed check rounds; interval "
+        "widened, alerts collapsed).",
+        "# TYPE tpu_node_checker_watch_breaker_open gauge",
+        _line(
+            "tpu_node_checker_watch_breaker_open",
+            1.0 if breaker.get("open") else 0.0,
+            labels,
+        ),
+        "# HELP tpu_node_checker_watch_breaker_consecutive_failures "
+        "Consecutive failed watch rounds (resets to 0 on success).",
+        "# TYPE tpu_node_checker_watch_breaker_consecutive_failures gauge",
+        _line(
+            "tpu_node_checker_watch_breaker_consecutive_failures",
+            float(breaker.get("consecutive_failures", 0)),
+            labels,
+        ),
+    ]
 
 
-def render_metrics(result: CheckResult, exit_code_override: Optional[int] = None) -> str:
-    """CheckResult → Prometheus text exposition (version 0.0.4)."""
+def render_metrics(
+    result,
+    exit_code_override: Optional[int] = None,
+    breaker: Optional[dict] = None,
+) -> str:
+    """CheckResult → Prometheus text exposition (version 0.0.4).
+
+    ``breaker`` (watch mode only) is the WatchBreaker state dict — rendered
+    as its own gauges so "the monitor itself is degraded" is alertable
+    separately from "the fleet is degraded"."""
     lines: List[str] = []
+
+    payload = result.payload
+    # Cluster identity (--cluster-name satellite of the federation tier):
+    # an EXPLICITLY configured name (flag/env) labels every round family —
+    # the multi-cluster Prometheus setup's aggregation key.  Inferred
+    # defaults (kube context, hostname) stamp the payload but never the
+    # labels: a pod hostname churns per restart, and each churn would mint
+    # a whole new series set.  The info family below carries the resolved
+    # identity either way.
+    cluster = payload.get("cluster")
+    cluster_label = (
+        cluster if payload.get("cluster_source") in ("flag", "env") else None
+    )
 
     def family(name: str, mtype: str, help_text: str, samples: List[Tuple[dict, float]]):
         lines.append(f"# HELP {name} {help_text}")
         lines.append(f"# TYPE {name} {mtype}")
         for labels, value in samples:
+            if cluster_label is not None:
+                labels = {**(labels or {}), "cluster": cluster_label}
             lines.append(_line(name, value, labels or None))
 
-    probe = result.payload.get("local_probe")
+    if cluster:
+        family(
+            "tpu_node_checker_cluster_info",
+            "gauge",
+            "The resolved cluster identity this checker stamps into every "
+            "payload/snapshot (source: flag | env | context | hostname).",
+            [({"cluster": cluster,
+               "source": str(payload.get("cluster_source") or "")}, 1.0)],
+        )
+    # Fleet families render only for aggregator payloads: an emitter-mode
+    # scrape (probe-only payload, no LIST ran) must not advertise
+    # nodes{state="total"} 0 — "zero nodes" and "this process never counted
+    # nodes" are different facts.
+    if "total_nodes" in payload:
+        family(
+            "tpu_node_checker_nodes",
+            "gauge",
+            "Accelerator node counts by state.",
+            [({"state": "total"}, payload.get("total_nodes", 0)),
+             ({"state": "ready"}, payload.get("ready_nodes", 0))],
+        )
+        family(
+            "tpu_node_checker_chips",
+            "gauge",
+            "Accelerator device counts by state.",
+            [({"state": "total"}, payload.get("total_chips", 0)),
+             ({"state": "ready"}, payload.get("ready_chips", 0))],
+        )
+        notready: dict = {}
+        for n in payload.get("nodes", []):
+            if not n.get("ready"):
+                reason = (n.get("not_ready") or {}).get("reason") or "unknown"
+                notready[reason] = notready.get(reason, 0) + 1
+        family(
+            "tpu_node_checker_node_notready",
+            "gauge",
+            "NotReady nodes by kubelet Ready-condition reason ('unknown' when "
+            "the API gave none).",
+            [({"reason": r}, float(c)) for r, c in sorted(notready.items())],
+        )
+        # "slice" is the unique series key: several single-host slices can
+        # share one nodepool, and duplicate label sets would invalidate the
+        # whole scrape.
+        slice_labels = lambda s: {  # noqa: E731
+            "slice": s.get("id") or "",
+            "nodepool": s.get("nodepool") or "",
+            "topology": s.get("topology") or "",
+        }
+        slices = payload.get("slices", [])
+        family(
+            "tpu_node_checker_slice_complete",
+            "gauge",
+            "1 when every host the slice topology implies is effectively Ready.",
+            [(slice_labels(s), 1.0 if s.get("complete") else 0.0) for s in slices],
+        )
+        family(
+            "tpu_node_checker_slice_ready_chips",
+            "gauge",
+            "Effectively-Ready chips per slice.",
+            [(slice_labels(s), s.get("ready_chips", 0)) for s in slices],
+        )
+        family(
+            "tpu_node_checker_slice_expected_chips",
+            "gauge",
+            "Chips the slice topology label promises.",
+            [(slice_labels(s), s.get("expected_chips") or 0) for s in slices],
+        )
+    multislices = payload.get("multislices") or []
+    if multislices:
+        ms_labels = lambda m: {"group": m.get("group") or ""}  # noqa: E731
+        family(
+            "tpu_node_checker_multislice_complete",
+            "gauge",
+            "1 when every member slice of the DCN-joined group is complete.",
+            [(ms_labels(m), 1.0 if m.get("complete") else 0.0) for m in multislices],
+        )
+        family(
+            "tpu_node_checker_multislice_ready_chips",
+            "gauge",
+            "Effectively-Ready chips across the multislice group.",
+            [(ms_labels(m), m.get("ready_chips", 0)) for m in multislices],
+        )
+        family(
+            "tpu_node_checker_multislice_slices",
+            "gauge",
+            "Member slices present in the cluster for the group.",
+            [(ms_labels(m), m.get("num_slices", 0)) for m in multislices],
+        )
+    cordon = payload.get("cordon")
+    if cordon is not None:
+        family(
+            "tpu_node_checker_cordoned_nodes",
+            "gauge",
+            "Nodes cordoned by --cordon-failed this round (dry-run rounds "
+            "report what would have been cordoned).",
+            [({}, len(cordon.get("cordoned", [])))],
+        )
+        family(
+            "tpu_node_checker_cordon_skipped_over_cap",
+            "gauge",
+            "Probe-failed candidates left alone by the --cordon-max budget — "
+            "nonzero means humans must look NOW.",
+            [({}, len(cordon.get("skipped_over_cap", [])))],
+        )
+    uncordon = payload.get("uncordon")
+    if uncordon is not None:
+        family(
+            "tpu_node_checker_uncordoned_nodes",
+            "gauge",
+            "Quarantines lifted by --uncordon-recovered this round.",
+            [({}, len(uncordon.get("uncordoned", [])))],
+        )
+    probe = payload.get("local_probe")
     if probe:
         family(
             "tpu_node_checker_probe_ok",
@@ -72,7 +237,7 @@ def render_metrics(result: CheckResult, exit_code_override: Optional[int] = None
             [({"level": probe.get("level", "")}, 1.0 if probe.get("ok") else 0.0)],
         )
         telemetry = [
-            # (report key, metric suffix, help)
+            # (payload key, metric suffix, help)
             ("device_count", "probe_devices", "Chips the probe enumerated."),
             ("matmul_tflops", "probe_matmul_tflops", "MXU burn throughput."),
             ("int8_tops", "probe_int8_tops", "Int8 MXU matmul throughput."),
@@ -91,10 +256,12 @@ def render_metrics(result: CheckResult, exit_code_override: Optional[int] = None
         ]
         for key, suffix, help_text in telemetry:
             value = probe.get(key)
-            if _numeric(value):
+            if isinstance(value, (int, float)) and not isinstance(value, bool):
                 family(f"tpu_node_checker_{suffix}", "gauge", help_text, [({}, value)])
-        # Boolean fabric verdicts as 0/1 gauges, so a flapping link shows up
-        # as a time series.
+        # Fabric-fault trending: boolean fabric verdicts as 0/1 gauges, the
+        # per-torus-axis localization map, and named bad ICI links — so a
+        # flapping link or a recurring sick axis shows up as a time series,
+        # not only in one round's JSON.
         for key, suffix, help_text in (
             ("collective_ok", "probe_collective_ok",
              "1 when flat psum/all_gather/reduce-scatter verified."),
@@ -123,8 +290,9 @@ def render_metrics(result: CheckResult, exit_code_override: Optional[int] = None
             )
         floor = probe.get("perf_floor")
         if isinstance(floor, dict) and isinstance(floor.get("ratios"), dict):
-            # The measured/expected ratio per metric is the trend line that
-            # catches gradual degradation before it crosses the floor.
+            # Floor grading (probe/floors.py): the measured/peak ratio per
+            # metric is the trend line that catches gradual thermal
+            # degradation before it crosses the floor.
             family(
                 "tpu_node_checker_probe_perf_floor_ok",
                 "gauge",
@@ -150,11 +318,19 @@ def render_metrics(result: CheckResult, exit_code_override: Optional[int] = None
                 "Per-ICI-torus-dimension psum verdict (0 names the sick axis).",
                 [({"axis": a}, 1.0 if ok else 0.0) for a, ok in sorted(axis_ok.items())],
             )
-        axis_bw = probe.get("ici_axis_busbw_gbps") or probe.get("fault_domain_busbw_gbps")
+        axis_bw = probe.get("ici_axis_busbw_gbps") or probe.get(
+            "fault_domain_busbw_gbps"
+        )
         if isinstance(axis_bw, dict):
-            samples = [({"axis": a}, v) for a, v in sorted(axis_bw.items()) if _numeric(v)]
+            samples = [
+                ({"axis": a}, v)
+                for a, v in sorted(axis_bw.items())
+                if isinstance(v, (int, float)) and not isinstance(v, bool)
+            ]
             if samples:
-                # An axis can be correct but slow; its bandwidth trend shows it.
+                # A torus dimension (or the DCN boundary) can be correct but
+                # SLOW; per-axis bandwidth trends catch the degradation the
+                # exact compare cannot see.
                 family(
                     "tpu_node_checker_probe_axis_busbw_gbps",
                     "gauge",
@@ -164,8 +340,9 @@ def render_metrics(result: CheckResult, exit_code_override: Optional[int] = None
                 )
         domains = probe.get("fault_domain_ok")
         if isinstance(domains, dict) and domains:
-            # Axis "dcn" is the slice boundary, t* the torus axes: a 0 names
-            # the sick domain.
+            # Multislice hybrid-mesh verdicts: axis "dcn" is the slice
+            # boundary, t* the intra-slice ICI torus — a 0 attributes the
+            # fault to its domain (different cables, different repair).
             family(
                 "tpu_node_checker_probe_fault_domain_ok",
                 "gauge",
@@ -187,8 +364,355 @@ def render_metrics(result: CheckResult, exit_code_override: Optional[int] = None
                     "tpu_node_checker_probe_ring_bad_link",
                     "gauge",
                     "1 per named bad ICI link (receiver-side hop i->i+1).",
-                    [({"link": str(link)}, 1.0) for link in bad_links],
+                    [({"link": str(l)}, 1.0) for l in bad_links],
                 )
+    planned: dict = {}
+    for n in payload.get("nodes", []):
+        p = n.get("planned")
+        if isinstance(p, dict):
+            for reason in p.get("disruptions") or []:
+                planned[reason] = planned.get(reason, 0) + 1
+    if planned:
+        # Planned-disruption context: lets alert rules separate "maintenance
+        # drain in progress" from "hardware down" without JSON parsing.
+        family(
+            "tpu_node_checker_planned_disruption_nodes",
+            "gauge",
+            "Nodes carrying a planned-disruption taint, by reason "
+            "(autoscaler scale-down / GKE impending termination).",
+            [({"reason": r}, c) for r, c in sorted(planned.items())],
+        )
+    mismatched = sum(
+        1
+        for n in payload.get("nodes", [])
+        if isinstance(n.get("probe"), dict) and n["probe"].get("kind_mismatch")
+    )
+    if mismatched:
+        # Label-vs-enumerated-generation contradictions (informational in the
+        # check itself) become a trendable series so a mislabeled pool is
+        # alertable without JSON parsing.  No series when clean; a count
+        # only — the node names live in the JSON payload.
+        family(
+            "tpu_node_checker_kind_mismatch_nodes",
+            "gauge",
+            "Nodes whose probed TPU generation contradicts their GKE "
+            "accelerator label (mislabeled pool / wrong image).",
+            [({}, mismatched)],
+        )
+    summary = payload.get("probe_summary")
+    if summary is not None:
+        # Fleet chip-health roll-up under the DaemonSet pattern
+        # (--probe-results): the aggregator Deployment alerts on "N hosts
+        # probe-failed" straight off the scrape, no JSON-log parsing.
+        family(
+            "tpu_node_checker_probe_hosts",
+            "gauge",
+            "Hosts by data-plane probe state across the fleet "
+            "(--probe-results roll-up).",
+            [
+                ({"state": "reported"}, summary.get("hosts_reported", 0)),
+                ({"state": "ok"}, summary.get("hosts_ok", 0)),
+                ({"state": "failed"}, len(summary.get("hosts_failed", []))),
+                ({"state": "missing"}, len(summary.get("hosts_missing", []))),
+                # Subset of "failed" whose probe flunked the perf floor —
+                # throttled, not dead.  Always emitted (0 included) so the
+                # family's states stay consistent and recovery reads as a
+                # return to zero, not a vanished series.
+                ({"state": "floor_failed"},
+                 len(summary.get("hosts_floor_failed", []))),
+            ],
+        )
+        skipped = summary.get("reports_skipped")
+        if skipped:
+            # Refused reports by reason — a rising "future_skew" or "stale"
+            # series means emitters (or their clocks) are sick even though
+            # the aggregator keeps running.
+            family(
+                "tpu_node_checker_probe_reports_skipped",
+                "gauge",
+                "Probe report files refused this round, by reason "
+                "(stale, future_skew = clock skew, unreadable, schema).",
+                [({"reason": r}, n) for r, n in sorted(skipped.items())],
+            )
+        unhealthy = [("failed", h) for h in summary.get("hosts_failed", [])] + [
+            ("missing", h) for h in summary.get("hosts_missing", [])
+        ]
+        if unhealthy:
+            # Info-style series naming the sick hosts; healthy hosts emit no
+            # series, so cardinality tracks the (alertable) problem count,
+            # not fleet size.  Capped all the same: a fleet-wide emitter
+            # outage (every host missing) must not mint one series per node —
+            # the aggregate family above carries the full counts, and the cap
+            # is surfaced as its own series rather than silently truncating
+            # (same policy as the Slack list caps).
+            cap = 100
+            family(
+                "tpu_node_checker_probe_host_unhealthy",
+                "gauge",
+                "1 per host whose chip probe failed or that never reported "
+                f"(first {cap}; see ..._probe_hosts for full counts).",
+                [({"host": h, "state": state}, 1.0) for state, h in unhealthy[:cap]],
+            )
+            if len(unhealthy) > cap:
+                family(
+                    "tpu_node_checker_probe_host_unhealthy_omitted",
+                    "gauge",
+                    "Unhealthy hosts beyond the per-host series cap.",
+                    [({}, len(unhealthy) - cap)],
+                )
+    remediation = payload.get("remediation")
+    if remediation is not None:
+        # The budget engine's round view (--slice-floor-pct /
+        # --disruption-budget / legacy --cordon-max denials): refusals are
+        # the alertable signal — a rising denied rate during a storm is
+        # the budget protecting capacity, and exactly when humans must
+        # look.
+        denied = remediation.get("denied_total") or {}
+        family(
+            "tpu_node_checker_remediation_denied_total",
+            "counter",
+            "Actuations the disruption-budget engine refused, by reason "
+            "(cordon-max, slice-floor, disruption-budget, pdb, "
+            "lease-denied, lease-unreachable; 'none' = no denials yet).",
+            [({"reason": r}, float(n)) for r, n in sorted(denied.items())]
+            or [({"reason": "none"}, 0.0)],
+        )
+        actions = remediation.get("actions_total") or {}
+        family(
+            "tpu_node_checker_remediation_actions_total",
+            "counter",
+            "Actuations applied through the budget engine, by action "
+            "(cordon/drain/uncordon/clear-annotation/repair; dry runs "
+            "excluded; 'none' = no actuations yet).",
+            [({"action": a}, float(n)) for a, n in sorted(actions.items())]
+            or [({"action": "none"}, 0.0)],
+        )
+        domains = remediation.get("domains") or {}
+        family(
+            "tpu_node_checker_remediation_domains",
+            "gauge",
+            "Failure domains (slices) in the budget engine's view: total, "
+            "and at_floor = no actuation headroom left above the "
+            "healthy-chip floor.",
+            [({"state": "total"}, float(domains.get("total", 0))),
+             ({"state": "at_floor"}, float(domains.get("at_floor", 0)))],
+        )
+        budget = remediation.get("budget")
+        if isinstance(budget, dict):
+            family(
+                "tpu_node_checker_remediation_budget_remaining",
+                "gauge",
+                "Actuation permits left in the --disruption-budget "
+                "window/round.",
+                [({}, float(budget.get("remaining", 0)))],
+            )
+        repairs = remediation.get("repairs")
+        if isinstance(repairs, dict):
+            family(
+                "tpu_node_checker_remediation_repairs_total",
+                "counter",
+                "Repair hooks by outcome (fired = started, succeeded = "
+                "node re-earned HEALTHY, failed = the hook itself "
+                "errored).",
+                [({"result": "fired"}, float(repairs.get("fired_total", 0))),
+                 ({"result": "succeeded"},
+                  float(repairs.get("succeeded_total", 0))),
+                 ({"result": "failed"},
+                  float(repairs.get("failed_total", 0)))],
+            )
+            family(
+                "tpu_node_checker_remediation_repair_age_seconds",
+                "gauge",
+                "Age of the oldest repair with no terminal state (0 = "
+                "none in flight) — the stuck-repair alert's input.",
+                [({}, float(repairs.get("oldest_age_s", 0.0)))],
+            )
+    history = payload.get("history")
+    if history is not None:
+        # Hysteresis roll-up (--history): EVERY state always emits (0
+        # included) so a node leaving CHRONIC reads as a return to zero,
+        # not a vanished series — same policy as probe_hosts.
+        from tpu_node_checker_torch.history.fsm import STATES
+
+        states = history.get("states") or {}
+        family(
+            "tpu_node_checker_node_state",
+            "gauge",
+            "Accelerator nodes by hysteresis state (HEALTHY/SUSPECT/FAILED/"
+            "RECOVERING/CHRONIC; CHRONIC = flap detector tripped, held "
+            "cordoned).",
+            [({"state": s}, float(states.get(s, 0))) for s in STATES],
+        )
+        family(
+            "tpu_node_checker_node_flaps_total",
+            "counter",
+            "Lifetime verdict flips summed across the fleet's history "
+            "store — a rising rate is quarantine churn in progress even "
+            "while every round's aggregate grade stays green.",
+            [({}, float(history.get("flaps_total", 0)))],
+        )
+    analytics = payload.get("analytics")
+    if analytics is not None:
+        # Fleet analytics tier (--analytics): prediction and roll-up
+        # telemetry.  Gauges cover the standing state; counters are
+        # lifetime (the store/detector persist across watch rounds).
+        family(
+            "tpu_node_checker_analytics_predictions_total",
+            "counter",
+            "Changepoint detections (CUSUM flap episodes opened) — each "
+            "one promoted a still-HEALTHY flapper to SUSPECT ahead of "
+            "the FSM's own evidence.",
+            [({}, float(analytics.get("predictions_total", 0)))],
+        )
+        family(
+            "tpu_node_checker_analytics_suspects",
+            "gauge",
+            "Nodes currently inside an active changepoint episode (the "
+            "standing prediction set the remediation budget view "
+            "surfaces).",
+            [({}, float(len(analytics.get("suspects") or ())))],
+        )
+        family(
+            "tpu_node_checker_analytics_buckets",
+            "gauge",
+            "Closed roll-up buckets retained in the segment store, by "
+            "resolution (seconds).",
+            [({"res": res}, float(n))
+             for res, n in sorted((analytics.get("buckets") or {}).items())],
+        )
+        family(
+            "tpu_node_checker_analytics_rollup_lines_total",
+            "counter",
+            "Roll-up lines appended to segment files through the "
+            "append_bucket gate (lifetime).",
+            [({}, float(analytics.get("rollup_lines_total", 0)))],
+        )
+        family(
+            "tpu_node_checker_analytics_compactions_total",
+            "counter",
+            "Atomic segment-file compactions (tmp+rename rewrites of a "
+            "shard's live bucket set).",
+            [({}, float(analytics.get("compactions_total", 0)))],
+        )
+        sketch_samples = analytics.get("sketch_samples")
+        if sketch_samples:
+            family(
+                "tpu_node_checker_analytics_sketch_samples_total",
+                "counter",
+                "Duration samples folded into mergeable percentile "
+                "sketches, by metric stream (mttr_s / repair_age_s / "
+                "round_ms / link_us) — the raw material of the federated "
+                "SLO percentiles.",
+                [({"metric": metric}, float(n))
+                 for metric, n in sorted(sketch_samples.items())],
+            )
+    transport = payload.get("api_transport")
+    if transport:
+        # Keep-alive pool telemetry (session-lifetime counters): opened
+        # flat + reused climbing = the pooled transport amortizing its
+        # handshakes across watch rounds; opened tracking requests_sent
+        # means the server is dropping keep-alive and every round pays
+        # TCP+TLS again.
+        family(
+            "tpu_node_checker_api_connections_opened_total",
+            "counter",
+            "TCP(+TLS) connections the checker's API session has dialed "
+            "(lifetime of the pooled session).",
+            [({}, transport.get("connections_opened", 0))],
+        )
+        family(
+            "tpu_node_checker_api_requests_total",
+            "counter",
+            "Kubernetes API requests sent over the pooled session.",
+            [({}, transport.get("requests_sent", 0))],
+        )
+        family(
+            "tpu_node_checker_api_requests_reused_total",
+            "counter",
+            "API requests served over an already-open keep-alive "
+            "connection (no handshake paid).",
+            [({}, transport.get("requests_reused", 0))],
+        )
+        truncated = transport.get("list_truncated")
+        if truncated:
+            # No-silent-caps: a LIST walk that exhausted its page budget
+            # with the continue token still set lost its tail — per
+            # resource, so an events-triage shortfall and a node-LIST
+            # abort alert differently.  Absent entirely on healthy
+            # sessions (the payload omits the key at zero).
+            family(
+                "tpu_node_checker_api_list_truncated_total",
+                "counter",
+                "Paginated LIST walks that exhausted their page budget "
+                "with the continue token still set (the tail of the "
+                "listing was not fetched), by resource.",
+                [({"resource": r}, n) for r, n in sorted(truncated.items())],
+            )
+        if "retries" in transport:
+            # Graded-retry telemetry (utils/retry.py): a climbing series
+            # means the API path is absorbing transient faults — the
+            # monitor staying green while this rises is the retry layer
+            # doing its job; the reason label says which fault class.
+            by_reason = transport.get("retries_by_reason") or {}
+            samples = [({"reason": r}, n) for r, n in sorted(by_reason.items())]
+            if not samples:
+                samples = [({"reason": "none"}, 0)]
+            family(
+                "tpu_node_checker_api_retries_total",
+                "counter",
+                "Transparent API request retries by transient-fault reason "
+                "(connect_refused, connection_reset, timeout, http_429, "
+                "http_5xx; 'none' = zero retries so far).",
+                samples,
+            )
+    ws = payload.get("watch_stream")
+    if ws is not None:
+        # Watch-stream mode (--watch-stream): event-driven round telemetry.
+        # events climbing while relists stay flat is the stream doing its
+        # job; relists climbing with it means the stream keeps dying and
+        # every "incremental" round is secretly a full LIST again.
+        events = ws.get("events_total") or {}
+        family(
+            "tpu_node_checker_watch_stream_events_total",
+            "counter",
+            "Watch-stream events consumed since process start, by type "
+            "(ADDED/MODIFIED/DELETED/BOOKMARK/ERROR; 'none' = no events "
+            "yet).",
+            [({"type": t}, float(n)) for t, n in sorted(events.items())]
+            or [({"type": "none"}, 0.0)],
+        )
+        relists = ws.get("relists_total") or {}
+        family(
+            "tpu_node_checker_watch_relists_total",
+            "counter",
+            "Full node LISTs performed, by reason (seed = startup, gone = "
+            "410 resourceVersion expiry, stream_end / stream_error = the "
+            "watch connection died) — steady state adds none.",
+            [({"reason": r}, float(n)) for r, n in sorted(relists.items())]
+            or [({"reason": "none"}, 0.0)],
+        )
+        family(
+            "tpu_node_checker_watch_stream_age_seconds",
+            "gauge",
+            "Seconds since the stream last showed life (an event, a "
+            "bookmark, or a (re)connect) — the staleness detector for the "
+            "event-driven cache.",
+            [({}, float(ws.get("stream_age_seconds", 0.0)))],
+        )
+    if "total_nodes" in payload:
+        # Partial degradation: 1 when a NON-essential phase (events fetch,
+        # cordon/uncordon sweep) lost data this round.  The grade gauges
+        # stay truthful; this one says the triage detail around them is
+        # incomplete.
+        family(
+            "tpu_node_checker_round_degraded",
+            "gauge",
+            "1 when a non-essential phase (events, cordon/uncordon) failed "
+            "transiently this round — verdict stands, triage is partial.",
+            [({}, 1.0 if payload.get("degraded") else 0.0)],
+        )
+    if breaker is not None:
+        lines.extend(_breaker_lines(breaker, cluster_label))
     family(
         "tpu_node_checker_exit_code",
         "gauge",
@@ -196,12 +720,18 @@ def render_metrics(result: CheckResult, exit_code_override: Optional[int] = None
         "(0 ok, 1 monitor error, 2 none, 3 degraded).",
         [({}, result.exit_code if exit_code_override is None else exit_code_override)],
     )
-    # An emitter round reports the probe's own elapsed time.
+    # Aggregator rounds report phase-timer totals; emitter rounds report the
+    # probe's own elapsed time — never a constant 0.0 that would graph
+    # emitters as instant.
+    if "timings_ms" in payload:
+        duration = payload.get("timings_ms", {}).get("total", 0.0)
+    else:
+        duration = (probe or {}).get("elapsed_ms", 0.0)
     family(
         "tpu_node_checker_check_duration_ms",
         "gauge",
         "End-to-end duration of the last check (probe time in emitter mode).",
-        [({}, (probe or {}).get("elapsed_ms", 0.0))],
+        [({}, duration)],
     )
     family(
         "tpu_node_checker_last_run_timestamp_seconds",
@@ -213,23 +743,29 @@ def render_metrics(result: CheckResult, exit_code_override: Optional[int] = None
 
 
 class MetricsServer:
-    """Background ``/metrics`` endpoint (and ``/``, its alias) fed by
-    :meth:`update`, on a thread of its own from construction to
-    :meth:`close`.
+    """Background /metrics endpoint fed by ``update(result)``.
 
-    Each round's body is serialized once, with its ETag and gzip variant,
-    so a scrape is a lookup, and a scraper sending ``If-None-Match`` gets a
-    304 for a round it has already seen.
+    Routed through the shared :class:`~tpu_node_checker_torch.server.router.Router`
+    (the same one the ``--serve`` fleet API speaks), so the scrape surface
+    gets the full HTTP contract for free: unknown paths 404, ``HEAD``
+    answers the GET's headers with no body, and the body — static between
+    rounds by construction — carries a strong ETag and a gzip variant, so a
+    scraper sending ``If-None-Match`` pays 304-sized responses for every
+    round it has already seen.
     """
 
-    def __init__(self, port: int, host: str = "0.0.0.0"):
-        self._entity = Entity(b"# tpu-node-checker: no check completed yet\n",
-                              METRICS_CONTENT_TYPE)
+    def __init__(self, port: int, host: str = "0.0.0.0", obs=None):
+        self._body = b"# tpu-node-checker: no check completed yet\n"
+        self._entity = Entity(self._body, METRICS_CONTENT_TYPE)
         self._lock = threading.Lock()
-        self._last_result: Optional[CheckResult] = None
+        # Observability layer (obs.Observability): its histogram families
+        # (round phases) are appended to every per-round body rebuild.
+        self._obs = obs
 
         router = Router()
         router.add("GET", "/metrics", self._get_metrics)
+        # "/" has served the metrics body since the first MetricsServer;
+        # keep the alias — ad-hoc curl probes depend on it.
         router.add("GET", "/", self._get_metrics)
 
         class Handler(RoutedHandler):
@@ -239,7 +775,9 @@ class MetricsServer:
         self._server = ThreadingHTTPServer((host, port), Handler)
         self._server.daemon_threads = True
         self._thread = threading.Thread(
-            target=self._server.serve_forever, name="tnc-metrics-server", daemon=True,
+            target=self._server.serve_forever,
+            name="tnc-metrics-server",
+            daemon=True,
         )
         self._thread.start()
 
@@ -249,37 +787,63 @@ class MetricsServer:
         return negotiate(entity, req.headers)
 
     def _set_body(self, body: bytes) -> None:
+        # One pre-serialized entity per round: gzip + ETag computed at
+        # update time, every scrape is a lookup (same contract as the
+        # fleet API's snapshots).
         with self._lock:
+            self._body = body
             self._entity = Entity(body, METRICS_CONTENT_TYPE)
 
     @property
     def port(self) -> int:
         return self._server.server_address[1]
 
-    def update(self, result: CheckResult) -> None:
-        self._set_body(render_metrics(result).encode())
+    def set_breaker(self, state: Optional[dict]) -> None:
+        """Record the watch breaker's state for subsequent renders (watch
+        mode calls this every round, before update()/mark_error())."""
+        self._breaker = state
+
+    def update(self, result) -> None:
+        text = render_metrics(result, breaker=getattr(self, "_breaker", None))
+        if self._obs is not None:
+            lines = self._obs.prometheus_lines()
+            if lines:
+                text += "\n".join(lines) + "\n"
+        self._set_body(text.encode())
         self._last_result = result
 
     def mark_error(self, exit_code: int = 1) -> None:
-        """A round failed: ``exit_code`` flips so alerts on it fire, the
-        probe gauges keep their last-known values, and
-        ``last_run_timestamp_seconds`` is left out so it goes stale."""
-        last = self._last_result
+        """A check round failed: surface it on the scrape.
+
+        Node/chip gauges keep their last-known values (the cluster state is
+        UNKNOWN, not zero) but ``exit_code`` flips so alerts on it fire, and
+        ``last_run_timestamp_seconds`` deliberately goes stale.
+        """
+        breaker = getattr(self, "_breaker", None)
+        last = getattr(self, "_last_result", None)
         if last is None:
-            body = (
+            head = (
                 "# HELP tpu_node_checker_exit_code Exit code (1 = monitor error).\n"
                 "# TYPE tpu_node_checker_exit_code gauge\n"
                 f"tpu_node_checker_exit_code {exit_code}\n"
-            ).encode()
+            )
+            if breaker is not None:
+                head += "\n".join(_breaker_lines(breaker)) + "\n"
+            body = head.encode()
         else:
-            text = render_metrics(last, exit_code_override=exit_code)
+            # Re-render WITHOUT refreshing the timestamp: drop that family's
+            # sample line so its staleness mirrors reality.
+            text = render_metrics(last, exit_code_override=exit_code, breaker=breaker)
             body = "\n".join(
-                line for line in text.splitlines()
-                if not line.startswith("tpu_node_checker_last_run_timestamp_seconds ")
+                line
+                for line in text.splitlines()
+                # Both sample shapes: bare and cluster-labeled.
+                if not line.startswith(
+                    ("tpu_node_checker_last_run_timestamp_seconds ",
+                     "tpu_node_checker_last_run_timestamp_seconds{")
+                )
             ).encode() + b"\n"
         self._set_body(body)
 
     def close(self) -> None:
         self._server.shutdown()
-        self._server.server_close()
-        self._thread.join()

@@ -185,9 +185,11 @@ def hybrid_spec(
     DCN axis over ``num_slices`` contiguous slices, then one slice's torus
     axes when ``topology`` describes one slice, else one flat ``d`` axis.
 
-    Cards carry no slice index, so only the rehearsal partition
-    (``TNC_CHAOS_SLICES``) forms slices; it raises, with the JAX package's
-    messages, on fewer than 2 slices or an uneven split."""
+    Cards carry no slice index: the slices are the processes of a
+    distributed group (each process's ranks are contiguous, so slice ``s``
+    is process ``s``) or the rehearsal partition (``TNC_CHAOS_SLICES``).
+    It raises, with the JAX package's messages, on fewer than 2 slices or
+    an uneven split."""
     if num_slices is None:
         raise ValueError("devices carry no slice_index — not a multislice job")
     if num_slices < 2:
@@ -480,6 +482,18 @@ class Meeting:
         self.meet_s = time.monotonic() - t0
         self.rank_offset = sum(self.counts[:rendezvous.process_id])
         self.world_size = sum(self.counts)
+
+    @property
+    def slice_indices(self) -> Optional[List[int]]:
+        """One slice per process, where two or more processes have equal
+        card counts: a host's cards share its NVLink domain, and the
+        network between hosts is what DCN is to a TPU multislice job.
+        Process ``p`` holds global ranks ``[p*n, (p+1)*n)``, the contiguous
+        block :func:`hybrid_spec` lays slice ``p`` on.  ``None`` for one
+        process, or for unequal counts, which split into no equal slices."""
+        if len(self.counts) < 2 or len(set(self.counts)) != 1:
+            return None
+        return list(range(len(self.counts)))
 
     @contextlib.contextmanager
     def process_group(self, device_type: str, timeout_s: float):

@@ -20,8 +20,10 @@ Probe levels (each includes the previous):
   over one rank per local card (:mod:`tpu_node_checker_torch.parallel`;
   NCCL on the cards, gloo on the CPU); with a multi-dim ``TNC_TOPOLOGY``
   label, one all_reduce and its bandwidth per torus axis of the rank mesh
-  the label describes; with ``TNC_CHAOS_SLICES=N``, the same over a DCN ×
-  per-slice mesh, so a fault names the slice boundary or a torus axis;
+  the label describes; over a DCN × per-slice mesh instead where the probe
+  has slices (each process of a distributed group with equal card counts,
+  or ``TNC_CHAOS_SLICES=N`` on one host), so a fault names the slice
+  boundary or a torus axis;
 * ``mesh``: the link doctor (:mod:`tpu_node_checker_torch.meshprobe`), every
   link leg of every mesh axis timed on its own with an ``OK | SLOW | DEAD``
   verdict; SLOW legs degrade the node (``mesh_degraded``) without failing
@@ -40,8 +42,10 @@ more than one process, an all_reduce over one rank per process, weighted by
 process index, proves the rendezvous carries data (``distributed_psum``);
 nothing is spawned for it, so the enumerate and compute levels start no
 rank.  From the collective level up, the rank group holds every host's
-cards.  A rendezvous that fails is a failed probe, never a probe of one
-host.
+cards.  Where every process has the same card count, each process is one
+slice (``num_slices``, ``slice_indices``): the network between hosts is the
+DCN axis of the fault-domain block.  A rendezvous that fails is a failed
+probe, never a probe of one host.
 """
 
 from __future__ import annotations
@@ -174,6 +178,11 @@ try:
             f"({cap['fraction']:.0%} of {cap['generation']} nominal "
             f"{cap['expected_gb']} GB)"
         )
+    if meeting is not None and meeting.slice_indices:
+        # A distributed group of equal hosts: each process is one slice,
+        # and the DCN axis of the fault-domain block is the host boundary.
+        out["num_slices"] = len(meeting.slice_indices)
+        out["slice_indices"] = meeting.slice_indices
     if out.get("distributed") and out["ok"] and out["process_count"] > 1:
         # Prove the rendezvous carries data: one all_reduce over one rank per
         # process, each passing its card count x (its index + 1), so that the
@@ -336,10 +345,11 @@ try:
             out["ring_err"] = ring.error
         out["ok"] = out["ok"] and coll.ok and ring.ok
         topo = os.environ.get("TNC_TOPOLOGY")
-        n_slices = 0
+        n_slices = out.get("num_slices") or 0
         if "slices" in chaos:
             # Rehearsal partition: the local cards as N DCN-joined slices,
-            # so the whole fault-domain path runs on one host.
+            # so the whole fault-domain path runs on one host; it overrides
+            # the slices a distributed group stamped.
             try:
                 chaos["slices"] = int(chaos["slices"])
             except ValueError:
