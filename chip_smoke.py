@@ -144,12 +144,37 @@ Phases, one line each (any failure exits non-zero and prints no result):
    same script without the probe through the port and through the JAX
    checker's CLI (equal exit codes, posts, log keys and events, each
    loading no package but its own);
-13. the ``kernels`` line (each kernel at the compute probe's shapes, its
+13. the aggregator's quarantine on this card's reports: the port's emitter
+   writes, four at once, this host's healthy report (compute level), its
+   ``TNC_CHAOS_AXIS=t1`` drill (``--probe-topology 1x1 --probe-level
+   collective``) and the drills of three other GPU nodes (each exit 0 or 3,
+   schema-valid, every kernel launched and equal to its plain version);
+   then the Deployment's loop (``--watch 1 --strict-slices --probe-results
+   DIR --probe-results-required --slack-on-change --metrics-port 0
+   --log-jsonl L --history H --cordon-after 2 --uncordon-after 3
+   --disruption-budget 2/10m --slice-floor-pct 90 --disruption-lease URL
+   --cordon-failed --uncordon-recovered --event-log E``) against the fake
+   API server of 1,000 GPU nodes, which applies each PATCH to the next
+   LIST, and a lease server here over the port's ``FleetLeaseBudget`` (one
+   actuation per 10 minutes): round 1 healthy, rounds 2-3 the drills (one
+   cordon PATCH of this host at round 3, the storm denied by
+   ``--cordon-max`` in one Slack post, one lease granted), rounds 4-6
+   healthy (one uncordon PATCH after round 6), rounds 7-8 the storm alone
+   with the lease server stopped before round 8 (the fallback grants
+   nothing: the last lease left 0), SIGTERM as round 9 starts; the same
+   rounds through the JAX checker's CLI (equal exit codes, PATCH bodies,
+   ``cordon``/``uncordon``/``remediation`` blocks, posts, event lines,
+   lease requests and ``tpu_node_checker_remediation_*`` scrape lines, each
+   CLI loading no package but its own); and ``--trend`` and
+   ``--trend-nodes``, text and ``--json``, through both CLIs on the port's
+   log and store (equal output);
+14. the ``kernels`` line (each kernel at the compute probe's shapes, its
    launches counted on the workload path, in each emitter round, in each
    selftest leg, in each calibration rep, on the distributed workload path,
-   in the one-shot round's probe, in the live round's and in each probed
-   round of the loop, flash also at the training step's shape), then the
-   ``nvidia-smi`` line, then the result line.
+   in the one-shot round's probe, in the live round's, in each probed
+   round of the loop and in each report the quarantine grades, flash also
+   at the training step's shape), then the ``nvidia-smi`` line, then the
+   result line.
 
 Bounds use the H100 SXM data sheet: 3.35 TB/s of device memory, 989 TFLOP/s
 bf16 on the tensor cores.  Times are steady-state CUDA-event times over many
@@ -1325,6 +1350,7 @@ class LiveApi:
         self.nodes, self.events, self.throttle = nodes, events, 0
         self.rounds, self.round = None, 0
         self.requests = {"nodes": 0, "events": 0, "throttled": 0}
+        self.patches = []
         self.lock = threading.Lock()
         api = self
 
@@ -1384,6 +1410,16 @@ class LiveApi:
                 self.send(200, {"kind": "NodeList", "apiVersion": "v1", "metadata": meta,
                                 "items": items[start:start + limit]})
 
+            def do_PATCH(self):  # noqa: N802
+                body = json.loads(self.rfile.read(int(self.headers.get("Content-Length") or 0)))
+                name = urlparse(self.path).path.rpartition("/")[2]
+                with api.lock:
+                    api.patches.append({"node": name, "body": body, "at": time.time()})
+                    for node in api.nodes:
+                        if node["metadata"]["name"] == name:
+                            apply_patch(node, body)
+                self.send(200, {})
+
             def log_message(self, *args):
                 pass
 
@@ -1405,6 +1441,23 @@ class LiveApi:
         self.server.shutdown()
         self.server.server_close()
         self.thread.join()
+
+
+def apply_patch(node: dict, body: dict) -> None:
+    """A strategic-merge PATCH of ``spec.unschedulable`` and annotations, as
+    the apiserver applies it (``null`` deletes a key)."""
+    spec = body.get("spec") or {}
+    if "unschedulable" in spec:
+        if spec["unschedulable"]:
+            node.setdefault("spec", {})["unschedulable"] = True
+        else:
+            node.setdefault("spec", {}).pop("unschedulable", None)
+    for key, value in ((body.get("metadata") or {}).get("annotations") or {}).items():
+        notes = node["metadata"].setdefault("annotations", {})
+        if value is None:
+            notes.pop(key, None)
+        else:
+            notes[key] = value
 
 
 def kubeconfig(path: str, server: str, cluster_extra: str = "") -> str:
@@ -1588,15 +1641,20 @@ def phase11_live_round(torch, root, rows, validate_report) -> None:
 # The CLI of the package named after the record path (the port's or the JAX
 # checker's) with the argv after it, in a process that also appends to that
 # record one line when each round's check starts, one when it ends (its
-# seconds, exit code, phases and probe report), one for each inter-round wait
-# the loop asks for (the seconds, and when), and at exit the packages loaded.
+# seconds, exit code, phases, probe report and the payload's cordon, uncordon
+# and remediation blocks), one for each inter-round wait the loop asks for
+# (the seconds, and when), and at exit the packages loaded.  With
+# SMOKE_ROUND_PLAN set, each check first points the reports link at its
+# round's directory, and the round named stops the lease server first.
 WATCH_CLI_SCRIPT = """
-import importlib, json, sys, time
+import http.client, importlib, json, os, socket, sys, time
 
 checker = importlib.import_module(sys.argv[2] + ".checker")
 cli = importlib.import_module(sys.argv[2] + ".cli")
 record = open(sys.argv[1], "a")
 check, wait_for = checker.run_check, checker._wait_for_next_round
+plan = json.loads(os.environ.get("SMOKE_ROUND_PLAN") or "null")
+started = [0]
 
 
 def write(**entry):
@@ -1604,7 +1662,33 @@ def write(**entry):
     record.flush()
 
 
+def next_round():
+    # The round plan: point the reports link at this round's directory, and
+    # stop the lease server before the round named, until it refuses.
+    started[0] += 1
+    n = started[0]
+    if plan is None:
+        return
+    tmp = plan["link"] + ".next"
+    os.symlink(plan["dirs"][min(n, len(plan["dirs"])) - 1], tmp)
+    os.replace(tmp, plan["link"])
+    if n == plan.get("stop_round"):
+        host, port = plan["stop_url"].rsplit("/", 1)[1].split(":")
+        conn = http.client.HTTPConnection(host, int(port), timeout=10)
+        conn.request("POST", "/smoke/stop", body=b"{}")
+        conn.getresponse().read()
+        conn.close()
+        for _ in range(1000):
+            try:
+                socket.create_connection((host, int(port)), timeout=1).close()
+            except OSError:
+                break
+            time.sleep(0.01)
+        write(event="lease-stopped", round=n)
+
+
 def run_check(args, **kw):
+    next_round()
     trace_id = kw["tracer"].trace_id
     write(event="start", trace_id=trace_id)
     t0 = time.perf_counter()
@@ -1615,7 +1699,8 @@ def run_check(args, **kw):
         raise
     write(event="end", trace_id=trace_id, seconds=time.perf_counter() - t0,
           exit_code=result.exit_code, timings_ms=result.payload.get("timings_ms"),
-          probe=result.local_probe)
+          probe=result.local_probe, blocks={k: result.payload[k] for k in (
+              "cordon", "uncordon", "remediation") if k in result.payload})
     return result
 
 
@@ -1652,20 +1737,27 @@ def read_jsonl(path: str) -> list:
         return [json.loads(x) for x in f.read().splitlines() if x.strip()]
 
 
-def watch_run(root: str, side: str, api, script: list, argv: list, env: dict,
-              work: str) -> dict:
+PHASE12_SCRAPES = ((2, "after round 2"), (6, "breaker open, after round 6"))
+
+
+def watch_run(root: str, side: str, api, script: Optional[list], argv: list, env: dict,
+              work: str, sigterm_at: int = 9, scrape_at: tuple = PHASE12_SCRAPES) -> dict:
     """One run of a loop (``side`` "port" or "jax") over ``script``, through
     WATCH_CLI_SCRIPT: the server answers the n-th node LIST with
-    ``script[n]`` (None is a 500).  ``/metrics`` is read after the second
-    round's line and after the breaker opens; SIGTERM goes as the ninth
-    round's check starts.  Returns what the run printed, logged and served."""
+    ``script[n]`` (None is a 500; no script serves the server's nodes).
+    ``/metrics`` is read after each round ``scrape_at`` names (phase 12:
+    after the second round's line and after the breaker opens); SIGTERM goes
+    as check ``sigterm_at`` starts.  The history starts from ``seed.jsonl``
+    beside ``work`` where there is one.  Returns what the run printed, logged
+    and served."""
     os.makedirs(work)
     paths = {k: os.path.join(work, f) for k, f in (
         ("log", "rounds.jsonl"), ("events", "events.jsonl"), ("record", "record.jsonl"),
         ("out", "stdout.txt"), ("err", "stderr.txt"), ("history", "history.jsonl"))}
-    with open(os.path.join(os.path.dirname(work), "seed.jsonl"), "rb") as f, \
-            open(paths["history"], "wb") as g:
-        g.write(f.read())
+    seed = os.path.join(os.path.dirname(work), "seed.jsonl")
+    if os.path.exists(seed):
+        with open(seed, "rb") as f, open(paths["history"], "wb") as g:
+            g.write(f.read())
     package = "tpu_node_checker_torch" if side == "port" else "tpu_node_checker"
     cmd = [sys.executable, "-c", WATCH_CLI_SCRIPT, paths["record"], package,
            *(a.replace("{dir}", work) for a in argv)]
@@ -1683,12 +1775,12 @@ def watch_run(root: str, side: str, api, script: list, argv: list, env: dict,
                         m = re.search(r"Serving /metrics on port (\d+)", f.read())
                     port = int(m.group(1)) if m else None
                 lines = read_jsonl(paths["log"])
-                if port is not None and len(scrapes) == 0 and len(lines) >= 2:
-                    scrapes.append(("after round 2", http_get(port)))
-                if port is not None and len(scrapes) == 1 and len(lines) >= 6:
-                    scrapes.append(("breaker open, after round 6", http_get(port)))
+                if port is not None and len(scrapes) < len(scrape_at):
+                    after, label = scrape_at[len(scrapes)]
+                    if len(lines) >= after:
+                        scrapes.append((label, http_get(port)))
                 starts = [r for r in read_jsonl(paths["record"]) if r["event"] == "start"]
-                if len(starts) >= 9:
+                if len(starts) >= sigterm_at:
                     break
                 time.sleep(0.01)
             else:
@@ -1883,6 +1975,340 @@ def phase12_watch_loop(torch, root, rows, validate_report) -> None:
     if not all(same.values()):
         fail(f"the port's loop unlike the JAX checker's: {same}")
     phase(12, "the aggregator's loop", seconds=time.perf_counter() - t_phase)
+
+
+class LeaseServer:
+    """The federation aggregator's lease endpoint, served from a thread:
+    ``POST /api/v1/global/disruption-lease`` answered as the JAX fleet API
+    answers it (``server/app.py`` ``_post_lease``) over the port's own
+    ``FleetLeaseBudget``; ``POST /smoke/stop`` stops it (the aggregator
+    dies): the port refuses connections and the kept-alive ones are cut."""
+
+    def __init__(self, port: int, budget: int, window_s: Optional[float]):
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+        from tpu_node_checker_torch.remediation.budget import FleetLeaseBudget
+
+        self.fleet = FleetLeaseBudget(budget, window_s)
+        self.requests, self.stopped, self.conns = [], threading.Event(), []
+        lease = self
+
+        class Handler(BaseHTTPRequestHandler):
+            protocol_version = "HTTP/1.1"
+
+            def setup(self):
+                super().setup()
+                lease.conns.append(self.connection)
+
+            def send(self, status: int, doc: dict) -> None:
+                body = json.dumps(doc).encode()
+                self.send_response(status)
+                self.send_header("Content-Type", "application/json")
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+
+            def do_POST(self):  # noqa: N802 — the handler protocol's name
+                raw = self.rfile.read(int(self.headers.get("Content-Length") or 0))
+                if self.path == "/smoke/stop":
+                    self.send(200, {})
+                    threading.Thread(target=lease.close, daemon=True).start()
+                    return
+                if self.path != "/api/v1/global/disruption-lease":
+                    self.send(404, {"error": "not found"})
+                    return
+                try:
+                    body = json.loads(raw) if raw else {}
+                    if not isinstance(body, dict):
+                        raise ValueError("lease request must be a JSON object")
+                except ValueError as exc:
+                    self.send(400, {"error": f"bad lease request: {exc}"})
+                    return
+                status, resp = lease.fleet.grant(body)
+                lease.requests.append({"body": {k: v for k, v in body.items()
+                                                if k != "trace_id"},
+                                       "status": status, "response": resp})
+                self.send(status, resp)
+
+            def log_message(self, *args):
+                pass
+
+        self.server = ThreadingHTTPServer(("127.0.0.1", port), Handler)
+        self.server.daemon_threads = True
+        self.url = f"http://127.0.0.1:{self.server.server_address[1]}"
+        self.thread = threading.Thread(target=self.server.serve_forever,
+                                       name="chip-smoke-lease", daemon=True)
+        self.thread.start()
+
+    def close(self) -> None:
+        if not self.stopped.is_set():
+            self.stopped.set()
+            self.server.shutdown()
+            self.server.server_close()
+            for conn in self.conns:
+                with contextlib.suppress(OSError):
+                    conn.shutdown(socket.SHUT_RDWR)
+
+
+QUARANTINE_ANNOTATION = "tpu-node-checker.io/quarantined"
+
+
+def masked_patches(patches: list) -> list:
+    """PATCH bodies as sent, the quarantine annotation's timestamp masked."""
+    out = []
+    for p in patches:
+        body = json.loads(json.dumps(p["body"]))
+        notes = (body.get("metadata") or {}).get("annotations") or {}
+        if notes.get(QUARANTINE_ANNOTATION) is not None:
+            notes[QUARANTINE_ANNOTATION] = "<ts>"
+        out.append({"node": p["node"], "body": body})
+    return out
+
+
+def phase13_quarantine(torch, root, rows, validate_report, emit_args=()) -> None:
+    """Phase 13: the aggregator's quarantine, graded on reports that the
+    port's emitter writes on this card: the Deployment's --watch loop with
+    --cordon-failed --uncordon-recovered and the budget engine, against the
+    fake API server (which applies each PATCH) and a lease server, through
+    the port and through the JAX checker's CLI; then the trend readers."""
+    t_phase = time.perf_counter()
+    n = torch.cuda.device_count()
+    host = "gke-h100-host-0"
+    # The storm: three nodes failing with this host.  The candidates follow
+    # the LIST's order, where this host comes first, so it takes the one
+    # cordon --cordon-max (default 1) grants.
+    storm = ["gke-h100-pool-101", "gke-h100-pool-102", "gke-h100-pool-103"]
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("TNC_", "KUBERNETES_SERVICE_"))
+           and k not in ("SLACK_WEBHOOK_URL", "KUBECONFIG", "SMOKE_ROUND_PLAN")}
+    env.update(NODE_NAME=host, TNC_SCHEMA_STRICT="1")
+    work = tempfile.mkdtemp(prefix="chip-smoke-quarantine-")
+
+    # 1. The reports, each written by the port's emitter on this card: this
+    # host healthy (compute) and its t1 drill (collective), and the storm
+    # nodes' drills; at most four at once.
+    drill = ("--probe-topology", "1x1", "--probe-level", "collective")
+    emits = {"healthy": (host, ("--probe-level", "compute"), "0")}
+    emits.update({f"drill {name}": (name, drill, "t1") for name in [host] + storm})
+    paths = {}
+    for key, (name, _, _) in emits.items():
+        os.makedirs(os.path.join(work, "emits", key.replace(" ", "-")))
+        paths[key] = os.path.join(work, "emits", key.replace(" ", "-"), f"{name}.json")
+
+    def emit(key):
+        name, args, axis = emits[key]
+        e = dict(env, NODE_NAME=name)
+        if axis != "0":
+            e["TNC_CHAOS_AXIS"] = axis
+        t0 = time.perf_counter()
+        proc = port_cli(root, "--emit-probe", paths[key], *args, *emit_args, env=e)
+        return proc.returncode, time.perf_counter() - t0, proc.stderr
+
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(max_workers=4) as pool:
+        done = dict(zip(emits, pool.map(emit, emits)))
+    reports, per_emit = {}, {}
+    for key, (rc, seconds, err) in done.items():
+        try:
+            with open(paths[key]) as f:
+                reports[key] = json.load(f)
+        except (OSError, json.JSONDecodeError):
+            fail(f"the emit {key} wrote no report (exit {rc}): {err[-2000:]}")
+        doc = reports[key]
+        per_emit[key] = dict(
+            exit_code=rc, seconds=seconds, ok=doc.get("ok"), level=doc.get("level"),
+            hostname=doc.get("hostname"), error=doc.get("error"),
+            kernel_launches=doc.get("kernel_launches"),
+            kernels_match_plain={k: doc.get(k) for k in ("pallas_ok", "dma_ok",
+                                                         "flash_attention_ok")},
+            schema_violations=validate_report(doc))
+    phase(13, "the reports, written by the port's emitter, four at once", reports=per_emit,
+          seconds=time.perf_counter() - t0)
+    for key, e in per_emit.items():
+        launches = e["kernel_launches"] or {}
+        if (e["exit_code"] != (0 if key == "healthy" else 3) or e["schema_violations"]
+                or e["hostname"] != emits[key][0]
+                or not all(v is True for v in e["kernels_match_plain"].values())
+                or any(not launches.get(r["name"]) for r in rows)
+                or (key == "healthy" and any(launches.get(r["name"]) != r["compute_launches"]
+                                             for r in rows))):
+            fail(f"the emit {key}: {e}")
+    for r in rows:
+        r["quarantine_launches"] = {k: e["kernel_launches"][r["name"]]
+                                    for k, e in per_emit.items()}
+
+    # The rounds' report directories: healthy (this host's healthy report),
+    # the drill (this host's and the storm's drills), and the storm alone
+    # (this host healthy).
+    rounds_dirs = {}
+    for name, keys in (("healthy", ["healthy"]),
+                       ("drill", [f"drill {x}" for x in [host] + storm]),
+                       ("storm", ["healthy"] + [f"drill {x}" for x in storm])):
+        d = rounds_dirs[name] = os.path.join(work, "rounds", name)
+        os.makedirs(d)
+        for key in keys:
+            with open(os.path.join(d, os.path.basename(paths[key])), "w") as f:
+                json.dump(reports[key], f)
+    # 1 healthy; 2-3 the drills (FAILED at 3 under --cordon-after 2); 4-6
+    # healthy (HEALTHY again at 6 under --uncordon-after 3); 7-8 the storm
+    # alone, FAILED again at 8 with the lease server stopped; 9 as 8, the
+    # round SIGTERM lands in.
+    plan_rounds = ["healthy", "drill", "drill", "healthy", "healthy", "healthy",
+                   "storm", "storm"]
+    link = os.path.join(work, "reports")
+    os.symlink(rounds_dirs["healthy"], link)
+    fleet = watch_fleet(host, n, set())
+    lease_port = free_port()
+    argv = ["--kubeconfig", None, "--watch", "1", "--strict-slices", "--probe-results", link,
+            "--probe-results-required", "--slack-on-change", "--metrics-port", "0",
+            "--log-jsonl", "{dir}/rounds.jsonl", "--history", "{dir}/history.jsonl",
+            "--cordon-after", "2", "--uncordon-after", "3", "--disruption-budget", "2/10m",
+            "--slice-floor-pct", "90", "--disruption-lease", f"http://127.0.0.1:{lease_port}",
+            "--cordon-failed", "--uncordon-recovered", "--event-log", "{dir}/events.jsonl"]
+    scrape_at = ((3, "after round 3"), (6, "after round 6"), (8, "after round 8"))
+    runs, posts_of, patches_of, leases_of = {}, {}, {}, {}
+    with webhook() as (url, posts):
+        for side in ("port", "jax"):
+            api = LiveApi(json.loads(json.dumps(fleet)), {})
+            # The fleet budget: one actuation per 10 minutes, so the
+            # allowance left after round 3's lease is 0.
+            lease = LeaseServer(lease_port, 1, 600.0)
+            try:
+                argv[1] = kubeconfig(os.path.join(work, f"kubeconfig-{side}"), api.url)
+                plan = {"link": link, "dirs": [rounds_dirs[k] for k in plan_rounds],
+                        "stop_round": 8, "stop_url": lease.url}
+                start = len(posts)
+                runs[side] = watch_run(root, side, api, None, argv,
+                                       dict(env, SLACK_WEBHOOK_URL=url,
+                                            SMOKE_ROUND_PLAN=json.dumps(plan)),
+                                       os.path.join(work, side), sigterm_at=9,
+                                       scrape_at=scrape_at)
+                posts_of[side] = [p[2]["text"].rsplit("\n`trace: ", 1)[0]
+                                  for p in posts[start:]]
+                with api.lock:
+                    patches_of[side] = list(api.patches)
+                leases_of[side] = list(lease.requests)
+            finally:
+                lease.close()
+                api.close()
+
+    # 2-4. What each run did, round by round.
+    seen = {}
+    for side, run in runs.items():
+        record = run["record"]
+        ends = [r for r in record if r["event"] == "end"]
+        starts = [r for r in record if r["event"] == "start"]
+        exit_line = next((r for r in record if r["event"] == "exit"), {})
+        stopped = next((r for r in record if r["event"] == "lease-stopped"), {})
+        blocks = [r.get("blocks") or {} for r in ends]
+        # The round each PATCH landed in: the last check that started before it.
+        patch_rounds = [sum(1 for s_ in starts if s_["at"] <= p["at"]) for p in patches_of[side]]
+        scraped = {}
+        for label, (status, _, body, ms) in run["scrapes"]:
+            scraped[label] = {"status": status, "ms": ms, "remediation": [
+                line for line in body.decode().splitlines()
+                if line.startswith("tpu_node_checker_remediation")]}
+        got = {
+            "exit_code": run["exit_code"], "rounds": len(ends),
+            "round_exit_codes": [r.get("exit_code") for r in ends],
+            "round_seconds": [r["seconds"] for r in ends],
+            "timings_ms": [r.get("timings_ms") for r in ends],
+            "patches": masked_patches(patches_of[side]), "patch_rounds": patch_rounds,
+            "cordon": [b.get("cordon") for b in blocks],
+            "uncordon": [b.get("uncordon") for b in blocks],
+            "remediation": [b.get("remediation") for b in blocks],
+            "posts": posts_of[side],
+            "events": [{k: v for k, v in e.items() if k not in ("ts", "trace_id")}
+                       for e in run["events"]],
+            "lease_requests": leases_of[side], "lease_stopped_before_round": stopped.get("round"),
+            "scrapes": scraped, "sigterm_to_exit_s": run["sigterm_to_exit_s"],
+            "seconds": run["seconds"], "packages_loaded": exit_line.get("packages"),
+        }
+        seen[side] = got
+        phase(13, f"the Deployment's loop with the quarantine, {side} run", **{
+            k: v for k, v in got.items()
+            if k not in ("cordon", "uncordon", "remediation", "posts", "events", "timings_ms")},
+            cordon_by_round=[(b or {}).get("cordoned") for b in got["cordon"]],
+            uncordon_by_round=[(b or {}).get("uncordoned") for b in got["uncordon"]],
+            denied_total_by_round=[(b or {}).get("denied_total") for b in got["remediation"]],
+            posts=[p.splitlines() for p in got["posts"]], events=got["events"])
+        phase(13, f"each round's timings_ms, {side} run", rounds=got["timings_ms"])
+
+    port = seen["port"]
+    rem = port["remediation"]
+    storm_denials = [d for d in (rem[2] or {}).get("denials", [])]
+    cordon_posts = [p for p in port["posts"] if "[cordon-max]" in p]
+    lease_after = (rem[7] or {}).get("lease") or {}
+    checks = {
+        "exit 143 after nine rounds": port["exit_code"] == 143 and port["rounds"] == 9,
+        "rounds exit 0": port["round_exit_codes"] == [0] * 9,
+        "cordon phase timed": all("cordon" in (t or {}) for t in port["timings_ms"]),
+        "one cordon of this host at round 3, one uncordon after round 6": (
+            [(p["node"], p["body"].get("spec")) for p in port["patches"]]
+            == [(host, {"unschedulable": True}), (host, {"unschedulable": False})]
+            and port["patch_rounds"] == [3, 6]
+            and port["patches"][0]["body"]["metadata"]["annotations"]
+            == {QUARANTINE_ANNOTATION: "<ts>"}
+            and port["patches"][1]["body"]["metadata"]["annotations"]
+            == {QUARANTINE_ANNOTATION: None}),
+        "cordon block at round 3": (port["cordon"][2] or {}).get("cordoned") == [host],
+        "uncordon block at round 6": (port["uncordon"][5] or {}).get("uncordoned") == [host],
+        "the storm denied by --cordon-max": (
+            sorted(d["node"] for d in storm_denials) == storm
+            and {d["reason"] for d in storm_denials} == {"cordon-max"}),
+        "the storm's denials in one post": len(cordon_posts) == 1 and all(
+            f"`{name}`" in cordon_posts[0] for name in storm),
+        "one lease granted, at round 3": (
+            [(r["status"], r["body"].get("node")) for r in port["lease_requests"]]
+            == [(200, host)] and (rem[2] or {}).get("lease", {}).get("granted") == 1),
+        "lease stopped before round 8": port["lease_stopped_before_round"] == 8,
+        "the fallback grants no more than the last lease left (0)": (
+            (rem[7] or {}).get("denied_total", {}).get("lease-unreachable") == 3
+            and lease_after.get("fleet_remaining") == 0 and "unreachable" in lease_after
+            and ((rem[7] or {}).get("budget") or {}).get("remaining") == 1
+            and port["patch_rounds"] == [3, 6]),
+        "scrapes": len(port["scrapes"]) == 3 and all(
+            s["status"] == 200 for s in port["scrapes"].values()),
+        "only its own package": port["packages_loaded"] == ["tpu_node_checker_torch"],
+    }
+    phase(13, "the port's quarantine", **checks)
+    if not all(checks.values()):
+        fail(f"the port's quarantine: {[k for k, v in checks.items() if not v]}")
+
+    # 5. The JAX checker's CLI on the same rounds, reports and servers.
+    same = {k: seen["port"][k] == seen["jax"][k] for k in (
+        "exit_code", "round_exit_codes", "patches", "patch_rounds", "cordon", "uncordon",
+        "remediation", "posts", "events", "lease_requests")}
+    same["scrapes"] = ({k: v["remediation"] for k, v in seen["port"]["scrapes"].items()}
+                       == {k: v["remediation"] for k, v in seen["jax"]["scrapes"].items()})
+    phase(13, "the port's quarantine beside the JAX checker's", **same,
+          packages_loaded={k: seen[k]["packages_loaded"] for k in seen})
+    if not all(same.values()) or seen["jax"]["packages_loaded"] != ["tpu_node_checker"]:
+        fail(f"the port's quarantine unlike the JAX checker's: {same}")
+
+    # 6. The post-incident readers on the port's log and store.
+    log = os.path.join(work, "port", "rounds.jsonl")
+    store = os.path.join(work, "port", "history.jsonl")
+    readers = {}
+    for args in (("--trend", log), ("--trend", log, "--json"), ("--trend-nodes", store),
+                 ("--trend-nodes", store, "--json")):
+        out = {}
+        for side in ("port", "jax"):
+            rc, _, stdout, err, seconds = round_line(root, side, *args, env=env)
+            out[side] = (rc, stdout, seconds)
+        readers[" ".join(args).replace(work, "W")] = dict(
+            exit_codes=[out["port"][0], out["jax"][0]], equal=out["port"][:2] == out["jax"][:2],
+            seconds=[out["port"][2], out["jax"][2]], lines=len(out["port"][1].splitlines()))
+    nodes_doc = json.loads(round_line(root, "port", "--trend-nodes", store, "--json",
+                                      env=env)[2])
+    phase(13, "--trend and --trend-nodes through both CLIs", **readers,
+          worst_offenders=nodes_doc.get("worst_offenders"),
+          this_host=(nodes_doc.get("nodes") or {}).get(host))
+    if not all(r["equal"] and r["exit_codes"] == [0, 0] for r in readers.values()):
+        fail(f"the readers: {readers}")
+    phase(13, "the quarantine", seconds=time.perf_counter() - t_phase,
+          patches=len(seen["port"]["patches"]),
+          metrics_get_ms=[s["ms"] for s in seen["port"]["scrapes"].values()])
 
 
 def main() -> int:
@@ -2421,10 +2847,14 @@ def main() -> int:
     # -- 12. the aggregator's --watch loop against a fake API server
     phase12_watch_loop(torch, root, rows, validate_report)
 
-    # -- 13. the kernels line, the card line, the result line
+    # -- 13. the aggregator's quarantine on this card's reports
+    phase13_quarantine(torch, root, rows, validate_report)
+
+    # -- 14. the kernels line, the card line, the result line
     keys = ("name", "route", "source", "replaces", "launches", "compute_launches",
             "emitter_launches", "selftest_launches", "calibrate_launches",
             "distributed_launches", "oneshot_launches", "live_round_launches", "watch_launches",
+            "quarantine_launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "device_ms",
             "library_device_ms", "ok", "check", "training_step")
     print(json.dumps({"kernels": [{k2: r[k2] for k2 in keys if k2 in r} for r in rows]}),

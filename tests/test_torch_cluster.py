@@ -242,6 +242,29 @@ def kubeconfig(path, server, user="    token: tok\n", cluster="", contexts=None,
     return str(path)
 
 
+def outcome_vs_jax(argv, capsys):
+    """The port's and JAX's outcome for one argv: both the same usage error
+    (exit 2, the same words), or both parsed to the same values."""
+    got = []
+    for parse in (port_cli.parse_args, jax_cli.parse_args):
+        try:
+            args = parse(argv)
+        except SystemExit as exc:
+            err = capsys.readouterr().err.strip().splitlines()[-1]
+            got.append(("usage", exc.code, err.split("error: ", 1)[-1]))
+        else:
+            got.append(("parsed", args))
+    (port_kind, *port), (jax_kind, *jax) = got
+    assert port_kind == jax_kind, (port, jax)
+    if port_kind == "usage":
+        assert port == jax and port[0] == 2
+        return port[1]
+    for dest, value in vars(port[0]).items():
+        if hasattr(jax[0], dest):
+            assert value == getattr(jax[0], dest), dest
+    return port[0]
+
+
 def run(main, argv, capsys):
     rc = main(argv)
     out, err = capsys.readouterr()

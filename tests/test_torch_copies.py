@@ -4,22 +4,23 @@ The port imports nothing of the JAX package, not even its stdlib-only
 modules, so it keeps copies: ``utils/quantity.py``, ``resources.py``,
 ``detect.py``, ``report.py``, ``utils/env.py``, ``notify.py``,
 ``history/``, and the live LIST's ``cluster.py``, ``utils/fanout.py``,
-``utils/retry.py``, ``utils/miniyaml.py``, ``fastpath/`` and the watch
-loop's ``obs/`` verbatim (only the package name and the module docstring
-differ).  Here each copy's code is held equal to its original (the syntax
-trees, docstrings dropped, the package name substituted where it names a
-module, never inside a metric name); the modules copied in part are held
-equal function by function (``watchstream.grading_view``, ``metrics.py``
-with its ``MetricsServer`` class, ``remediation/budget.py``'s
-``denial_fingerprint`` and ``_domain_name``, and the watch loop's helpers
-in ``checker.py``); and the constants the fleet grades, lists and loops by
-are compared one by one, in the manner of
+``utils/retry.py``, ``utils/miniyaml.py``, ``fastpath/``, the watch
+loop's ``obs/`` and the quarantine's ``remediation/`` verbatim (only the
+package name and the module docstring differ).  Here each copy's code is
+held equal to its original (the syntax trees, docstrings dropped, the
+package name substituted where it names a module, never inside a metric
+name); the modules copied in part are held equal function by function
+(``watchstream.grading_view``, ``metrics.py`` with its ``MetricsServer``
+class, and ``checker.py``'s watch-loop helpers, remediation helpers,
+sweeps and trend readers); the budget engine is driven through the same
+decisions on both sides; and the constants the fleet grades, lists and
+loops by are compared one by one, in the manner of
 ``tests/test_torch_probe.py::test_floor_tables_equal_jax``.
 
 Also here: a fresh interpreter runs the port's one-shot round over a
 NodeList file and over a live fake API server, then two rounds of its
-``--watch`` loop, and finds neither ``jax`` nor the JAX package among its
-modules.
+``--watch`` loop, a ``--cordon-failed`` round and ``--trend-nodes``, and
+finds neither ``jax`` nor the JAX package among its modules.
 
 The port is reached through ``importlib.import_module``:
 tests/test_dependency_surface.py rejects any other ``import`` in tests/.
@@ -31,6 +32,7 @@ import json
 import re
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import pytest
@@ -51,7 +53,9 @@ VERBATIM = ["utils/quantity.py", "resources.py", "detect.py", "report.py", "util
             "notify.py", "history/__init__.py", "history/fsm.py", "history/store.py",
             "utils/fanout.py", "utils/retry.py", "utils/miniyaml.py", "fastpath/__init__.py",
             "fastpath/projection.py", "cluster.py", "obs/__init__.py", "obs/events.py",
-            "obs/hist.py", "obs/trace.py"]
+            "obs/hist.py", "obs/trace.py", "remediation/__init__.py",
+            "remediation/budget.py", "remediation/actuate.py", "remediation/lease.py",
+            "remediation/drain.py", "remediation/repair.py"]
 
 
 def _code(path: Path, package: str) -> str:
@@ -128,19 +132,100 @@ def test_metric_families_of_the_port_equal_jax():
     assert port == ref and len(ref) == 57
 
 
+class _Clock:
+    def __init__(self):
+        self.t = 0.0
+
+    def __call__(self):
+        return self.t
+
+
+class _Lease:
+    """A lease client that grants its first ``grants`` requests."""
+
+    def __init__(self, grants):
+        self.left, self.asked = grants, []
+
+    def acquire(self, count, action="", node="", trace_id=None):
+        self.asked.append((count, action, node, trace_id))
+        if self.left >= count:
+            self.left -= count
+            return True, "lease-granted"
+        return False, "lease-denied"
+
+    def as_dict(self):
+        return {"left": self.left}
+
+
+def _engine_run(package, budget_module):
+    """One scripted life of a budget engine over a v5p-64 slice, a second
+    slice and two GPU nodes: every decision, commit, denial, event and
+    payload block, in order."""
+    detect = importlib.import_module(f"{package}.detect")
+    resources = importlib.import_module(f"{package}.resources")
+    nodes = fx.tpu_v5p_64_slice() + fx.gpu_pool(2)
+    nodes[3]["spec"]["unschedulable"] = True
+    accel, _ = detect.select_accelerator_nodes(nodes, resources.default_registry())
+    emitted, clock, lease = [], _Clock(), _Lease(grants=3)
+
+    class Events:
+        def emit(self, kind, **fields):
+            emitted.append((kind, fields))
+
+    log = []
+    for kw in ({"cordon_max": 2, "enabled": False},
+               {"slice_floor_pct": 90.0, "cordon_max": 8},
+               {"slice_floor_pct": 50.0, "budget": 3, "window_s": 600.0, "cordon_max": 40,
+                "lease": lease}):
+        engine = budget_module.BudgetEngine(clock=clock, events=Events(), **kw)
+        for rnd in range(3):
+            clock.t += 300.0
+            engine.begin_round(accel, trace_id=f"t{rnd}",
+                               degraded={accel[0].name: ["pool/t1/2"]} if rnd else None)
+            for action, n in [("uncordon", accel[3]), ("cordon", accel[0]),
+                              ("cordon", accel[1]), ("drain", accel[2]),
+                              ("cordon", accel[-1]), ("repair", accel[4]),
+                              ("clear-annotation", accel[5]), ("cordon", accel[6])]:
+                d = engine.decide(action, n, dry_run=(rnd == 2 and action == "drain"))
+                log.append(("decide", vars(d).copy()))
+                if d.allowed:
+                    engine.commit(d)
+            log.append(("domain", engine.domain_of(accel[0]), engine.domain_of(accel[-1])))
+            log.append(("block", engine.payload_block(), engine.ever_denied))
+    fleet = budget_module.FleetLeaseBudget(2, window_s=60.0, clock=clock, events=Events())
+    for body in ({"count": 1, "cluster": "a"}, {"count": 2}, {"count": 0}, {"count": True},
+                 {"count": 1}):
+        log.append(("lease", fleet.grant(body), fleet.remaining()))
+    clock.t += 61.0
+    fleet.reset_round()
+    log.append(("lease", fleet.grant({"count": 2, "action": "cordon", "node": "x"})))
+    return log, emitted, lease.asked
+
+
 def test_denial_fingerprint_equals_jax():
-    port = _functions("remediation/budget.py", "tpu_node_checker_torch")
-    ref = _functions("remediation/budget.py", "tpu_node_checker")
-    assert list(port) == ["denial_fingerprint", "_domain_name"]
-    for name in port:
-        assert port[name] == ref[name], name
+    # The refusal identity, and with it the whole engine it belongs to (the
+    # ledger, the decision ladder, the payload block, the fleet lease
+    # budget), driven through the same script on both sides.
     from tpu_node_checker.remediation import budget as jax_budget
 
+    port_budget = _port("remediation.budget")
+    assert _engine_run("tpu_node_checker_torch", port_budget) == \
+        _engine_run("tpu_node_checker", jax_budget)
+    for raw in ("4", "4/30s", "2/10m", "1/1d", "3/45"):
+        assert port_budget.parse_disruption_budget(raw) == \
+            jax_budget.parse_disruption_budget(raw)
+    for raw in ("", "0", "4/", "4/0", "4/10y", "-1"):
+        with pytest.raises(ValueError) as port_err:
+            port_budget.parse_disruption_budget(raw)
+        with pytest.raises(ValueError) as jax_err:
+            jax_budget.parse_disruption_budget(raw)
+        assert str(port_err.value) == str(jax_err.value)
     denials = [{"domain": "pool/2x4", "reason": "slice-floor", "node": "a"},
                {"domain": "pool/2x4", "reason": "slice-floor", "node": "b"},
                {"node": "c", "reason": "cordon-max"}]
-    assert _port("remediation.budget").denial_fingerprint(denials) == \
+    assert port_budget.denial_fingerprint(denials) == \
         jax_budget.denial_fingerprint(denials)
+    assert port_budget.DEFAULT_SLICE_FLOOR_PCT == jax_budget.DEFAULT_SLICE_FLOOR_PCT
 
 
 LOOP_HELPERS = ["_install_stop_signal", "_restore_stop_signal", "_wait_for_next_round",
@@ -154,6 +239,22 @@ def test_loop_helper_equals_jax(name):
     port = _functions("checker.py", "tpu_node_checker_torch")
     ref = _functions("checker.py", "tpu_node_checker")
     assert port[name] == ref[name]
+
+
+# The quarantine's helpers, sweeps and the trend readers of checker.py.
+QUARANTINE_HELPERS = ["_remediation_enabled", "_round_events", "_build_remediation",
+                      "_degraded_link_evidence", "_uncordon_recovered_nodes", "_ensure_engine",
+                      "_failed_candidates", "_drain_failed_nodes", "_cordon_failed_nodes",
+                      "_degraded_candidates", "_cordon_degraded_nodes", "_cause_class",
+                      "compute_trend_summary", "trend_summary", "trend_nodes"]
+
+
+@pytest.mark.parametrize("name", QUARANTINE_HELPERS)
+def test_quarantine_helper_equals_jax(name):
+    port = _functions("checker.py", "tpu_node_checker_torch")
+    ref = _functions("checker.py", "tpu_node_checker")
+    assert port[name] == ref[name]
+    assert _port("checker")._REMEDIATION_CACHE.keys() == jax_checker._REMEDIATION_CACHE.keys()
 
 
 class _LessStreamAndServe(ast.NodeTransformer):
@@ -289,12 +390,19 @@ def test_live_list_flag_help_equals_jax(flag):
 
 def test_the_round_loads_nothing_of_jax(tmp_path):
     # In one fresh interpreter: a round over a NodeList file, one over a
-    # live fake API server (paged LIST and --node-events), then two rounds of
-    # the --watch loop over that server (its wait ends after the second).
+    # live fake API server (paged LIST and --node-events), two rounds of
+    # the --watch loop over that server (its wait ends after the second),
+    # a --cordon-failed round that PATCHes one node, and --trend-nodes.
     items = fx.mixed_cluster_one_notready()
+    reports = tmp_path / "reports"
+    reports.mkdir()
+    (reports / "gke-gpu-pool-1.json").write_text(json.dumps(
+        {"ok": False, "level": "compute", "hostname": "gke-gpu-pool-1",
+         "written_at": time.time(), "error": "matmul numerics failed"}))
+    patches = []
     nodes = tmp_path / "nodes.json"
     nodes.write_text(json.dumps(fx.node_list(items)))
-    server = fx.serve_http(_nodes_and_events_handler(items))
+    server = fx.serve_http(_nodes_and_events_handler(items, patches))
     kubeconfig = tmp_path / "kubeconfig"
     kubeconfig.write_text(
         "apiVersion: v1\ncurrent-context: c\n"
@@ -320,9 +428,13 @@ def test_the_round_loads_nothing_of_jax(tmp_path):
         f"'--slack-on-change', '--metrics-port', '0', '--history', "
         f"{str(tmp_path / 'w.jsonl')!r}, '--log-jsonl', {str(tmp_path / 'l.jsonl')!r}, "
         f"'--event-log', {str(tmp_path / 'e.jsonl')!r}, '--json'])\n"
+        f"cordon = cli.main(['--kubeconfig', {str(kubeconfig)!r}, '--probe-results', "
+        f"{str(reports)!r}, '--cordon-failed', '--history', {str(tmp_path / 'c.jsonl')!r}, "
+        "'--json'])\n"
+        f"trend = cli.main(['--trend-nodes', {str(tmp_path / 'c.jsonl')!r}, '--json'])\n"
         "loaded = sorted(m for m in sys.modules\n"
         "                if m.split('.')[0] in ('jax', 'jaxlib', 'tpu_node_checker'))\n"
-        "print(rc, live, loop, len(waits), loaded, file=sys.stderr)\n"
+        "print(rc, live, loop, len(waits), cordon, trend, loaded, file=sys.stderr)\n"
     )
     try:
         proc = subprocess.run([sys.executable, "-c", script], capture_output=True, text=True,
@@ -330,9 +442,12 @@ def test_the_round_loads_nothing_of_jax(tmp_path):
     finally:
         server.shutdown()
     assert proc.returncode == 0, proc.stderr
-    assert proc.stderr.strip().splitlines()[-1] == "0 0 143 2 []"
-    first, live, *rounds = _json_docs(proc.stdout)
+    assert proc.stderr.strip().splitlines()[-1] == "0 0 143 2 0 0 []"
+    first, live, *rounds, cordon, trend = _json_docs(proc.stdout)
     assert [r["exit_code"] for r in rounds] == [0, 0]
+    assert cordon["cordon"]["cordoned"] == ["gke-gpu-pool-1"]
+    assert [p["path"] for p in patches] == ["/api/v1/nodes/gke-gpu-pool-1"]
+    assert trend["worst_offenders"][0] == "gke-gpu-pool-1"
     assert (tmp_path / "l.jsonl").read_text().count("\n") == 2
     assert first["exit_code"] == live["exit_code"] == 0
     sick = [n for n in live["nodes"] if not n["ready"]]
@@ -352,8 +467,9 @@ def _json_docs(text):
     return docs
 
 
-def _nodes_and_events_handler(items):
-    """Paged ``/api/v1/nodes`` and one Warning event per node name."""
+def _nodes_and_events_handler(items, patches):
+    """Paged ``/api/v1/nodes``, one Warning event per node name, and each
+    PATCH's path recorded in ``patches``."""
     from http.server import BaseHTTPRequestHandler
     from urllib.parse import parse_qs, urlparse
 
@@ -374,6 +490,14 @@ def _nodes_and_events_handler(items):
             self.send_header("Content-Length", str(len(body)))
             self.end_headers()
             self.wfile.write(body)
+
+        def do_PATCH(self):  # noqa: N802 — the handler protocol's name
+            self.rfile.read(int(self.headers.get("Content-Length", 0)))
+            patches.append({"path": self.path})
+            self.send_response(200)
+            self.send_header("Content-Length", "2")
+            self.end_headers()
+            self.wfile.write(b"{}")
 
         def log_message(self, *args):
             pass

@@ -32,6 +32,7 @@ from pathlib import Path
 
 import pytest
 
+from tests.test_torch_cluster import outcome_vs_jax
 from tpu_node_checker import checker as jax_checker
 from tpu_node_checker import cli as jax_cli
 
@@ -331,13 +332,22 @@ class TestUsageErrors:
         assert code == 2 and f"error: {message}" in err
 
     @pytest.mark.parametrize("flag", [
-        ["--watch-stream"], ["--cordon-failed"], ["--trend", "t.jsonl"],
-        ["--serve", "0"], ["--analytics", "d"],
+        ["--watch-stream"], ["--serve", "0"], ["--analytics", "d"],
     ])
     def test_unported_flag_is_unknown(self, capsys, flag):
         code, err = _usage_error(port_cli.parse_args,
                                  ["--emit-probe", "-", "--probe-level", "compute", *flag], capsys)
         assert code == 2 and f"unrecognized arguments: {' '.join(flag)}" in err
+
+    @pytest.mark.parametrize("flag,message", [
+        (["--cordon-failed"], "--cordon-failed requires --probe or --probe-results DIR"),
+        (["--trend", "t.jsonl"], "--trend runs alone (only --json may accompany it)"),
+    ])
+    def test_ported_flag_beside_the_emitter_as_jax(self, capsys, flag, message):
+        # Once an unknown argument; ported, refused beside --emit-probe with
+        # JAX's words.
+        argv = ["--emit-probe", "-", "--probe-level", "compute", *flag]
+        assert outcome_vs_jax(argv, capsys) == message
 
     @pytest.mark.parametrize("flags", [
         ["--probe-distributed"],

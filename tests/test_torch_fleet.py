@@ -29,6 +29,7 @@ import time
 import pytest
 
 from tests import fixtures as fx
+from tests.test_torch_cluster import outcome_vs_jax
 from tpu_node_checker import checker as jax_checker
 from tpu_node_checker import cli as jax_cli
 from tpu_node_checker import probe as jax_probe
@@ -528,12 +529,34 @@ class TestUsageErrors:
                 assert value == getattr(jax, dest), dest
 
     @pytest.mark.parametrize("flag", [
-        ["--cordon-max", "2"], ["--cordon-dry-run"], ["--cordon-degraded"],
-        ["--repair-cmd", "r"], ["--cordon-failed"], ["--uncordon-recovered"], ["--trend", "t"],
-        ["--trend-nodes", "t"], ["--serve", "0"], ["--analytics", "d"], ["--federate", "e"],
+        ["--serve", "0"], ["--analytics", "d"], ["--federate", "e"],
         ["--federate-interval", "5"], ["--watch-stream"], ["--serve-token", "t"],
-        ["--disruption-budget", "2"], ["--serve-workers", "2"], ["--drain-failed"],
+        ["--serve-workers", "2"],
     ])
     def test_unported_jax_flag_is_unknown(self, capsys, flag):
         code, err = _usage(port_cli.parse_args, N + flag, capsys)
         assert code == 2 and f"unrecognized arguments: {' '.join(flag)}" in err
+
+    @pytest.mark.parametrize("flag,expected", [
+        (["--cordon-max", "2"], "--cordon-max requires --cordon-failed, --drain-failed or --serve"),
+        (["--cordon-dry-run"], "--cordon-dry-run requires --cordon-failed or --uncordon-recovered"),
+        (["--cordon-degraded"], "--cordon-degraded requires --probe or --probe-results DIR"),
+        (["--repair-cmd", "r"], "--repair-cmd/--repair-webhook require --history FILE (repair "
+         "state rides the store so a restart never double-fires)"),
+        (["--cordon-failed"], "--cordon-failed requires --probe or --probe-results DIR"),
+        (["--uncordon-recovered"], "--uncordon-recovered requires --probe or --probe-results DIR"),
+        (["--trend", "t"], ("trend", "t")),
+        (["--trend-nodes", "t"], ("trend_nodes", "t")),
+        (["--disruption-budget", "2"], "--disruption-budget requires --cordon-failed or "
+         "--drain-failed (a budget with no actuator gates nothing)"),
+        (["--drain-failed"], "--drain-failed requires --probe or --probe-results DIR"),
+    ])
+    def test_ported_jax_flag_as_jax(self, capsys, flag, expected):
+        # Once an unknown argument; ported, each gives JAX's usage error
+        # beside a file round, or parses to JAX's values (the readers, which
+        # JAX lets a file round's flags accompany).
+        got = outcome_vs_jax(N + flag, capsys)
+        if isinstance(expected, tuple):
+            assert getattr(got, expected[0]) == expected[1]
+        else:
+            assert got == expected

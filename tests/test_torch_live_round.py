@@ -31,6 +31,7 @@ from tests.test_torch_cluster import (
     small_pages,
 )
 from tests.test_torch_cluster import assert_equal as equal
+from tests.test_torch_cluster import outcome_vs_jax
 from tpu_node_checker import cli as jax_cli
 from tpu_node_checker import probe as jax_probe
 
@@ -361,18 +362,42 @@ class TestUsage:
 
     @pytest.mark.parametrize("flag", [
         ["--federate-workers", "2"], ["--watch-stream"], ["--no-watch-stream"],
-        ["--cordon-failed"],
-        ["--cordon-max", "2"], ["--cordon-dry-run"], ["--uncordon-recovered"],
-        ["--cordon-degraded"], ["--drain-failed"], ["--repair-cmd", "r"],
-        ["--disruption-budget", "2"], ["--slice-floor-pct", "50"], ["--trend", "t"],
-        ["--trend-nodes", "t"], ["--analytics", "d"], ["--serve", "0"],
+        ["--analytics", "d"], ["--serve", "0"],
         ["--serve-token", "t"], ["--federate", "e"], ["--write-rps", "5"],
-        ["--repair-webhook", "u"],
+        ["--fleet-disruption-budget", "2"],
     ])
     def test_queue_4_flags_still_refused(self, capsys, flag):
-        # The live LIST and the polling loop are ported; the watch stream,
-        # remediation, analytics, serving and federation are not, and each
+        # The live LIST, the polling loop and the quarantine are ported; the
+        # watch stream, analytics, serving and federation are not, and each
         # is refused (never accepted and ignored) beside a live round.
         code, err = _usage(port_cli.parse_args, ["--kubeconfig", "k", *flag], capsys)
         assert code == 2
         assert f"unrecognized arguments: {' '.join(flag)}" in err
+
+    @pytest.mark.parametrize("flag,expected", [
+        (["--cordon-failed"], "--cordon-failed requires --probe or --probe-results DIR"),
+        (["--cordon-max", "2"], "--cordon-max requires --cordon-failed, --drain-failed or --serve"),
+        (["--cordon-dry-run"], "--cordon-dry-run requires --cordon-failed or --uncordon-recovered"),
+        (["--uncordon-recovered"], "--uncordon-recovered requires --probe or --probe-results DIR"),
+        (["--cordon-degraded"], "--cordon-degraded requires --probe or --probe-results DIR"),
+        (["--drain-failed"], "--drain-failed requires --probe or --probe-results DIR"),
+        (["--repair-cmd", "r"], "--repair-cmd/--repair-webhook require --history FILE (repair "
+         "state rides the store so a restart never double-fires)"),
+        (["--disruption-budget", "2"], "--disruption-budget requires --cordon-failed or "
+         "--drain-failed (a budget with no actuator gates nothing)"),
+        (["--slice-floor-pct", "50"], "--slice-floor-pct requires --cordon-failed or "
+         "--drain-failed (a budget with no actuator gates nothing)"),
+        (["--trend", "t"], ("trend", "t")),
+        (["--trend-nodes", "t"], ("trend_nodes", "t")),
+        (["--repair-webhook", "u"], "--repair-cmd/--repair-webhook require --history FILE "
+         "(repair state rides the store so a restart never double-fires)"),
+    ])
+    def test_quarantine_flags_beside_a_live_round_as_jax(self, capsys, flag, expected):
+        # Once unknown arguments; ported with JAX's usage errors, or parsed
+        # to JAX's values (the readers, which JAX lets accompany a live
+        # round's flags).
+        got = outcome_vs_jax(["--kubeconfig", "k", *flag], capsys)
+        if isinstance(expected, tuple):
+            assert getattr(got, expected[0]) == expected[1]
+        else:
+            assert got == expected

@@ -26,8 +26,15 @@ cadence until SIGTERM (exit 143 after the round in flight), alerts on a
 change of the exit code or the sick-node set under ``--slack-on-change``,
 serves ``--metrics-port``, writes ``--event-log``, and opens a circuit
 breaker (:class:`WatchBreaker`) over consecutive failed rounds.
-Remediation, analytics, ``--watch-stream`` and ``--serve`` are the JAX
-package's and not ported yet, so their branches are absent here.
+With ``--cordon-failed``, ``--uncordon-recovered``, ``--cordon-degraded``,
+``--drain-failed`` and the repair hooks the round quarantines condemned
+nodes through the budget engine (:mod:`~tpu_node_checker_torch.remediation`):
+uncordon first, then cordon, under ``--cordon-max``, the slice floor, the
+disruption budget and the fleet lease, each decision one audit event.
+:func:`trend_summary` and :func:`trend_nodes` are the post-incident readers
+of the ``--log-jsonl`` trend log and the ``--history`` store.  Analytics,
+``--watch-stream`` and ``--serve`` are the JAX package's and not ported yet,
+so their branches are absent here.
 """
 
 from __future__ import annotations
@@ -36,6 +43,7 @@ import fnmatch
 import json
 import math
 import os
+import re
 import sys
 import time
 from dataclasses import dataclass, field
@@ -565,6 +573,114 @@ def _build_history(args):
     return tracker
 
 
+# Remediation bundle (budget engine + lease client + repair tracker),
+# cached across rounds like the history tracker: the sliding-window
+# actuation ledger, the lifetime denied/action counters and the last-leased
+# fleet allowance must survive from round to round.  Keyed by every budget
+# knob and the round's data sources, so two embedded runs never share a
+# ledger.
+_REMEDIATION_CACHE: dict = {"key": None, "bundle": None}
+
+
+def _remediation_enabled(args) -> bool:
+    """True when any of the NEW remediation flags is present — the switch
+    between legacy --cordon-max-only budgeting and the full engine
+    (slice floors, disruption budgets, leases).  The regression pin rides
+    on this: all-False means payload/metrics stay byte-identical."""
+    return bool(
+        getattr(args, "slice_floor_pct", None) is not None
+        or getattr(args, "disruption_budget", None)
+        or getattr(args, "drain_failed", False)
+        or getattr(args, "cordon_degraded", False)
+        or getattr(args, "repair_cmd", None)
+        or getattr(args, "repair_webhook", None)
+        or getattr(args, "disruption_lease", None)
+    )
+
+
+def _round_events(args, events):
+    """The round's audit EventLog: the watch loop hands down the shared
+    Observability log (so ``--event-log`` captures remediation lines);
+    one-shot runs mint a stderr-only one with the same cluster-stamp
+    policy (explicit identity only)."""
+    if events is not None:
+        return events
+    from tpu_node_checker_torch.obs.events import EventLog
+
+    cluster = (
+        getattr(args, "cluster_name", None)
+        or os.environ.get("TNC_CLUSTER_NAME")
+        or None
+    )
+    return EventLog(cluster=cluster)
+
+
+def _build_remediation(args, history, events=None) -> dict:
+    """Flags → ``{"engine", "tracker", "events"}`` (cached across rounds).
+
+    Always built when ANY actuator flag is on: in legacy mode (no new
+    remediation flags) the engine enforces exactly the old --cordon-max
+    semantics, with its denials made visible (audit event + counter)
+    instead of silently skipped.
+    """
+    from tpu_node_checker_torch.remediation import (
+        BudgetEngine,
+        parse_disruption_budget,
+    )
+    from tpu_node_checker_torch.remediation.repair import RepairTracker
+
+    events = _round_events(args, events)
+    budget_raw = getattr(args, "disruption_budget", None)
+    lease_url = getattr(args, "disruption_lease", None)
+    repair_on = bool(
+        getattr(args, "repair_cmd", None)
+        or getattr(args, "repair_webhook", None)
+    )
+    key = (
+        getattr(args, "slice_floor_pct", None),
+        budget_raw,
+        lease_url,
+        getattr(args, "cordon_max", 1),
+        bool(getattr(args, "drain_failed", False)),
+        bool(getattr(args, "cordon_degraded", False)),
+        repair_on,
+        os.path.abspath(args.history) if getattr(args, "history", None) else None,
+        getattr(args, "nodes_json", None),
+        getattr(args, "probe_results", None),
+        getattr(args, "kubeconfig", None),
+    )
+    if _REMEDIATION_CACHE["key"] == key:
+        bundle = _REMEDIATION_CACHE["bundle"]
+        bundle["events"] = bundle["engine"].events = events
+        return bundle
+    budget = window = None
+    if budget_raw:
+        budget, window = parse_disruption_budget(budget_raw)
+    lease = None
+    if lease_url:
+        from tpu_node_checker_torch.remediation.lease import LeaseClient
+
+        name, _source = resolve_cluster_name(args)
+        lease = LeaseClient(lease_url, cluster=name)
+    engine = BudgetEngine(
+        slice_floor_pct=getattr(args, "slice_floor_pct", None),
+        budget=budget,
+        window_s=window,
+        cordon_max=getattr(args, "cordon_max", 1) or 1,
+        lease=lease,
+        events=events,
+        enabled=_remediation_enabled(args),
+    )
+    tracker = (
+        RepairTracker(history["store"] if history is not None else None)
+        if repair_on
+        else None
+    )
+    bundle = {"engine": engine, "tracker": tracker, "events": events}
+    _REMEDIATION_CACHE["key"], _REMEDIATION_CACHE["bundle"] = key, bundle
+    return bundle
+
+
 def _node_round_causes(n: NodeInfo) -> List[str]:
     """Compact cause tokens for one node's round, recorded in the history
     store."""
@@ -681,6 +797,454 @@ def _history_payload(history: dict, accel: List[NodeInfo]) -> dict:
     }
 
 
+def _uncordon_recovered_nodes(args, accel: List[NodeInfo], client=None,
+                              fsm=None, engine=None, events=None,
+                              trace_id=None) -> dict:
+    """``--uncordon-recovered``: lift OUR quarantines once chips pass again.
+
+    The closing half of the quarantine lifecycle.  A node qualifies only
+    when ALL of: it is cordoned, the cordon carries this tool's annotation
+    (``QUARANTINE_ANNOTATION`` — a human's cordon is never touched), the
+    kubelet reports Ready, and a *fresh passing* probe verdict vouches for
+    the chips.  No budget: uncordoning restores capacity and each lift is
+    individually evidence-backed.  Shares ``--cordon-dry-run``.
+
+    With ``--history`` the hysteresis machine is consulted ON TOP of the
+    evidence rules: the lift additionally needs the node to have re-earned
+    HEALTHY (``--uncordon-after`` consecutive good rounds), and a CHRONIC
+    flapper never qualifies — its passing round is the setup for its next
+    failure, the exact churn the FSM exists to stop.
+    """
+    candidates = [
+        n
+        for n in accel
+        if n.cordoned
+        and n.quarantined_by_us
+        and n.ready
+        and n.probe is not None
+        and n.probe.get("ok")
+        and (fsm is None or fsm.uncordon_eligible(n.name))
+    ]
+    # Annotation hygiene: an annotated-but-SCHEDULABLE node means someone
+    # lifted our quarantine out-of-band (`kubectl uncordon` only flips
+    # spec.unschedulable).  Strip the stale annotation now, or a later
+    # *human* cordon on the node would read as ours and be auto-lifted.
+    stale = [n for n in accel if n.quarantined_by_us and not n.cordoned]
+    report_entry: dict = {
+        "dry_run": bool(getattr(args, "cordon_dry_run", False)),
+        "uncordoned": [],
+        "failed": [],
+        "stale_annotations_cleared": [],
+    }
+    if not candidates and not stale:
+        return report_entry
+    if report_entry["dry_run"]:
+        report_entry["uncordoned"] = sorted(n.name for n in candidates)
+        report_entry["stale_annotations_cleared"] = sorted(n.name for n in stale)
+        for n in candidates:
+            # Preview post-action state throughout the run: the cordon
+            # budget math (and payload nodes) must match what a real run
+            # would do after this lift.
+            n.cordoned = False
+            n.quarantined_by_us = False
+            print(
+                f"[dry-run] would uncordon {n.name} (probe recovered)", file=sys.stderr
+            )
+        for n in stale:
+            n.quarantined_by_us = False
+            print(
+                f"[dry-run] would clear stale quarantine annotation on {n.name}",
+                file=sys.stderr,
+            )
+        return report_entry
+    try:
+        client = _resolve_client(args, client)
+    except Exception as exc:  # tnc: allow-broad-except(best-effort, like cordoning)
+        report_entry["failed"] = [
+            {"node": n.name, "error": f"no cluster client: {exc}"} for n in candidates
+        ]
+        print(f"--uncordon-recovered: cannot reach cluster: {exc}", file=sys.stderr)
+        return report_entry
+    from tpu_node_checker_torch.remediation import actuate
+    from tpu_node_checker_torch.utils.fanout import bounded_map
+
+    engine = _ensure_engine(args, accel, engine, trace_id)
+    workers = _api_concurrency(args)
+    # Uncordons restore capacity: the budget engine always grants them,
+    # but routing the PATCH through the actuate module keeps the audit
+    # trail (and the TNC019 call-site invariant) uniform.
+    decisions = {
+        n.name: engine.decide("uncordon", n) for n in candidates
+    }
+    # Bounded parallel PATCHes (one pooled connection per worker); outcomes
+    # come back in candidate order, so report lists and stderr notes stay
+    # deterministic.  A dead-socket PATCH is NEVER transparently retried by
+    # the transport (it may have applied) — it lands here as a failure note.
+    for n, (ok, err) in zip(
+        candidates,
+        bounded_map(
+            lambda n: actuate.uncordon(
+                client, decisions[n.name], events=events, trace_id=trace_id
+            ),
+            candidates,
+            workers,
+        ),
+    ):
+        if not ok:
+            report_entry["failed"].append({"node": n.name, "error": str(err)})
+            print(f"Uncordon of {n.name} failed: {err}", file=sys.stderr)
+        else:
+            n.cordoned = False
+            n.quarantined_by_us = False
+            engine.commit(decisions[n.name])
+            report_entry["uncordoned"].append(n.name)
+            print(f"Uncordoned {n.name} (chip probe recovered).", file=sys.stderr)
+    stale_decisions = {
+        n.name: engine.decide("clear-annotation", n) for n in stale
+    }
+    for n, (ok, err) in zip(
+        stale,
+        bounded_map(
+            lambda n: actuate.clear_annotation(
+                client, stale_decisions[n.name], events=events,
+                trace_id=trace_id,
+            ),
+            stale,
+            workers,
+        ),
+    ):
+        if not ok:
+            report_entry["failed"].append({"node": n.name, "error": str(err)})
+            print(
+                f"Clearing stale annotation on {n.name} failed: {err}", file=sys.stderr
+            )
+        else:
+            n.quarantined_by_us = False
+            engine.commit(stale_decisions[n.name])
+            report_entry["stale_annotations_cleared"].append(n.name)
+            print(
+                f"Cleared stale quarantine annotation on {n.name} "
+                "(uncordoned out-of-band).",
+                file=sys.stderr,
+            )
+    return report_entry
+
+
+def _ensure_engine(args, accel, engine, trace_id=None):
+    """Sweeps invoked directly (tests, embedders) without a round-owned
+    engine still get the legacy --cordon-max gate — never a crash, never
+    an ungated actuation."""
+    if engine is not None:
+        return engine
+    from tpu_node_checker_torch.remediation import BudgetEngine
+
+    engine = BudgetEngine(
+        cordon_max=getattr(args, "cordon_max", 1) or 1, enabled=False
+    )
+    engine.begin_round(accel, trace_id=trace_id)
+    return engine
+
+
+def _failed_candidates(accel: List[NodeInfo], fsm=None) -> List[NodeInfo]:
+    """The evidence rules for the cordon AND drain sweeps — one definition,
+    so the two actuators can never disagree about who is condemnable:
+    kubelet-Ready, schedulable, not already cordoned, carrying a REAL
+    failed probe report this round (``level="missing"`` is absence, not
+    evidence), FSM-gated (FAILED/CHRONIC) under ``--history``."""
+    if fsm is None:
+        return [
+            n
+            for n in accel
+            if n.ready
+            and n.schedulable  # dead-plugin nodes must not consume the budget
+            and not n.cordoned
+            and n.probe is not None
+            and not n.probe.get("ok")
+            and n.probe.get("level") != "missing"  # absent report ≠ dead chips
+        ]
+    return [
+        n
+        for n in accel
+        if n.ready
+        and n.schedulable
+        and not n.cordoned
+        and n.probe is not None
+        and n.probe.get("level") != "missing"
+        and fsm.cordon_eligible(n.name)
+    ]
+
+
+def _drain_failed_nodes(args, accel: List[NodeInfo], client=None, fsm=None,
+                        engine=None, events=None, trace_id=None) -> dict:
+    """``--drain-failed``: evict-then-cordon the condemned nodes.
+
+    Same candidates as the cordon sweep (one evidence definition), same
+    budget gate, but the actuation is the civilized sequence: Eviction-API
+    POSTs (PDBs get their vote — a refusal is a budget denial with
+    ``reason="pdb"``, never an error), then the cordon PATCH.  Dry-run is
+    the DEFAULT (``--no-drain-dry-run`` opts into real evictions); dry
+    runs still LIST the node's pods so the report shows the real blast
+    radius (pod list + summed termination grace).
+    """
+    from tpu_node_checker_torch.remediation.drain import drain_nodes
+
+    engine = _ensure_engine(args, accel, engine, trace_id)
+    candidates = _failed_candidates(accel, fsm)
+    dry_run = bool(getattr(args, "drain_dry_run", True))
+    if not candidates:
+        return {"dry_run": dry_run, "drained": [], "failed": [],
+                "pods_evicted": 0, "grace_seconds_total": 0}
+    try:
+        client = _resolve_client(args, client)
+    except Exception as exc:  # tnc: allow-broad-except(drain is best-effort, like cordoning)
+        print(f"--drain-failed: cannot reach cluster: {exc}", file=sys.stderr)
+        return {
+            "dry_run": dry_run,
+            "drained": [],
+            "failed": [
+                {"node": n.name, "error": f"no cluster client: {exc}"}
+                for n in candidates
+            ],
+            "pods_evicted": 0,
+            "grace_seconds_total": 0,
+        }
+    return drain_nodes(args, candidates, client, engine, events=events,
+                       trace_id=trace_id)
+
+
+def _cordon_failed_nodes(args, accel: List[NodeInfo], client=None, fsm=None,
+                         engine=None, events=None, trace_id=None) -> dict:
+    """``--cordon-failed``: mark probe-failed nodes unschedulable.
+
+    Auto-quarantine for the one failure mode only this tool can see — a
+    kubelet-Ready node whose *chips* are dead (probe verdict) — so the
+    scheduler stops placing TPU jobs on it while a human investigates.
+    Safety rails:
+
+    * only kubelet-Ready, not-already-cordoned nodes with an explicit failed
+      probe verdict qualify (NotReady nodes are already the control plane's
+      problem; dead-device-plugin nodes are already unschedulable for
+      device-requesting pods; an absent report is not evidence);
+    * ``--cordon-max`` is a **budget on total cordoned state**, not a
+      per-run rate: nodes already cordoned (by this tool or anyone) count
+      against it, so a persistent fleet-wide regression under ``--watch``
+      converges at N cordoned nodes instead of draining one more node per
+      round until the pool is gone;
+    * ``--cordon-dry-run`` reports the decisions without patching;
+    * a PATCH failure is reported, never fatal — the check's own verdict
+      stands regardless.
+
+    Returns the report dict for the payload.  ``client`` reuses the LIST
+    call's :class:`~tpu_node_checker_torch.cluster.KubeClient`; offline runs
+    (``--nodes-json``) resolve one on demand.
+
+    With ``--history`` the raw this-round verdict is replaced by the
+    hysteresis machine: a node qualifies only once it has been bad for
+    ``--cordon-after`` consecutive rounds (FAILED) or tripped the flap
+    detector (CHRONIC) — one bad probe is a data point, not a diagnosis.
+    The evidence rule survives the swap: a PATCH still requires a real
+    probe report this round (``level="missing"`` is absence, not evidence).
+    """
+    engine = _ensure_engine(args, accel, engine, trace_id)
+    candidates = _failed_candidates(accel, fsm)
+    cap = getattr(args, "cordon_max", 1)
+    already = sum(1 for n in accel if n.cordoned)
+    dry_run = bool(getattr(args, "cordon_dry_run", False))
+    # The budget engine has the only veto left: the Nth grant that would
+    # exceed --cordon-max (the legacy alias), take a slice below its
+    # floor, or exhaust the disruption budget/lease is refused — recorded
+    # as an audit event and a denied_total sample, never a silent skip.
+    to_cordon, decisions, capped = [], {}, []
+    for n in candidates:
+        decision = engine.decide("cordon", n, dry_run=dry_run)
+        if decision.allowed:
+            to_cordon.append(n)
+            decisions[n.name] = decision
+        elif decision.reason == "cordon-max":
+            capped.append(n)
+        # Other refusals (slice-floor / disruption-budget / lease) live in
+        # the engine's denial list, surfaced via payload["remediation"].
+    report_entry: dict = {
+        "dry_run": dry_run,
+        "cordoned": [],
+        "failed": [],
+        "already_cordoned": already,
+        "skipped_over_cap": sorted(n.name for n in capped),
+    }
+    if capped:
+        print(
+            f"--cordon-failed: {len(capped)} candidate(s) beyond the "
+            f"--cordon-max={cap} budget ({already} already cordoned) left "
+            f"alone: {', '.join(report_entry['skipped_over_cap'])}",
+            file=sys.stderr,
+        )
+    if not to_cordon:
+        return report_entry
+    if dry_run:
+        report_entry["cordoned"] = sorted(n.name for n in to_cordon)
+        for n in to_cordon:
+            print(f"[dry-run] would cordon {n.name} (chip probe failed)", file=sys.stderr)
+            if events is not None:
+                events.emit(
+                    "remediation-cordon",
+                    trace_id=trace_id,
+                    node=n.name,
+                    domain=decisions[n.name].domain,
+                    dry_run=True,
+                )
+        return report_entry
+    try:
+        client = _resolve_client(args, client)
+    except Exception as exc:  # tnc: allow-broad-except(quarantine is best-effort)
+        report_entry["failed"] = [
+            {"node": n.name, "error": f"no cluster client: {exc}"} for n in to_cordon
+        ]
+        print(f"--cordon-failed: cannot reach cluster: {exc}", file=sys.stderr)
+        return report_entry
+    from tpu_node_checker_torch.remediation import actuate
+    from tpu_node_checker_torch.utils.fanout import bounded_map
+
+    # Bounded parallel PATCHes, results consumed in candidate order (see
+    # _uncordon_recovered_nodes for the ordering/retry rationale).
+    for n, (ok, err) in zip(
+        to_cordon,
+        bounded_map(
+            lambda n: actuate.cordon(
+                client, decisions[n.name], events=events, trace_id=trace_id
+            ),
+            to_cordon,
+            _api_concurrency(args),
+        ),
+    ):
+        if not ok:
+            report_entry["failed"].append({"node": n.name, "error": str(err)})
+            print(f"Cordon of {n.name} failed: {err}", file=sys.stderr)
+        else:
+            n.cordoned = True
+            engine.commit(decisions[n.name])
+            report_entry["cordoned"].append(n.name)
+            print(f"Cordoned {n.name} (chip probe failed).", file=sys.stderr)
+    return report_entry
+
+
+def _degraded_candidates(accel: List[NodeInfo]) -> List[NodeInfo]:
+    """The evidence rule for the ``--cordon-degraded`` sweep: kubelet-Ready,
+    schedulable, not already cordoned, carrying a PASSING probe report
+    this round whose mesh link sweep graded an ICI link SLOW.  Disjoint
+    from :func:`_failed_candidates` by construction (a failed report is
+    never ``ok``), so the two sweeps can never fight over one node."""
+    return [
+        n
+        for n in accel
+        if n.ready
+        and n.schedulable
+        and not n.cordoned
+        and n.probe is not None
+        and n.probe.get("ok")
+        and n.probe.get("mesh_degraded")
+    ]
+
+
+def _cordon_degraded_nodes(args, accel: List[NodeInfo], client=None,
+                           engine=None, events=None, trace_id=None) -> dict:
+    """``--cordon-degraded``: quarantine the nodes of a slice whose ICI
+    link the mesh sweep graded SLOW.
+
+    The chips PASS — this is a capacity-quality call, not a failure
+    verdict, which is why it is its own opt-in flag and its own payload
+    block: a DEGRADED round never feeds the FSM's condemnation ladder
+    (see :meth:`HealthFSM.observe`), so without this flag a slow link
+    changes no actuation at all.  Every PATCH rides the budget engine's
+    :meth:`decide` (TNC019) under the same rails as the failed sweep —
+    ``--cordon-max`` total-state budget, slice floors, disruption
+    budget/lease — so draining a sick-link slice can never take a slice
+    below its floor or blow the round's disruption budget.  Dry-run
+    follows ``--cordon-dry-run``; a PATCH failure is a report note,
+    never fatal.
+    """
+    engine = _ensure_engine(args, accel, engine, trace_id)
+    candidates = _degraded_candidates(accel)
+    dry_run = bool(getattr(args, "cordon_dry_run", False))
+    to_cordon, decisions, capped = [], {}, []
+    for n in candidates:
+        decision = engine.decide("cordon", n, dry_run=dry_run)
+        if decision.allowed:
+            to_cordon.append(n)
+            decisions[n.name] = decision
+        elif decision.reason == "cordon-max":
+            capped.append(n)
+    report_entry: dict = {
+        "dry_run": dry_run,
+        "cordoned": [],
+        "failed": [],
+        "links": sorted(
+            {
+                link
+                for n in candidates
+                for link in (_degraded_link_evidence([n]) or {}).get(n.name, ())
+            }
+        ),
+        "skipped_over_cap": sorted(n.name for n in capped),
+    }
+    if capped:
+        print(
+            f"--cordon-degraded: {len(capped)} candidate(s) beyond the "
+            f"--cordon-max budget left alone: "
+            f"{', '.join(report_entry['skipped_over_cap'])}",
+            file=sys.stderr,
+        )
+    if not to_cordon:
+        return report_entry
+    if dry_run:
+        report_entry["cordoned"] = sorted(n.name for n in to_cordon)
+        for n in to_cordon:
+            print(
+                f"[dry-run] would cordon {n.name} (degraded ICI link)",
+                file=sys.stderr,
+            )
+            if events is not None:
+                events.emit(
+                    "remediation-cordon",
+                    trace_id=trace_id,
+                    node=n.name,
+                    domain=decisions[n.name].domain,
+                    degraded=True,
+                    dry_run=True,
+                )
+        return report_entry
+    try:
+        client = _resolve_client(args, client)
+    except Exception as exc:  # tnc: allow-broad-except(quarantine is best-effort)
+        report_entry["failed"] = [
+            {"node": n.name, "error": f"no cluster client: {exc}"}
+            for n in to_cordon
+        ]
+        print(f"--cordon-degraded: cannot reach cluster: {exc}", file=sys.stderr)
+        return report_entry
+    from tpu_node_checker_torch.remediation import actuate
+    from tpu_node_checker_torch.utils.fanout import bounded_map
+
+    for n, (ok, err) in zip(
+        to_cordon,
+        bounded_map(
+            lambda n: actuate.cordon(
+                client, decisions[n.name], events=events, trace_id=trace_id
+            ),
+            to_cordon,
+            _api_concurrency(args),
+        ),
+    ):
+        if not ok:
+            report_entry["failed"].append({"node": n.name, "error": str(err)})
+            print(f"Cordon of {n.name} failed: {err}", file=sys.stderr)
+        else:
+            n.cordoned = True
+            engine.commit(decisions[n.name])
+            report_entry["cordoned"].append(n.name)
+            print(f"Cordoned {n.name} (degraded ICI link).", file=sys.stderr)
+    return report_entry
+
+
 def resolve_cluster_name(args, client=None):
     """This checker's cluster identity → ``(name, source)``.
 
@@ -789,6 +1353,24 @@ def _node_mesh_links(n: NodeInfo) -> dict:
     return links if isinstance(links, dict) else {}
 
 
+
+def _degraded_link_evidence(accel: List[NodeInfo]) -> Optional[dict]:
+    """This round's DEGRADED-link evidence for the budget engine:
+    ``{node: [slice-qualified SLOW link names]}``, or ``None`` when no
+    probed node reported a slow ICI link — the byte-identical-payload pin
+    rides on the None (``begin_round`` then attaches no block)."""
+    from tpu_node_checker_torch.meshprobe import qualify_link
+
+    out: dict = {}
+    for n in accel:
+        slow = (n.probe or {}).get("mesh_slow_links")
+        if not slow:
+            continue
+        domain = _node_link_domain(n)
+        out[n.name] = sorted(qualify_link(domain, link) for link in slow)
+    return out or None
+
+
 def _mesh_link_samples(accel: List[NodeInfo]) -> List[tuple]:
     """This round's mesh histogram feed: ``(slice_domain, axis, p50_us)``
     per link, deduplicated by (domain, link): every host of a slice reports
@@ -821,16 +1403,16 @@ def run_check(args, nodes: Optional[List[dict]] = None,
     obs.trace.Tracer`: the round's phases become its spans, and the loop
     writes it to ``--trace`` after the round.  Without one a fresh tracer is
     minted (the one-shot round).  ``nodes`` replaces the node list's fetch.
-    ``events`` is the loop's event log, kept for the JAX signature: its one
-    reader, the remediation audit, is not ported yet.
+    ``events`` is the loop's event log, which the remediation audit lines
+    ride; without one a stderr-only log is minted when an actuator runs.
     """
     timer = tracer if tracer is not None else PhaseTimer()
     kube_client = None
     _ROUND_CLIENT["client"] = None  # telemetry tracks THIS round's traffic
     _ROUND_POLICY["policy"] = _build_retry_policy(args)
-    # Per-phase failure notes of the non-essential events phase: they mark
-    # the round degraded instead of sinking it.  A failed node LIST still
-    # raises out of here (exit 1).
+    # Per-phase failure notes of the non-essential phases (events, cordon,
+    # uncordon, drain, repair): they mark the round degraded instead of
+    # sinking it.  A failed node LIST still raises out of here (exit 1).
     degradation: dict = {}
     if nodes is None:
         nodes, kube_client = _fetch_nodes(args, timer)
@@ -847,8 +1429,8 @@ def run_check(args, nodes: Optional[List[dict]] = None,
                     nodes, _registry_from_args(args)
                 )
             else:
-                # A per-round attachment source (probe/events/history)
-                # mutates NodeInfo per round: extract fresh.
+                # A per-round attachment source (probe/events/history/
+                # cordon) mutates NodeInfo per round: extract fresh.
                 accel, ready = select_accelerator_nodes(
                     nodes.docs(), _registry_from_args(args)
                 )
@@ -889,7 +1471,76 @@ def run_check(args, nodes: Optional[List[dict]] = None,
     result.exit_code, expected_key, expected_n, have_chips = grade_fleet(
         args, accel, effective_ready, slices
     )
+
+    cordon_report = uncordon_report = None
+    drain_report = repair_report = None
+    remediation = None
+    degraded_report = None
+    actuation = (
+        getattr(args, "cordon_failed", False)
+        or getattr(args, "cordon_degraded", False)
+        or getattr(args, "uncordon_recovered", False)
+        or getattr(args, "drain_failed", False)
+        or getattr(args, "repair_cmd", None)
+        or getattr(args, "repair_webhook", None)
+    )
+    if actuation:
+        # Before render, so payload["nodes"] reflects post-cordon state.
+        # Every actuator below rides the budget engine's decision function:
+        # the evidence rules pick candidates, budgets have the only
+        # remaining veto, and each decision is one audit event joinable to
+        # this round's trace.
+        remediation = _build_remediation(args, history, events)
+        engine, audit = remediation["engine"], remediation["events"]
+        engine.begin_round(
+            accel, trace_id=timer.trace_id,
+            # No analytics tier: no standing prediction set.
+            predictions=None,
+            # This round's DEGRADED-link evidence (node → slice-qualified
+            # SLOW links), which the --cordon-degraded sweep consumes.
+            degraded=_degraded_link_evidence(accel),
+        )
+        fsm = history["fsm"] if history is not None else None
+        with timer.phase("cordon"):
+            if getattr(args, "uncordon_recovered", False):
+                # Uncordon first: a recovered node leaving quarantine frees
+                # --cordon-max budget for this round's new failures.
+                uncordon_report = _uncordon_recovered_nodes(
+                    args, accel, client=kube_client, fsm=fsm, engine=engine,
+                    events=audit, trace_id=timer.trace_id,
+                )
+            if getattr(args, "cordon_failed", False):
+                cordon_report = _cordon_failed_nodes(
+                    args, accel, client=kube_client, fsm=fsm, engine=engine,
+                    events=audit, trace_id=timer.trace_id,
+                )
+            if getattr(args, "cordon_degraded", False):
+                # After the failed sweep: dead chips outrank a slow link
+                # for whatever --cordon-max budget remains.
+                degraded_report = _cordon_degraded_nodes(
+                    args, accel, client=kube_client, engine=engine,
+                    events=audit, trace_id=timer.trace_id,
+                )
+        if getattr(args, "drain_failed", False):
+            with timer.phase("drain"):
+                drain_report = _drain_failed_nodes(
+                    args, accel, client=kube_client, fsm=fsm, engine=engine,
+                    events=audit, trace_id=timer.trace_id,
+                )
+        if getattr(args, "repair_cmd", None) or getattr(
+            args, "repair_webhook", None
+        ):
+            from tpu_node_checker_torch.remediation.repair import run_repairs
+
+            with timer.phase("repair"):
+                repair_report = run_repairs(
+                    args, accel, engine, remediation["tracker"], fsm=fsm,
+                    events=audit, trace_id=timer.trace_id,
+                )
     if history is not None:
+        # Flush after remediation: the persisted round carries the
+        # out-of-band RECOVERING resets the sweep acted on, and the repair
+        # sweep's own state lines.
         history["store"].flush()
 
     with timer.phase("render"):
@@ -944,10 +1595,37 @@ def run_check(args, nodes: Optional[List[dict]] = None,
                     k: v for k, v in reports_skipped.items() if v
                 }
         stamp_expected_chips(payload, expected_key, expected_n, have_chips)
+        if cordon_report is not None:
+            payload["cordon"] = cordon_report
+        if degraded_report is not None:
+            payload["cordon_degraded"] = degraded_report
+        if uncordon_report is not None:
+            payload["uncordon"] = uncordon_report
+        if drain_report is not None:
+            payload["drain"] = drain_report
+        if repair_report is not None:
+            payload["repair"] = repair_report
+        if remediation is not None:
+            engine = remediation["engine"]
+            if engine.enabled or engine.ever_denied:
+                # The budget view: domains, floors, denials, counters, what
+                # the remediation_* metric families serve.  Legacy runs (no
+                # new flags) attach it only once a denial has occurred.
+                payload["remediation"] = engine.payload_block()
         if history is not None:
             # Per-node state/streak/flaps ride on each node entry; this is
             # the fleet roll-up plus the round's transition log.
             payload["history"] = _history_payload(history, accel)
+        for phase_name, rep in (("cordon", cordon_report),
+                                ("cordon_degraded", degraded_report),
+                                ("uncordon", uncordon_report),
+                                ("drain", drain_report),
+                                ("repair", repair_report)):
+            failed = (rep or {}).get("failed")
+            if failed:
+                degradation[phase_name] = [
+                    f"{f.get('node')}: {f.get('error')}" for f in failed[:_CAUSES_CAP]
+                ]
         if degradation:
             # Partial degradation: the round's verdict stands, and the
             # payload says which non-essential phase lost data and why.
@@ -1157,7 +1835,11 @@ def render_and_notify(args, result: CheckResult, notify_enabled: bool = True) ->
             slices,
             healthy=healthy,
             multislices=result.multislices,
+            cordon=result.payload.get("cordon"),
+            uncordon=result.payload.get("uncordon"),
             history=history,
+            drain=result.payload.get("drain"),
+            remediation=result.payload.get("remediation"),
         )
         sent = notify.send_slack_message(
             webhook,
@@ -1615,3 +2297,472 @@ def _recover_last_code(args) -> Optional[int]:
         if isinstance(code, int):
             return code
     return None
+
+
+def _cause_class(cause: str) -> str:
+    """Fold one logged cause line into its failure CLASS for the --trend
+    roll-up: per-host and per-slice names drop (a 64-host outage is one
+    cause, not 64), the NotReady kubelet reason survives (different reasons
+    route to different responders), and the "+N more" cap lines vanish."""
+    cause = cause.strip()
+    if not cause or re.fullmatch(r"\+\d+ more", cause):
+        return ""
+    head, sep, rest = cause.partition(":")
+    head = head.strip()
+    if head.startswith("slice "):
+        return "slice incomplete"
+    if head == "not-ready":
+        # Only a reason-SHAPED token counts: a CamelCase condition name
+        # (KubeletNotReady, NodeStatusUnknown), possibly a '+'-joined
+        # adverse list (DiskPressure+PIDPressure), ending the paren group
+        # or followed by ':'/','.  A message-only condition renders as
+        # "(container runtime is down)" and its first word must not
+        # masquerade as a kubelet reason class.
+        m = re.search(r"\(([A-Z]\w*(?:\+[A-Z]\w*)*)\s*[:,)]", rest)
+        return f"not-ready ({m.group(1)})" if m else "not-ready"
+    if head.startswith("expected ≥"):
+        return "capacity shortfall"
+    # "probe-failed", "no probe report", "no allocatable devices",
+    # "monitor error", "no accelerator nodes", ...
+    return head if sep else cause[:40]
+
+
+def compute_trend_summary(path: str, max_lines: Optional[int] = None):
+    """The ``--trend`` analysis as data: ``(summary, reason, rounds, skipped)``.
+
+    ``summary`` is the machine-readable object ``--trend --json`` prints
+    (``None`` when the log is unreadable or holds no usable rounds, with
+    ``reason`` saying why); ``rounds`` is the sorted ``(ts, code, entry)``
+    list the human renderer formats timestamps from.  Shared by the CLI
+    wrapper (:func:`trend_summary`) and the fleet API's ``/api/v1/trend``
+    snapshot cache, so both surfaces compute one set of numbers.
+
+    Both callers pass ``max_lines`` (default
+    ``store.DEFAULT_TREND_TAIL_LINES``): the log is read through the
+    bounded TAIL loader, so a multi-GB runaway log costs O(bound) memory
+    per query instead of O(file) — and any log inside the bound (every
+    realistic one) summarizes byte-identically to the unbounded read.
+    """
+    from tpu_node_checker_torch.history.store import (
+        DEFAULT_TREND_TAIL_LINES,
+        read_jsonl_tail,
+    )
+
+    if max_lines is None:
+        max_lines = DEFAULT_TREND_TAIL_LINES
+    skipped = 0
+    try:
+        entries, skipped, _offset = read_jsonl_tail(path, max_lines=max_lines)
+    except OSError as exc:
+        return None, f"unreadable: {exc}", [], skipped
+    rounds = []
+    for e in entries:
+        try:
+            ts = float(e["ts"])
+            if not math.isfinite(ts):
+                # NaN/inf ts would poison interval math and crash the UTC
+                # formatter downstream.
+                raise ValueError(f"non-finite ts {ts!r}")
+            rounds.append((ts, int(e["exit_code"]), e))
+        except (KeyError, TypeError, ValueError, OverflowError):
+            # OverflowError: json round-trips Infinity, and int(inf) raises
+            # it — a malformed line must be SKIPPED, never sink the analysis.
+            skipped += 1
+    if not rounds:
+        return None, "has no usable rounds", [], skipped
+    rounds.sort(key=lambda r: r[0])
+    ok_rounds = sum(1 for _, code, _ in rounds if code == EXIT_OK)
+    transitions = []
+    last_code = None
+    for ts, code, e in rounds:
+        if last_code is not None and code != last_code:
+            t = {"ts": round(ts, 3), "from": last_code, "to": code}
+            # The entering round's recorded causes (or monitor error) ride
+            # along, so a transition line names the slice/host that caused
+            # it — the question a post-incident --trend exists to answer.
+            causes = e.get("causes")
+            if isinstance(causes, list) and causes:
+                t["causes"] = [str(c) for c in causes[:_CAUSES_CAP]]
+            elif code == EXIT_ERROR and e.get("error"):
+                t["causes"] = [f"monitor error: {e['error']}"]
+            transitions.append(t)
+        last_code = code
+    # Longest stretch of consecutive non-0 rounds, measured wall-clock from
+    # the first bad round to the next good one (or the last entry).
+    longest_outage_s = 0.0
+    outage_start = None
+    for ts, code, _ in rounds:
+        if code != EXIT_OK and outage_start is None:
+            outage_start = ts
+        elif code == EXIT_OK and outage_start is not None:
+            longest_outage_s = max(longest_outage_s, ts - outage_start)
+            outage_start = None
+    if outage_start is not None:
+        longest_outage_s = max(longest_outage_s, rounds[-1][0] - outage_start)
+    chip_ratios = [
+        e["ready_chips"] / e["total_chips"]
+        for _, _, e in rounds
+        if isinstance(e.get("total_chips"), (int, float)) and e["total_chips"]
+        and isinstance(e.get("ready_chips"), (int, float))
+    ]
+    slice_ratios = [
+        e["slices_complete"] / e["slices"]
+        for _, _, e in rounds
+        if isinstance(e.get("slices"), (int, float)) and e["slices"]
+        and isinstance(e.get("slices_complete"), (int, float))
+    ]
+    # Wall-time in each exit state: each interval between rounds is charged
+    # to the EARLIER round's state.  Round-count availability misleads when
+    # intervals vary (a slow workload-probe round should weigh its full
+    # duration).  The FINAL round has no successor, but charging it zero
+    # would hide exactly the outage that matters most — one still in
+    # progress at the end of the log — so it is charged one median interval.
+    import statistics
+
+    state_seconds: dict = {}
+    planned_outage_s = 0.0
+    intervals = [b[0] - a[0] for a, b in zip(rounds, rounds[1:])]
+    for (_, code, e), dt in zip(rounds, intervals):
+        state_seconds[code] = state_seconds.get(code, 0.0) + dt
+        if code != EXIT_OK and e.get("planned"):
+            planned_outage_s += dt
+    if intervals:
+        _, final_code, final_e = rounds[-1]
+        dt = statistics.median(intervals)
+        state_seconds[final_code] = state_seconds.get(final_code, 0.0) + dt
+        if final_code != EXIT_OK and final_e.get("planned"):
+            planned_outage_s += dt
+    occupancy_total = sum(state_seconds.values())
+    # Dominant failure classes across ALL degraded rounds (not only
+    # transitions): "what mostly took us down" is the first post-incident
+    # question after "when".  Host/slice names are folded into classes so a
+    # 64-host outage reads as one cause, and the NotReady kubelet reason is
+    # kept — KubeletNotReady and NodeStatusUnknown are different incidents.
+    cause_counts: dict = {}
+    for _, code, e in rounds:
+        if code == EXIT_OK:
+            continue
+        causes = e.get("causes") if isinstance(e.get("causes"), list) else []
+        if code == EXIT_ERROR and not causes and e.get("error"):
+            causes = ["monitor error"]
+        for cls in {cls for c in causes if (cls := _cause_class(str(c)))}:
+            cause_counts[cls] = cause_counts.get(cls, 0) + 1
+    top_causes = [
+        {"cause": cls, "rounds": n}
+        for cls, n in sorted(cause_counts.items(), key=lambda kv: (-kv[1], kv[0]))[:5]
+    ]
+    cause_classes_total = len(cause_counts)
+    summary = {
+        "rounds": len(rounds),
+        "skipped_lines": skipped,
+        "window_s": round(rounds[-1][0] - rounds[0][0], 1),
+        "availability_pct": round(100.0 * ok_rounds / len(rounds), 2),
+        "time_weighted_availability_pct": (
+            round(100.0 * state_seconds.get(EXIT_OK, 0.0) / occupancy_total, 2)
+            if occupancy_total > 0
+            else None
+        ),
+        "state_seconds": {str(k): round(v, 1) for k, v in sorted(state_seconds.items())},
+        # Downtime fully explained by maintenance drains / scale-downs
+        # (rounds logged planned=true), and availability with that time
+        # excused — the SLO most fleets actually report against.
+        "planned_outage_s": round(planned_outage_s, 1),
+        "unplanned_availability_pct": (
+            round(
+                100.0
+                * state_seconds.get(EXIT_OK, 0.0)
+                / (occupancy_total - planned_outage_s),
+                2,
+            )
+            if occupancy_total - planned_outage_s > 0
+            else None
+        ),
+        "chip_availability_pct": (
+            round(100.0 * sum(chip_ratios) / len(chip_ratios), 2)
+            if chip_ratios
+            else None
+        ),
+        "slice_availability_pct": (
+            round(100.0 * sum(slice_ratios) / len(slice_ratios), 2)
+            if slice_ratios
+            else None
+        ),
+        "top_causes": top_causes,
+        # Same no-silent-truncation rule as transitions_total: a capped
+        # list must say what it dropped.
+        "cause_classes_total": cause_classes_total,
+        "transitions": transitions[-20:],
+        "transitions_total": len(transitions),
+        "longest_outage_s": round(longest_outage_s, 1),
+        "last_exit_code": rounds[-1][1],
+        "last_ts": round(rounds[-1][0], 3),
+    }
+    last_chronic = rounds[-1][2].get("chronic")
+    if isinstance(last_chronic, list) and last_chronic:
+        # --history rounds record standing chronic flappers even at exit 0;
+        # the current set belongs in the post-incident picture (per-node
+        # depth lives in --trend-nodes against the history store).
+        summary["chronic_nodes"] = [str(n) for n in last_chronic]
+    return summary, None, rounds, skipped
+
+
+def trend_summary(path: str, json_mode: bool = False) -> int:
+    """``--trend FILE``: summarize a ``--log-jsonl`` trend log.
+
+    The post-incident questions the log exists to answer — when did the
+    fleet degrade, for how long, how available was it — computed from the
+    per-round entries: availability (fraction of rounds at exit 0), every
+    state TRANSITION with its timestamp, the longest non-0 stretch, and
+    chip-level availability (mean ready/total chips).  Malformed lines are
+    skipped with a count via the same torn-line-tolerant loader the history
+    store uses (a crash mid-append must not sink the analysis); an
+    unreadable or empty log exits 1 — with a machine-readable summary on
+    stdout in ``--json`` mode, never a traceback.
+    """
+    summary, reason, rounds, skipped = compute_trend_summary(path)
+    if summary is None:
+        print(f"trend log {path} {reason}", file=sys.stderr)
+        if json_mode:
+            # Automation reads stdout: an empty / whitespace-only /
+            # unreadable log must still parse (rounds=0 plus the reason),
+            # with exit 1 as the signal — not a bare stderr note.
+            print(
+                json.dumps(
+                    {"rounds": 0, "skipped_lines": skipped, "error": reason},
+                    ensure_ascii=False,
+                )
+            )
+        return 1
+    if json_mode:
+        print(json.dumps(summary, ensure_ascii=False, indent=2))
+        return 0
+    import datetime
+
+    def _fmt(ts: float) -> str:
+        # UTC, explicitly marked: an incident timeline must read identically
+        # from a pod and from an operator laptop in any timezone (ops
+        # convention; the bench's provenance stamps already use gmtime).
+        return datetime.datetime.fromtimestamp(
+            ts, datetime.timezone.utc
+        ).strftime("%Y-%m-%d %H:%M:%SZ")
+
+    print(
+        f"{len(rounds)} rounds over {summary['window_s']}s "
+        f"({_fmt(rounds[0][0])} → {_fmt(rounds[-1][0])})"
+        + (f", {skipped} malformed lines skipped" if skipped else "")
+    )
+    print(
+        f"availability: {summary['availability_pct']}% of rounds at exit 0"
+        + (
+            f" ({summary['time_weighted_availability_pct']}% time-weighted)"
+            if summary["time_weighted_availability_pct"] is not None
+            else ""
+        )
+        + (
+            f"; {summary['unplanned_availability_pct']}% excluding "
+            f"{summary['planned_outage_s']}s planned maintenance"
+            if summary["planned_outage_s"]
+            and summary["unplanned_availability_pct"] is not None
+            else ""
+        )
+        + (
+            f"; chip availability {summary['chip_availability_pct']}%"
+            if summary["chip_availability_pct"] is not None
+            else ""
+        )
+        + (
+            f"; slice availability {summary['slice_availability_pct']}%"
+            if summary["slice_availability_pct"] is not None
+            else ""
+        )
+    )
+    transitions_total = summary["transitions_total"]
+    top_causes = summary["top_causes"]
+    print(
+        f"state transitions: {transitions_total}; "
+        f"longest outage {summary['longest_outage_s']}s; "
+        f"current state: exit {summary['last_exit_code']}"
+    )
+    if summary.get("chronic_nodes"):
+        print(
+            "chronic flappers held in quarantine: "
+            + ", ".join(summary["chronic_nodes"])
+        )
+    if top_causes:
+        omitted = summary["cause_classes_total"] - len(top_causes)
+        print(
+            "top causes: "
+            + "; ".join(f"{c['cause']} ×{c['rounds']}" for c in top_causes)
+            + (f"; +{omitted} more classes" if omitted else "")
+        )
+    shown = summary["transitions"]  # one truncation rule for both surfaces
+    if transitions_total > len(shown):
+        print(f"  … {transitions_total - len(shown)} earlier transitions omitted")
+    for t in shown:
+        suffix = ""
+        if t.get("causes"):
+            suffix = "  (" + "; ".join(t["causes"]) + ")"
+        print(f"  {_fmt(t['ts'])}  exit {t['from']} → {t['to']}{suffix}")
+    return 0
+
+
+def trend_nodes(path: str, json_mode: bool = False) -> int:
+    """``--trend-nodes FILE``: per-node analysis of a ``--history`` store.
+
+    The fleet questions the per-round trend log cannot answer — WHICH nodes
+    are the problem: per-node availability (fraction of evidence rounds
+    good), MTBF (mean seconds between failure onsets), MTTR (mean seconds
+    from a failure onset to the next good round), flap counts, and current
+    hysteresis state — with the worst offenders ranked first.  Chronic
+    offenders with 95% availability are exactly the hardware MTBF/MTTR
+    surfaces and a snapshot checker cannot.
+
+    Same degradation contract as ``--trend``: torn/malformed lines are
+    skipped with a count, an unreadable or empty store exits 1 (with a
+    machine-readable object on stdout in ``--json`` mode).
+    """
+    from tpu_node_checker_torch.history.fsm import CHRONIC
+    from tpu_node_checker_torch.history.store import (
+        HISTORY_SCHEMA_VERSION,
+        read_jsonl_tolerant,
+    )
+
+    def _empty(reason: str) -> int:
+        print(f"history store {path} {reason}", file=sys.stderr)
+        if json_mode:
+            print(
+                json.dumps(
+                    {"nodes": {}, "skipped_lines": skipped, "error": reason},
+                    ensure_ascii=False,
+                )
+            )
+        return 1
+
+    skipped = 0
+    try:
+        entries, skipped = read_jsonl_tolerant(path)
+    except OSError as exc:
+        return _empty(f"unreadable: {exc}")
+    by_node: dict = {}
+    for e in entries:
+        schema = e.get("schema")
+        node = e.get("node")
+        if (schema is not None and schema != HISTORY_SCHEMA_VERSION) or not isinstance(
+            node, str
+        ) or not node:
+            skipped += 1
+            continue
+        by_node.setdefault(node, []).append(e)
+    if not by_node:
+        return _empty("has no usable rounds")
+
+    def _num(v):
+        return v if isinstance(v, (int, float)) and not isinstance(v, bool) and math.isfinite(v) else None
+
+    def _int(v):
+        return v if isinstance(v, int) and not isinstance(v, bool) else None
+
+    nodes: dict = {}
+    for node, seq in sorted(by_node.items()):
+        # Malformed-but-dict lines (a hand-edited "ts": "oops") must degrade
+        # like torn lines, never crash the analysis: every read is coerced.
+        seq.sort(key=lambda e: _num(e.get("ts")) or 0.0)
+        evidence = [e for e in seq if isinstance(e.get("ok"), bool)]
+        ok_rounds = sum(1 for e in evidence if e["ok"])
+        # Failure onsets (good→bad edges, or a bad first round) and the
+        # matching repairs (the next good round) — the MTBF/MTTR inputs.
+        onsets: List[float] = []
+        repairs: List[float] = []  # seconds from onset to recovery
+        failing_since: Optional[float] = None
+        for e in evidence:
+            ts = _num(e.get("ts"))
+            if ts is None:
+                continue
+            if not e["ok"] and failing_since is None:
+                failing_since = ts
+                onsets.append(ts)
+            elif e["ok"] and failing_since is not None:
+                repairs.append(ts - failing_since)
+                failing_since = None
+        last = seq[-1]
+        cause_counts: dict = {}
+        for e in evidence:
+            for c in e.get("causes") or []:
+                cause_counts[str(c)] = cause_counts.get(str(c), 0) + 1
+        nodes[node] = {
+            "rounds": len(evidence),
+            "ok_rounds": ok_rounds,
+            "availability_pct": (
+                round(100.0 * ok_rounds / len(evidence), 2) if evidence else None
+            ),
+            "failures": len(onsets),
+            "mtbf_s": (
+                round(
+                    (onsets[-1] - onsets[0]) / (len(onsets) - 1), 1
+                )
+                if len(onsets) >= 2
+                else None
+            ),
+            "mttr_s": (
+                round(sum(repairs) / len(repairs), 1) if repairs else None
+            ),
+            "state": last.get("state") if isinstance(last.get("state"), str) else None,
+            "flaps": _int(last.get("flaps")),
+            "flaps_total": _int(last.get("flaps_total")),
+            "top_causes": [
+                c
+                for c, _ in sorted(
+                    cause_counts.items(), key=lambda kv: (-kv[1], kv[0])
+                )[:3]
+            ],
+        }
+    # Worst first: lowest availability, then most flaps — the repair queue.
+    worst = sorted(
+        nodes,
+        key=lambda n: (
+            nodes[n]["availability_pct"]
+            if nodes[n]["availability_pct"] is not None
+            else 100.0,
+            -(nodes[n]["flaps_total"] or 0),
+            n,
+        ),
+    )
+    summary = {
+        "nodes": nodes,
+        "worst_offenders": worst[:10],
+        "chronic": sorted(n for n in nodes if nodes[n]["state"] == CHRONIC),
+        "rounds_total": sum(v["rounds"] for v in nodes.values()),
+        "skipped_lines": skipped,
+    }
+    if json_mode:
+        print(json.dumps(summary, ensure_ascii=False, indent=2))
+        return 0
+    print(
+        f"{len(nodes)} node(s), {summary['rounds_total']} evidence rounds"
+        + (f", {skipped} malformed/foreign lines skipped" if skipped else "")
+    )
+    if summary["chronic"]:
+        print("chronic flappers: " + ", ".join(summary["chronic"]))
+    print()
+    rows = []
+    for n in worst:
+        v = nodes[n]
+        rows.append(
+            [
+                n,
+                v["state"] or "?",
+                f"{v['availability_pct']}%" if v["availability_pct"] is not None else "-",
+                str(v["failures"]),
+                f"{v['mtbf_s']}s" if v["mtbf_s"] is not None else "-",
+                f"{v['mttr_s']}s" if v["mttr_s"] is not None else "-",
+                str(v["flaps_total"] if v["flaps_total"] is not None else "-"),
+                ", ".join(v["top_causes"]) or "-",
+            ]
+        )
+    print(
+        report.render_columns(
+            ["NODE", "STATE", "AVAIL", "FAILS", "MTBF", "MTTR", "FLAPS", "TOP CAUSES"],
+            rows,
+        )
+    )
+    return 0

@@ -21,6 +21,13 @@ and the node side (the emitter and its pod's modes).
         [--slack-webhook URL] [--slack-username NAME] [--slack-only-on-error]
         [--slack-retry-count N] [--slack-retry-delay S]
         [--watch S [--slack-on-change] [--metrics-port PORT] [--event-log FILE]]
+        [--cordon-failed | --drain-failed [--no-drain-dry-run]] [--cordon-max N]
+        [--cordon-degraded] [--uncordon-recovered] [--cordon-dry-run]
+        [--disruption-budget N[/WINDOW]] [--slice-floor-pct PCT]
+        [--disruption-lease URL] [--repair-cmd CMD | --repair-webhook URL
+         [--no-repair-dry-run]]
+    python -m tpu_node_checker_torch --trend FILE [--json]
+    python -m tpu_node_checker_torch --trend-nodes FILE [--json]
     python -m tpu_node_checker_torch --emit-probe FILE|- \\
         [--probe-level {enumerate,compute,collective,mesh,workload}]
         [--probe-timeout S] [--device cpu] [--probe-soak S]
@@ -49,6 +56,13 @@ With ``--watch`` the round repeats every S seconds until SIGTERM (exit 143):
 ``--slack-on-change`` posts only when the outcome changes, a circuit breaker
 widens the interval over consecutive failed rounds, ``--metrics-port``
 serves the round's gauges and ``--event-log`` records the loop's events.
+``--cordon-failed`` (or ``--drain-failed``, evict-then-cordon) quarantines
+nodes whose probe failed, ``--uncordon-recovered`` lifts our quarantines
+once they pass again, and the budget engine refuses what would pass
+``--cordon-max``, ``--slice-floor-pct``, ``--disruption-budget`` or the
+fleet lease (``--disruption-lease``); ``--repair-cmd`` or
+``--repair-webhook`` fires once per condemned node.  ``--trend`` summarizes
+a ``--log-jsonl`` trend log and ``--trend-nodes`` a ``--history`` store.
 ``--emit-probe`` writes one report, or with ``--watch`` one every S seconds
 until SIGTERM (exit 143), serving the round's gauges on ``--metrics-port``;
 with ``--probe-distributed`` one emitter per host joins one rendezvous and
@@ -185,6 +199,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--log-jsonl", metavar="FILE",
                    help="append one JSON line per check round (or emitter round) to "
                    "FILE (trend log; the fleet checker's --trend reads it)")
+    p.add_argument("--trend", metavar="FILE",
+                   help="summarize a --log-jsonl trend log (availability — "
+                   "time-weighted and excluding planned maintenance — state "
+                   "transitions with their causes, longest outage) and exit "
+                   "— post-incident analysis; runs alone")
 
     probe = p.add_argument_group("Card probe (data-plane liveness)")
     probe.add_argument("--probe", action="store_true",
@@ -297,6 +316,115 @@ def build_parser() -> argparse.ArgumentParser:
     history.add_argument("--flap-window", type=int, default=None, metavar="W",
                          help="with --history: sliding window (rounds) the flap "
                          "detector counts flips over (default 10)")
+    history.add_argument("--trend-nodes", metavar="FILE",
+                         help="summarize a --history store per node: "
+                         "availability, MTBF/MTTR, flap counts, current "
+                         "hysteresis state, worst offenders first — and exit "
+                         "(post-incident analysis; runs alone)")
+
+    cordon = p.add_argument_group("Auto-quarantine (data-plane failures)")
+    cordon.add_argument("--cordon-failed", action="store_true",
+                        help="mark kubelet-Ready nodes whose chip probe FAILED as "
+                        "unschedulable (kubectl-cordon PATCH; needs the 'patch' "
+                        "verb on nodes — see deploy/rbac.yaml)")
+    cordon.add_argument("--cordon-max", type=int, default=None, metavar="N",
+                        help="budget on TOTAL cordoned accelerator nodes (default "
+                        "1): nodes already cordoned — by this tool or anyone — "
+                        "count against it, so a fleet-wide regression under "
+                        "--watch converges at N instead of draining the pool; "
+                        "raise deliberately for mass-repair workflows")
+    cordon.add_argument("--cordon-degraded", action="store_true",
+                        help="also quarantine nodes whose chips PASS but whose "
+                        "mesh link sweep (--probe-level mesh) graded an ICI "
+                        "link SLOW this round — a capacity-quality drain, "
+                        "never fed through the FSM condemnation ladder; "
+                        "rides the same budget rails (--cordon-max, slice "
+                        "floors, disruption budget/lease) as --cordon-failed")
+    cordon.add_argument("--cordon-dry-run", action="store_true",
+                        help="report cordon/uncordon decisions without patching anything")
+    cordon.add_argument("--uncordon-recovered", action="store_true",
+                        help="lift THIS TOOL'S quarantines (cordons carrying the "
+                        "tpu-node-checker.io/quarantined annotation) once the node "
+                        "is Ready with a fresh passing chip probe; human cordons "
+                        "are never touched")
+
+    remediation = p.add_argument_group(
+        "Remediation & disruption budgets (slice-aware actuation limits)"
+    )
+    remediation.add_argument("--slice-floor-pct", type=float, default=None,
+                             metavar="PCT",
+                             help="refuse any cordon/drain that would take a "
+                             "failure domain (a multi-host TPU slice, keyed "
+                             "like the grading's slice grouping) below PCT%% "
+                             "of its expected healthy chips — even when each "
+                             "node individually looks expendable (default 90 "
+                             "once any remediation flag engages the budget "
+                             "engine; single-host domains are exempt); "
+                             "requires --cordon-failed or --drain-failed")
+    remediation.add_argument("--disruption-budget", metavar="N[/WINDOW]",
+                             help="cap disruptive actuations (cordon, drain, "
+                             "repair) at N per round, or N per sliding "
+                             "WINDOW (30s/10m/1h/1d) across rounds; refused "
+                             "actuations surface as audit events, "
+                             "remediation_denied_total samples and deduped "
+                             "Slack lines — a mass-failure storm degrades "
+                             "into bounded actuation plus visible refusals, "
+                             "never a self-inflicted capacity drain; "
+                             "requires --cordon-failed or --drain-failed")
+    remediation.add_argument("--drain-failed", action="store_true",
+                             help="drain (evict-then-cordon) condemned nodes "
+                             "instead of bare-cordoning them: pods are "
+                             "evicted through the Eviction API so "
+                             "PodDisruptionBudgets get their vote (a PDB "
+                             "refusal is a budget denial, reason=pdb, never "
+                             "an error), then the node is cordoned; same "
+                             "evidence rules as --cordon-failed (which it "
+                             "replaces — the two are mutually exclusive); "
+                             "DRY-RUN BY DEFAULT")
+    remediation.add_argument("--drain-dry-run", dest="drain_dry_run",
+                             action="store_true", default=True,
+                             help="with --drain-failed: report the eviction "
+                             "list and grace accounting without evicting "
+                             "anything (THE DEFAULT — --no-drain-dry-run "
+                             "opts into real evictions)")
+    remediation.add_argument("--no-drain-dry-run", dest="drain_dry_run",
+                             action="store_false",
+                             help="with --drain-failed: actually evict and "
+                             "cordon (overrides the default dry-run)")
+    remediation.add_argument("--repair-cmd", metavar="CMD",
+                             help="fire CMD (through the shell; TNC_NODE/"
+                             "TNC_DOMAIN/TNC_REASON/TNC_TRACE_ID in the "
+                             "environment) once per node the FSM condemns "
+                             "(FAILED/CHRONIC) while it sits in our "
+                             "quarantine; per-node repair state rides the "
+                             "--history store so a restart never "
+                             "double-fires; each firing charges the "
+                             "disruption budget; DRY-RUN BY DEFAULT; "
+                             "requires --history and an actuator flag")
+    remediation.add_argument("--repair-webhook", metavar="URL",
+                             help="like --repair-cmd but POST the repair "
+                             "facts ({node, domain, reason, trace_id}) as "
+                             "JSON to URL (mutually exclusive with "
+                             "--repair-cmd)")
+    remediation.add_argument("--repair-dry-run", dest="repair_dry_run",
+                             action="store_true", default=True,
+                             help="with --repair-cmd/--repair-webhook: log "
+                             "which repairs would fire without firing them "
+                             "(THE DEFAULT — --no-repair-dry-run opts in)")
+    remediation.add_argument("--no-repair-dry-run", dest="repair_dry_run",
+                             action="store_false",
+                             help="with --repair-cmd/--repair-webhook: "
+                             "actually fire the hooks")
+    remediation.add_argument("--disruption-lease", metavar="URL",
+                             help="borrow each actuation from the federation "
+                             "aggregator's fleet disruption budget first "
+                             "(POST URL/api/v1/global/disruption-lease): a "
+                             "lease denial is a local refusal; an "
+                             "unreachable aggregator falls back to the "
+                             "LOCAL budget, additionally bounded by the "
+                             "fleet allowance last leased — degrading "
+                             "toward less actuation, never more; requires "
+                             "--cordon-failed or --drain-failed")
 
     slack = p.add_argument_group("Slack")
     slack.add_argument("--slack-webhook", help="Slack incoming-webhook URL (or $SLACK_WEBHOOK_URL)")
@@ -365,6 +493,45 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
         )
     if args.probe_results_required and not args.probe_results:
         p.error("--probe-results-required requires --probe-results DIR")
+    if args.trend and (
+        args.emit_probe
+        or args.node_events
+        or args.probe
+        or args.watch is not None
+        or args.probe_results
+        or args.cordon_failed
+        or args.cordon_degraded
+        or args.uncordon_recovered
+        or args.report_fresh
+        or args.log_jsonl
+        or args.slack_webhook
+        or args.slack_only_on_error
+        or args.strict_slices
+        or args.expected_chips
+        or args.history
+        or args.trend_nodes
+    ):
+        # A summary-only mode must not absorb check/emit/notify/quarantine
+        # flags the operator thinks ran.
+        p.error("--trend runs alone (only --json may accompany it)")
+    if args.trend_nodes and (
+        args.emit_probe
+        or args.node_events
+        or args.probe
+        or args.watch is not None
+        or args.probe_results
+        or args.cordon_failed
+        or args.cordon_degraded
+        or args.uncordon_recovered
+        or args.report_fresh
+        or args.log_jsonl
+        or args.slack_webhook
+        or args.slack_only_on_error
+        or args.strict_slices
+        or args.expected_chips
+        or args.history
+    ):
+        p.error("--trend-nodes runs alone (only --json may accompany it)")
     for flag, val in (
         ("--history-max-rounds", args.history_max_rounds),
         ("--cordon-after", args.cordon_after),
@@ -411,7 +578,12 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
         or args.probe
         or args.watch is not None
         or args.probe_results
+        or args.cordon_failed
+        or args.cordon_degraded
+        or args.uncordon_recovered
         or args.report_fresh
+        or args.trend
+        or args.trend_nodes
         or args.history
         or args.calibrate is not None
         or args.slack_webhook
@@ -436,7 +608,12 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
             or args.probe
             or args.watch is not None
             or args.probe_results
+            or args.cordon_failed
+            or args.cordon_degraded
+            or args.uncordon_recovered
             or args.report_fresh
+            or args.trend
+            or args.trend_nodes
             or args.history
             or args.slack_webhook
             or args.slack_only_on_error
@@ -470,6 +647,23 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
             p.error("--calibrate-out requires --calibrate")
         if args.calibrate_margin is not None:
             p.error("--calibrate-margin requires --calibrate")
+    if args.report_fresh and (
+        args.emit_probe
+        or args.node_events
+        or args.probe
+        or args.watch is not None
+        or args.probe_results
+        or args.cordon_failed
+        or args.cordon_degraded
+        or args.uncordon_recovered
+        or args.history
+        or args.trend_nodes
+    ):
+        # JAX's rule and words first; the port's wider rule below.
+        p.error(
+            "--report-fresh runs alone (no --emit-probe/--probe/--watch/"
+            "--probe-results/--cordon-failed/--uncordon-recovered)"
+        )
     if args.report_fresh and any(
         v != p.get_default(k) for k, v in vars(args).items()
         if k not in ("report_fresh", "probe_results_max_age")
@@ -481,6 +675,82 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
             "--probe-level/--probe-timeout/--probe-soak/--probe-topology/"
             "--perf-floor/--device)"
         )
+    # Remediation and disruption budgets: every budget knob needs an
+    # actuator it can gate, every hook needs the state that stops it firing
+    # twice.
+    if args.cordon_failed and args.drain_failed:
+        p.error("--drain-failed replaces --cordon-failed (evict-then-cordon "
+                "instead of a bare PATCH) — pass one, not both")
+    from tpu_node_checker_torch.remediation.budget import parse_disruption_budget
+
+    if args.disruption_budget is not None:
+        try:
+            parse_disruption_budget(args.disruption_budget)
+        except ValueError as exc:
+            p.error(f"--disruption-budget: {exc}")
+    if args.slice_floor_pct is not None and not (
+        0 < args.slice_floor_pct <= 100
+    ):
+        p.error("--slice-floor-pct must be in (0, 100]")
+    actuator = args.cordon_failed or args.drain_failed or args.cordon_degraded
+    for flag, on in (
+        ("--slice-floor-pct", args.slice_floor_pct is not None),
+        ("--disruption-budget", args.disruption_budget),
+        ("--disruption-lease", args.disruption_lease),
+    ):
+        if on and not actuator:
+            p.error(f"{flag} requires --cordon-failed or --drain-failed "
+                    "(a budget with no actuator gates nothing)")
+    if args.repair_cmd and args.repair_webhook:
+        p.error("--repair-cmd and --repair-webhook are mutually exclusive "
+                "(one repair channel per checker)")
+    if args.repair_cmd or args.repair_webhook:
+        if not args.history:
+            p.error("--repair-cmd/--repair-webhook require --history FILE "
+                    "(repair state rides the store so a restart never "
+                    "double-fires)")
+        if not actuator:
+            p.error("--repair-cmd/--repair-webhook require --cordon-failed "
+                    "or --drain-failed (repairs fire on quarantined nodes)")
+    if not args.drain_dry_run and not args.drain_failed:
+        # Arming real evictions with no drain sweep would let an operator
+        # believe draining is live.
+        p.error("--no-drain-dry-run requires --drain-failed")
+    if not args.repair_dry_run and not (args.repair_cmd or args.repair_webhook):
+        p.error("--no-repair-dry-run requires --repair-cmd or "
+                "--repair-webhook")
+    if args.cordon_degraded and args.probe and args.probe_level not in (
+        "mesh", "workload"
+    ):
+        # The degraded sweep's only evidence is the mesh link sweep's
+        # verdict; below the mesh level the sweep could never fire.
+        p.error("--cordon-degraded with --probe requires --probe-level "
+                "mesh (or workload): lower levels never run the mesh "
+                "link sweep")
+    for flag, on in (
+        ("--cordon-failed", args.cordon_failed),
+        ("--cordon-degraded", args.cordon_degraded),
+        ("--drain-failed", args.drain_failed),
+        ("--uncordon-recovered", args.uncordon_recovered),
+    ):
+        if on and not (args.probe or args.probe_results):
+            # Each keys off a data-plane verdict; without a probe source
+            # the flag could never act.
+            p.error(f"{flag} requires --probe or --probe-results DIR")
+        if on and args.emit_probe:
+            p.error(f"{flag} cannot be combined with --emit-probe")
+    if args.emit_probe:
+        for flag, on in (
+            # The emitter loop runs no fleet rounds: nothing to repair or
+            # budget.
+            ("--repair-cmd", args.repair_cmd),
+            ("--repair-webhook", args.repair_webhook),
+            ("--disruption-budget", args.disruption_budget),
+            ("--disruption-lease", args.disruption_lease),
+            ("--slice-floor-pct", args.slice_floor_pct is not None),
+        ):
+            if on:
+                p.error(f"{flag} cannot be combined with --emit-probe")
     if args.emit_probe:
         for flag, on in (
             ("--slack-webhook", args.slack_webhook),
@@ -500,6 +770,21 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
             p.error("--node-events requires a live cluster (not --nodes-json)")
         if args.emit_probe:
             p.error("--node-events cannot be combined with --emit-probe")
+    if args.cordon_max is not None and args.cordon_max < 1:
+        p.error("--cordon-max must be at least 1")
+    if args.cordon_max is not None and not (
+        args.cordon_failed or args.cordon_degraded or args.drain_failed
+    ):
+        # JAX's words: its fleet API's cordon endpoint (--serve, not ported
+        # here) shares the budget.
+        p.error("--cordon-max requires --cordon-failed, --drain-failed "
+                "or --serve")
+    if args.cordon_dry_run and not (
+        args.cordon_failed or args.cordon_degraded or args.uncordon_recovered
+    ):
+        p.error("--cordon-dry-run requires --cordon-failed or --uncordon-recovered")
+    if args.cordon_max is None:
+        args.cordon_max = 1
     if args.probe_distributed and not (args.probe or args.emit_probe):
         # A probe modifier that silently does nothing would let an operator
         # believe a distributed probe ran.
@@ -575,6 +860,14 @@ def main(argv: Optional[List[str]] = None) -> int:
 
 
 def _dispatch(args) -> int:
+    if args.trend:
+        from tpu_node_checker_torch import checker
+
+        return checker.trend_summary(args.trend, json_mode=args.json)
+    if args.trend_nodes:
+        from tpu_node_checker_torch import checker
+
+        return checker.trend_nodes(args.trend_nodes, json_mode=args.json)
     if args.selftest:
         from tpu_node_checker_torch.selftest import selftest
 
