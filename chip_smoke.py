@@ -168,13 +168,40 @@ Phases, one line each (any failure exits non-zero and prints no result):
    CLI loading no package but its own); and ``--trend`` and
    ``--trend-nodes``, text and ``--json``, through both CLIs on the port's
    log and store (equal output);
-14. the ``kernels`` line (each kernel at the compute probe's shapes, its
+14. the aggregator Deployment as written, on phase 13's healthy and drill
+   reports of this host: ``--watch 1 --strict-slices --probe-results DIR
+   --probe-results-required --slack-on-change --metrics-port 0 --log-jsonl
+   L --history H --cordon-after 2 --uncordon-after 3 --disruption-budget
+   2/10m --slice-floor-pct 90 --disruption-lease URL --cordon-failed
+   --uncordon-recovered --serve 0 --serve-workers 2 --write-rps 5
+   --event-log E --analytics A`` with ``TNC_SERVE_TOKEN`` set, against the
+   fake API server of 1,000 GPU nodes and a lease server, through the port
+   and through the JAX checker's CLI, each held before every round (the
+   wall clock it reads pinned: one second a round): this host healthy,
+   drill, healthy, drill, healthy, healthy, SIGTERM as round 7 starts (exit
+   143, the fleet API closed); ``/readyz`` 503 before round 1 and 200
+   after, ``/healthz`` 200; after each round every route of the fleet API
+   (summary, nodes, this node, slices, trend, remediation, the three
+   analytics documents, debug rounds, the watch feed, ``/metrics``, a 404),
+   ``X-TNC-Round`` moving forward, the node carrying its round's report
+   and state, a 304, gzip and HEAD; after round 1 the writes (401 without
+   the token or with a wrong one, then 5 dry-run answers and 429s with
+   ``Retry-After``); the one ``analytics-prediction`` at round 4; the
+   PATCHes with their rounds; 200 GETs of the nodes collection and 200 of
+   its 304, the publish span of each round and the ``analytics-query``
+   phase, timed; equal to the JAX checker's (exit codes, PATCH bodies,
+   posts, events, lease requests, writes and every GET body, with the
+   masks named at ``SERVE_MASKED_KEYS``), each CLI loading no package but
+   its own; then ``--serve 0 --history H --log-jsonl L`` standalone through
+   both CLIs over the port's store (equal bodies, ``/readyz`` 200, a write
+   503 with the token and 401 without, SIGTERM exit 143);
+15. the ``kernels`` line (each kernel at the compute probe's shapes, its
    launches counted on the workload path, in each emitter round, in each
    selftest leg, in each calibration rep, on the distributed workload path,
    in the one-shot round's probe, in the live round's, in each probed
-   round of the loop and in each report the quarantine grades, flash also
-   at the training step's shape), then the ``nvidia-smi`` line, then the
-   result line.
+   round of the loop, in each report the quarantine grades and in each
+   report the Deployment grades, flash also at the training step's shape),
+   then the ``nvidia-smi`` line, then the result line.
 
 Bounds use the H100 SXM data sheet: 3.35 TB/s of device memory, 989 TFLOP/s
 bf16 on the tensor cores.  Times are steady-state CUDA-event times over many
@@ -190,6 +217,7 @@ import gzip
 import http.client
 import importlib.util
 import json
+import math
 import os
 import re
 import signal
@@ -1645,10 +1673,19 @@ def phase11_live_round(torch, root, rows, validate_report) -> None:
 # and remediation blocks), one for each inter-round wait the loop asks for
 # (the seconds, and when), and at exit the packages loaded.  With
 # SMOKE_ROUND_PLAN set, each check first points the reports link at its
-# round's directory, and the round named stops the lease server first.
+# round's directory, and the round named stops the lease server first; with
+# "hold" in the plan, each check first records "hold" and waits for the
+# file <record>.go<n> (the script reads the fleet API between rounds).  With
+# SMOKE_CLOCK set, the wall clock the CLI reads is pinned: that time at the
+# first round, one second more each round.
 WATCH_CLI_SCRIPT = """
 import http.client, importlib, json, os, socket, sys, time
 
+real_time = time.time
+clock = os.environ.get("SMOKE_CLOCK")
+virtual = [float(clock)] if clock else None
+if virtual is not None:
+    time.time = lambda: virtual[0]
 checker = importlib.import_module(sys.argv[2] + ".checker")
 cli = importlib.import_module(sys.argv[2] + ".cli")
 record = open(sys.argv[1], "a")
@@ -1658,7 +1695,7 @@ started = [0]
 
 
 def write(**entry):
-    record.write(json.dumps(dict(entry, at=time.time())) + "\\n")
+    record.write(json.dumps(dict(entry, at=real_time())) + "\\n")
     record.flush()
 
 
@@ -1685,6 +1722,13 @@ def next_round():
                 break
             time.sleep(0.01)
         write(event="lease-stopped", round=n)
+    if plan.get("hold"):
+        write(event="hold", round=n)
+        go, deadline = f"{sys.argv[1]}.go{n}", time.monotonic() + 300
+        while not os.path.exists(go) and time.monotonic() < deadline:
+            time.sleep(0.005)
+    if virtual is not None:
+        virtual[0] = float(clock) + n - 1
 
 
 def run_check(args, **kw):
@@ -2065,7 +2109,7 @@ def masked_patches(patches: list) -> list:
     return out
 
 
-def phase13_quarantine(torch, root, rows, validate_report, emit_args=()) -> None:
+def phase13_quarantine(torch, root, rows, validate_report, emit_args=()) -> dict:
     """Phase 13: the aggregator's quarantine, graded on reports that the
     port's emitter writes on this card: the Deployment's --watch loop with
     --cordon-failed --uncordon-recovered and the budget engine, against the
@@ -2309,6 +2353,430 @@ def phase13_quarantine(torch, root, rows, validate_report, emit_args=()) -> None
     phase(13, "the quarantine", seconds=time.perf_counter() - t_phase,
           patches=len(seen["port"]["patches"]),
           metrics_get_ms=[s["ms"] for s in seen["port"]["scrapes"].values()])
+    return {"host": host, "reports": {"healthy": reports["healthy"],
+                                      "drill": reports[f"drill {host}"]}}
+
+
+# Phase 14's masks between the port's fleet API and the JAX checker's, each
+# a random id or a wall time of the round: the trace id (in bodies, and the
+# X-TNC-Trace header, which is not compared), the round's timings_ms, a
+# debug round's total_ms, the round_ms sketch (its samples are round
+# durations), and on /metrics the duration, latency and timestamp samples.
+# The wall clock the two CLIs read is pinned (SMOKE_CLOCK), so every other
+# timestamp is compared.
+SERVE_MASKED_KEYS = ("trace_id", "timings_ms", "total_ms")
+SERVE_MASKED_SKETCHES = ("round_ms",)
+SERVE_WALL_SAMPLES = re.compile(r"^tpu_node_checker_\w*(duration_ms|latency\w*|_seconds)"
+                                r"(_bucket|_sum|_count)?[{ ]")
+SERVE_TOKEN = "chip-smoke-serve-token"
+
+
+def serve_masked(obj):
+    if isinstance(obj, dict):
+        return {k: "<masked>" if k in SERVE_MASKED_KEYS or (
+            k in SERVE_MASKED_SKETCHES and isinstance(v, dict)) else serve_masked(v)
+            for k, v in obj.items()}
+    if isinstance(obj, list):
+        return [serve_masked(v) for v in obj]
+    return obj
+
+
+def served(path: str, status: int, headers: dict, body: bytes) -> tuple:
+    """What of one fleet-API exchange must equal the JAX checker's."""
+    if path == "/metrics":
+        text = [x for x in body.decode().splitlines() if not SERVE_WALL_SAMPLES.match(x)]
+    else:
+        text = serve_masked(json.loads(body)) if body else None
+    kept = {k: v for k, v in headers.items()
+            if k in ("Content-Type", "X-TNC-Round", "Retry-After", "WWW-Authenticate")}
+    return status, kept, text
+
+
+def percentiles(ms: list) -> dict:
+    ms = sorted(ms)
+    return {"p50": ms[len(ms) // 2], "p99": ms[min(len(ms) - 1, int(len(ms) * 0.99))],
+            "max": ms[-1], "n": len(ms)}
+
+
+def read_fleet_api(port: int, host: str) -> dict:
+    """Every route once after a round, then a 304 for the summary's ETag,
+    gzip and HEAD of the nodes collection; each exchange's time."""
+    paths = ["/healthz", "/readyz", "/api/v1/summary", "/api/v1/nodes",
+             f"/api/v1/nodes/{host}", "/api/v1/slices", "/api/v1/trend",
+             "/api/v1/remediation", "/api/v1/analytics/slo", "/api/v1/analytics/offenders",
+             "/api/v1/analytics/flaps", "/api/v1/debug/rounds",
+             "/api/v1/watch?since=&timeout=0", "/metrics", "/api/v1/nope"]
+    got = {p: http_get(port, p) for p in paths}
+    headers = got["/api/v1/summary"][1]
+    s304, h304, b304, _ = http_get(port, "/api/v1/summary",
+                                   headers={"If-None-Match": headers.get("ETag", "")})
+    sgz, hgz, bgz, _ = http_get(port, "/api/v1/nodes", headers={"Accept-Encoding": "gzip"})
+    shead, hhead, bhead, _ = http_get(port, "/api/v1/nodes", method="HEAD")
+    nodes_body = got["/api/v1/nodes"][2]
+    return {
+        "exchanges": {p: served(p, s, h, b) for p, (s, h, b, _) in got.items()},
+        "ms": {p: r[3] for p, r in got.items()},
+        "round": headers.get("X-TNC-Round"),
+        "304": s304 == 304 and b304 == b"" and h304.get("ETag") == headers.get("ETag"),
+        "gzip": sgz == 200 and hgz.get("Content-Encoding") == "gzip"
+        and gzip.decompress(bgz) == nodes_body,
+        "head": shead == 200 and bhead == b"" and hhead.get("Content-Length") == str(
+            len(nodes_body)),
+    }
+
+
+def write_burst(port: int, host: str) -> list:
+    """Dry-run cordons: no bearer, a wrong one, then 8 with the token."""
+    path = f"/api/v1/nodes/{host}/cordon?dry_run=1"
+    out = [served(path, *http_get(port, path, "POST")[:3]),
+           served(path, *http_get(port, path, "POST",
+                                  {"Authorization": "Bearer wrong"})[:3])]
+    for _ in range(8):
+        out.append(served(path, *http_get(port, path, "POST",
+                                          {"Authorization": f"Bearer {SERVE_TOKEN}"})[:3]))
+    return out
+
+
+def fleet_api_timings(port: int) -> dict:
+    """200 GETs of the nodes collection, each on a new connection (the
+    kernel spreads them over the accept loops), then 200 for its ETag; and
+    the publish span of every round in the debug ring."""
+    _, headers, body, _ = http_get(port, "/api/v1/nodes")
+    full, cached, same = [], [], True
+    for _ in range(200):
+        s, _, b, ms = http_get(port, "/api/v1/nodes")
+        full.append(ms)
+        same &= s == 200 and b == body
+    for _ in range(200):
+        s, _, b, ms = http_get(port, "/api/v1/nodes", headers={"If-None-Match": headers["ETag"]})
+        cached.append(ms)
+        same &= s == 304 and b == b""
+    publish = []
+    rounds = json.loads(http_get(port, "/api/v1/debug/rounds")[2])["rounds"]
+    for r in rounds:
+        doc = json.loads(http_get(port, f"/api/v1/debug/rounds/{r['trace_id']}")[2])
+        publish += [e["dur"] / 1e3 for e in doc["traceEvents"]
+                    if e.get("ph") == "X" and e.get("name") == "publish"]
+    return {"nodes_bytes": len(body), "get_ms": percentiles(full),
+            "not_modified_ms": percentiles(cached), "all_200_then_304": same,
+            "publish_ms": publish}
+
+
+def deployment_run(root: str, side: str, argv: list, env: dict, work: str, host: str,
+                   rounds: int) -> dict:
+    """One run of the Deployment's loop through WATCH_CLI_SCRIPT, held
+    before each round: before round 1 the script reads /healthz and
+    /readyz, after each round every route of the fleet API (after round 1
+    also the write burst, after the last the timings), then lets the next
+    round go; SIGTERM as round ``rounds + 1`` starts."""
+    os.makedirs(work)
+    paths = {k: os.path.join(work, f) for k, f in (
+        ("record", "record.jsonl"), ("out", "stdout.txt"), ("err", "stderr.txt"),
+        ("events", "events.jsonl"))}
+    package = "tpu_node_checker_torch" if side == "port" else "tpu_node_checker"
+    cmd = [sys.executable, "-c", WATCH_CLI_SCRIPT, paths["record"], package,
+           *(a.replace("{dir}", work) for a in argv)]
+    out = {"rounds": [], "writes": None, "timings": None, "serving_line": None}
+    t0 = time.perf_counter()
+    with open(paths["out"], "w") as fo, open(paths["err"], "w") as fe:
+        proc = subprocess.Popen(cmd, stdout=fo, stderr=fe, cwd=root, env=env)
+        try:
+            port = None
+            for k in range(1, rounds + 2):
+                deadline = time.perf_counter() + 300
+                while not any(r["event"] == "hold" and r["round"] == k
+                              for r in read_jsonl(paths["record"])):
+                    if proc.poll() is not None or time.perf_counter() > deadline:
+                        fail(f"the {side} loop ended or stalled before round {k} "
+                             f"(exit {proc.poll()}): {open(paths['err']).read()[-2000:]}")
+                    time.sleep(0.005)
+                if port is None:
+                    with open(paths["err"]) as f:
+                        m = re.search(r"Serving fleet state API on port (\d+) .*", f.read())
+                    if m is None:
+                        fail(f"the {side} loop named no fleet API port before round 1")
+                    port, out["serving_line"] = int(m.group(1)), m.group(0)
+                if k == 1:
+                    out["pre"] = {p: served(p, *http_get(port, p)[:3])
+                                  for p in ("/healthz", "/readyz")}
+                else:
+                    out["rounds"].append(read_fleet_api(port, host))
+                if k == 2:
+                    out["writes"] = write_burst(port, host)
+                if k == rounds + 1:
+                    out["timings"] = fleet_api_timings(port)
+                    t_term = time.perf_counter()
+                    proc.send_signal(signal.SIGTERM)
+                open(f"{paths['record']}.go{k}", "w").close()
+            out["exit_code"] = proc.wait(timeout=120)
+            out["sigterm_to_exit_s"] = time.perf_counter() - t_term
+            out["port_closed"] = not port_open(port)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    out["seconds"] = time.perf_counter() - t0
+    out["record"] = read_jsonl(paths["record"])
+    out["events"] = read_jsonl(paths["events"])
+    with open(paths["err"]) as f:
+        out["stderr"] = f.read().splitlines()
+    return out
+
+
+def port_open(port: int) -> bool:
+    try:
+        socket.create_connection(("127.0.0.1", port), timeout=1).close()
+        return True
+    except OSError:
+        return False
+
+
+def standalone_run(root: str, side: str, argv: list, env: dict, work: str,
+                   host: str) -> dict:
+    """``--serve 0`` with no ``--watch`` over a recorded store: the reads
+    and writes once it serves, then SIGTERM."""
+    os.makedirs(work)
+    record, err = os.path.join(work, "record.jsonl"), os.path.join(work, "stderr.txt")
+    package = "tpu_node_checker_torch" if side == "port" else "tpu_node_checker"
+    out = {}
+    with open(os.path.join(work, "stdout.txt"), "w") as fo, open(err, "w") as fe:
+        proc = subprocess.Popen([sys.executable, "-c", WATCH_CLI_SCRIPT, record, package,
+                                 *argv], stdout=fo, stderr=fe, cwd=root, env=env)
+        try:
+            deadline, port = time.perf_counter() + 120, None
+            while port is None:
+                with open(err) as f:
+                    m = re.search(r"Serving fleet state API on port (\d+)", f.read())
+                port = int(m.group(1)) if m else None
+                if port is None and (proc.poll() is not None or time.perf_counter() > deadline):
+                    fail(f"the {side} standalone API never served (exit {proc.poll()}): "
+                         f"{open(err).read()[-2000:]}")
+                time.sleep(0.005)
+            out["gets"] = {p: served(p, *http_get(port, p)[:3]) for p in (
+                "/readyz", "/healthz", "/api/v1/summary", "/api/v1/nodes",
+                f"/api/v1/nodes/{host}", "/api/v1/trend")}
+            post = f"/api/v1/nodes/{host}/cordon"
+            out["writes"] = [served(post, *http_get(port, post, "POST", h)[:3]) for h in (
+                {"Authorization": f"Bearer {SERVE_TOKEN}"}, {})]
+            proc.send_signal(signal.SIGTERM)
+            out["exit_code"] = proc.wait(timeout=60)
+            out["port_closed"] = not port_open(port)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    exit_line = next((r for r in read_jsonl(record) if r["event"] == "exit"), {})
+    out["packages_loaded"] = exit_line.get("packages")
+    with open(err) as f:
+        out["stderr"] = [re.sub(r"port \d+", "port N", x.replace(work, "W"))
+                         for x in f.read().splitlines()]
+    return out
+
+
+def phase14_deployment(torch, root, rows, validate_report, quarantine: dict) -> None:
+    """Phase 14: the aggregator Deployment as written, with --analytics,
+    over this card's reports (phase 13's): the loop with the fleet API,
+    read between rounds, through the port and through the JAX checker's
+    CLI; then the standalone fleet API over the recorded store."""
+    t_phase = time.perf_counter()
+    n = torch.cuda.device_count()
+    host = quarantine["host"]
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("TNC_", "KUBERNETES_SERVICE_"))
+           and k not in ("SLACK_WEBHOOK_URL", "KUBECONFIG", "SMOKE_ROUND_PLAN", "SMOKE_CLOCK")}
+    env.update(NODE_NAME=host, TNC_SCHEMA_STRICT="1", TNC_SERVE_TOKEN=SERVE_TOKEN)
+    work = tempfile.mkdtemp(prefix="chip-smoke-deployment-")
+    reports = quarantine["reports"]
+    for key, doc in reports.items():
+        if validate_report(doc) or doc.get("hostname") != host:
+            fail(f"phase 13's {key} report cannot be graded here: {validate_report(doc)}")
+    for r in rows:
+        r["deployment_launches"] = {k: doc["kernel_launches"][r["name"]]
+                                    for k, doc in reports.items()}
+    dirs = {}
+    for key, doc in reports.items():
+        d = dirs[key] = os.path.join(work, "rounds", key)
+        os.makedirs(d)
+        with open(os.path.join(d, f"{host}.json"), "w") as f:
+            json.dump(doc, f)
+    # Healthy, drill, healthy, drill, healthy, healthy; SIGTERM as round 7
+    # starts.  The flips at rounds 2, 3 and 4 bring the flap detector's
+    # score to its threshold at round 4.
+    plan_rounds = ["healthy", "drill", "healthy", "drill", "healthy", "healthy"]
+    link = os.path.join(work, "reports")
+    os.symlink(dirs["healthy"], link)
+    # The clock the CLIs read: one second past the next minute boundary, so
+    # every round falls in one bucket of each roll-up resolution on both
+    # sides; phase 13's reports are then 1-2 minutes old (max age 900 s).
+    clock = math.ceil(time.time() / 60.0) * 60.0 + 1.0
+    lease_port = free_port()
+    argv = ["--kubeconfig", None, "--watch", "1", "--strict-slices", "--probe-results", link,
+            "--probe-results-required", "--slack-on-change", "--metrics-port", "0",
+            "--log-jsonl", "{dir}/rounds.jsonl", "--history", "{dir}/history.jsonl",
+            "--cordon-after", "2", "--uncordon-after", "3", "--disruption-budget", "2/10m",
+            "--slice-floor-pct", "90", "--disruption-lease", f"http://127.0.0.1:{lease_port}",
+            "--cordon-failed", "--uncordon-recovered", "--serve", "0", "--serve-workers", "2",
+            "--write-rps", "5", "--event-log", "{dir}/events.jsonl",
+            "--analytics", "{dir}/analytics"]
+    runs, posts_of, patches_of, leases_of = {}, {}, {}, {}
+    with webhook() as (url, posts):
+        for side in ("port", "jax"):
+            api = LiveApi(watch_fleet(host, n, set()), {})
+            lease = LeaseServer(lease_port, 2, 600.0)
+            try:
+                argv[1] = kubeconfig(os.path.join(work, f"kubeconfig-{side}"), api.url)
+                plan = {"link": link, "dirs": [dirs[k] for k in plan_rounds], "hold": True}
+                start = len(posts)
+                runs[side] = deployment_run(
+                    root, side, argv, dict(env, SLACK_WEBHOOK_URL=url,
+                                           SMOKE_ROUND_PLAN=json.dumps(plan),
+                                           SMOKE_CLOCK=repr(clock)),
+                    os.path.join(work, side), host, len(plan_rounds))
+                posts_of[side] = [re.sub(r"port \d+", "port N",
+                                         p[2]["text"].rsplit("\n`trace: ", 1)[0])
+                                  for p in posts[start:]]
+                with api.lock:
+                    patches_of[side] = list(api.patches)
+                leases_of[side] = list(lease.requests)
+            finally:
+                lease.close()
+                api.close()
+
+    seen = {}
+    for side, run in runs.items():
+        record = run["record"]
+        starts = [r for r in record if r["event"] == "start"]
+        ends = [r for r in record if r["event"] == "end"]
+        exit_line = next((r for r in record if r["event"] == "exit"), {})
+        patch_rounds = [sum(1 for s_ in starts if s_["at"] <= p["at"]) for p in patches_of[side]]
+        predictions = [e for e in run["events"] if e["event"] == "analytics-prediction"]
+        node_rounds = [r["exchanges"][f"/api/v1/nodes/{host}"] for r in run["rounds"]]
+        got = {
+            "exit_code": run["exit_code"], "rounds": len(ends),
+            "round_exit_codes": [r.get("exit_code") for r in ends],
+            "round_seconds": [r["seconds"] for r in ends],
+            "analytics_query_ms": [(r.get("timings_ms") or {}).get("analytics-query")
+                                   for r in ends],
+            "patches": [{"node": p["node"], "body": p["body"]} for p in patches_of[side]],
+            "patch_rounds": patch_rounds, "posts": posts_of[side],
+            "events": [{k: v for k, v in e.items() if k not in ("ts", "trace_id")}
+                       for e in run["events"]],
+            "prediction_rounds": [next((i + 1 for i, s_ in enumerate(starts)
+                                        if s_["trace_id"] == e.get("trace_id")), None)
+                                  for e in predictions],
+            "lease_requests": leases_of[side], "pre": run["pre"],
+            "exchanges": [r["exchanges"] for r in run["rounds"]],
+            "served_rounds": [r["round"] for r in run["rounds"]],
+            "node_states": [(doc or {}).get("node", {}).get("health") for _, _, doc in node_rounds],
+            "node_probe_ok": [(doc or {}).get("node", {}).get("probe", {}).get("ok")
+                              for _, _, doc in node_rounds],
+            "304_gzip_head": [(r["304"], r["gzip"], r["head"]) for r in run["rounds"]],
+            "writes": run["writes"], "serving_line": run["serving_line"],
+            "timings": run["timings"], "sigterm_to_exit_s": run["sigterm_to_exit_s"],
+            "port_closed": run["port_closed"], "seconds": run["seconds"],
+            "get_ms_after_each_round": [r["ms"] for r in run["rounds"]],
+            "packages_loaded": exit_line.get("packages"),
+        }
+        seen[side] = got
+        phase(14, f"the Deployment's loop with the fleet API, {side} run", **{
+            k: v for k, v in got.items() if k in (
+                "exit_code", "rounds", "round_exit_codes", "round_seconds",
+                "analytics_query_ms", "patches", "patch_rounds", "prediction_rounds",
+                "lease_requests", "served_rounds", "node_states", "node_probe_ok",
+                "304_gzip_head", "serving_line", "timings", "sigterm_to_exit_s",
+                "port_closed", "seconds", "packages_loaded")},
+            pre={p: s for p, (s, _, _) in got["pre"].items()},
+            writes=[(s, h.get("Retry-After")) for s, h, _ in got["writes"]],
+            posts=[p.splitlines()[0] for p in got["posts"]],
+            events=[e["event"] for e in got["events"]])
+        phase(14, f"the fleet API's GET ms after each round, {side} run",
+              rounds=got["get_ms_after_each_round"])
+
+    port = seen["port"]
+    ok_plan = [k == "healthy" for k in plan_rounds]
+    statuses = [s for s, _, _ in port["writes"]]
+    last = port["exchanges"][-1]
+    checks = {
+        "exit 143 after seven rounds, the fleet API closed": (
+            port["exit_code"] == 143 and port["rounds"] == 7 and port["port_closed"]),
+        "readyz 503 before round 1, 200 after; healthz 200": (
+            port["pre"]["/readyz"][0] == 503 and port["pre"]["/healthz"][0] == 200
+            and all(x["/readyz"][0] == 200 and x["/healthz"][0] == 200
+                    for x in port["exchanges"])),
+        "two accept loops, or SO_REUSEPORT named unavailable": (
+            "(2 workers" in (port["serving_line"] or "")
+            or any("SO_REUSEPORT unavailable" in p for p in port["posts"])),
+        "X-TNC-Round moves forward": port["served_rounds"] == ["1", "2", "3", "4", "5", "6"],
+        "the node carries the round's report and FSM state": (
+            port["node_probe_ok"] == ok_plan
+            and all(h and h.get("state") for h in port["node_states"])),
+        "every route answers": all(
+            x[p][0] == 200 for x in port["exchanges"] for p in x
+            if p not in ("/api/v1/nope", "/readyz")) and all(
+            x["/api/v1/nope"][0] == 404 for x in port["exchanges"]),
+        "304, gzip and HEAD each round": all(all(t) for t in port["304_gzip_head"]),
+        "one analytics-prediction, at round 4": port["prediction_rounds"] == [4],
+        "writes: 401 without the token, then 5 answers and 429s with Retry-After": (
+            statuses[:2] == [401, 401] and 429 not in statuses[2:7]
+            and statuses[7:] == [429, 429, 429]
+            and all(h.get("Retry-After") for _, h, _ in port["writes"][7:])),
+        "the analytics documents served": all(
+            last[f"/api/v1/analytics/{k}"][0] == 200 for k in ("slo", "offenders", "flaps")),
+        "200 GETs then 200 304s": bool(port["timings"]["all_200_then_304"]),
+        "only its own package": port["packages_loaded"] == ["tpu_node_checker_torch"],
+    }
+    phase(14, "the port's Deployment", **checks)
+    if not all(checks.values()):
+        fail(f"the port's Deployment: {[k for k, v in checks.items() if not v]}")
+
+    # The JAX checker's CLI on the same rounds, reports and servers.
+    same = {k: seen["port"][k] == seen["jax"][k] for k in (
+        "exit_code", "round_exit_codes", "patches", "patch_rounds", "events",
+        "prediction_rounds", "lease_requests", "pre", "writes", "served_rounds")}
+    # The auth-failure post comes from a thread of the server's: the
+    # round's posts are compared in order, that one by its text.
+    same["posts"] = sorted(seen["port"]["posts"]) == sorted(seen["jax"]["posts"]) and [
+        p for p in seen["port"]["posts"] if "Fleet state API" not in p] == [
+        p for p in seen["jax"]["posts"] if "Fleet state API" not in p]
+    same["bodies"] = seen["port"]["exchanges"] == seen["jax"]["exchanges"]
+    differing = sorted({p for a, b in zip(seen["port"]["exchanges"], seen["jax"]["exchanges"])
+                        for p in a if a[p] != b.get(p)})
+    phase(14, "the port's Deployment beside the JAX checker's", **same,
+          differing_routes=differing,
+          packages_loaded={k: seen[k]["packages_loaded"] for k in seen})
+    if not all(same.values()) or seen["jax"]["packages_loaded"] != ["tpu_node_checker"]:
+        fail(f"the port's Deployment unlike the JAX checker's: {same}, routes {differing}")
+
+    # The standalone fleet API over the port's recorded store and log.
+    store = os.path.join(work, "port", "history.jsonl")
+    log = os.path.join(work, "port", "rounds.jsonl")
+    alone = {}
+    for side in ("port", "jax"):
+        alone[side] = standalone_run(
+            root, side, ["--serve", "0", "--history", store, "--log-jsonl", log],
+            dict(env, SMOKE_CLOCK=repr(clock + 10.0)), os.path.join(work, f"alone-{side}"),
+            host)
+    a = alone["port"]
+    checks = {
+        "readyz 200": a["gets"]["/readyz"][0] == 200,
+        "writes 503 with the token, 401 without": [s for s, _, _ in a["writes"]] == [503, 401],
+        "SIGTERM exits 143, the API closed": a["exit_code"] == 143 and a["port_closed"],
+        "summary, nodes and trend equal the JAX checker's": all(
+            a["gets"][p] == alone["jax"]["gets"][p]
+            for p in ("/api/v1/summary", "/api/v1/nodes", "/api/v1/trend")),
+        "every exchange equal": a["gets"] == alone["jax"]["gets"]
+        and a["writes"] == alone["jax"]["writes"] and a["exit_code"] == alone["jax"]["exit_code"],
+        "only its own package": (a["packages_loaded"] == ["tpu_node_checker_torch"]
+                                 and alone["jax"]["packages_loaded"] == ["tpu_node_checker"]),
+    }
+    phase(14, "the standalone fleet API over the recorded store", **checks,
+          summary=a["gets"]["/api/v1/summary"][2], stderr=a["stderr"])
+    if not all(checks.values()):
+        fail(f"the standalone fleet API: {[k for k, v in checks.items() if not v]}")
+    phase(14, "the aggregator Deployment as written", seconds=time.perf_counter() - t_phase,
+          get_ms=port["timings"]["get_ms"], not_modified_ms=port["timings"]["not_modified_ms"],
+          publish_ms=port["timings"]["publish_ms"],
+          analytics_query_ms=port["analytics_query_ms"])
 
 
 def main() -> int:
@@ -2848,13 +3316,16 @@ def main() -> int:
     phase12_watch_loop(torch, root, rows, validate_report)
 
     # -- 13. the aggregator's quarantine on this card's reports
-    phase13_quarantine(torch, root, rows, validate_report)
+    quarantine = phase13_quarantine(torch, root, rows, validate_report)
 
-    # -- 14. the kernels line, the card line, the result line
+    # -- 14. the aggregator Deployment as written, on the same reports
+    phase14_deployment(torch, root, rows, validate_report, quarantine)
+
+    # -- 15. the kernels line, the card line, the result line
     keys = ("name", "route", "source", "replaces", "launches", "compute_launches",
             "emitter_launches", "selftest_launches", "calibrate_launches",
             "distributed_launches", "oneshot_launches", "live_round_launches", "watch_launches",
-            "quarantine_launches",
+            "quarantine_launches", "deployment_launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "device_ms",
             "library_device_ms", "ok", "check", "training_step")
     print(json.dumps({"kernels": [{k2: r[k2] for k2 in keys if k2 in r} for r in rows]}),

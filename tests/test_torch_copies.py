@@ -5,22 +5,26 @@ modules, so it keeps copies: ``utils/quantity.py``, ``resources.py``,
 ``detect.py``, ``report.py``, ``utils/env.py``, ``notify.py``,
 ``history/``, and the live LIST's ``cluster.py``, ``utils/fanout.py``,
 ``utils/retry.py``, ``utils/miniyaml.py``, ``fastpath/``, the watch
-loop's ``obs/`` and the quarantine's ``remediation/`` verbatim (only the
-package name and the module docstring differ).  Here each copy's code is
+loop's ``obs/``, the quarantine's ``remediation/``, the history tier's
+``analytics/`` with ``federation/endpoints.py``, and the fleet state API's
+``server/`` verbatim (only the package name and the module docstring
+differ).  Here each copy's code is
 held equal to its original (the syntax trees, docstrings dropped, the
 package name substituted where it names a module, never inside a metric
 name); the modules copied in part are held equal function by function
 (``watchstream.grading_view``, ``metrics.py`` with its ``MetricsServer``
 class, and ``checker.py``'s watch-loop helpers, remediation helpers,
-sweeps and trend readers); the budget engine is driven through the same
+sweeps, trend readers, analytics helpers and serving pieces, and its
+``watch`` less the ``--watch-stream`` engine); the budget engine is driven through the same
 decisions on both sides; and the constants the fleet grades, lists and
 loops by are compared one by one, in the manner of
 ``tests/test_torch_probe.py::test_floor_tables_equal_jax``.
 
 Also here: a fresh interpreter runs the port's one-shot round over a
 NodeList file and over a live fake API server, then two rounds of its
-``--watch`` loop, a ``--cordon-failed`` round and ``--trend-nodes``, and
-finds neither ``jax`` nor the JAX package among its modules.
+``--watch`` loop, a ``--cordon-failed`` round, ``--trend-nodes``, and two
+rounds of a ``--watch --serve --analytics`` loop whose fleet API it reads,
+and finds neither ``jax`` nor the JAX package among its modules.
 
 The port is reached through ``importlib.import_module``:
 tests/test_dependency_surface.py rejects any other ``import`` in tests/.
@@ -55,7 +59,11 @@ VERBATIM = ["utils/quantity.py", "resources.py", "detect.py", "report.py", "util
             "fastpath/projection.py", "cluster.py", "obs/__init__.py", "obs/events.py",
             "obs/hist.py", "obs/trace.py", "remediation/__init__.py",
             "remediation/budget.py", "remediation/actuate.py", "remediation/lease.py",
-            "remediation/drain.py", "remediation/repair.py"]
+            "remediation/drain.py", "remediation/repair.py", "federation/__init__.py",
+            "federation/endpoints.py", "analytics/__init__.py", "analytics/sketch.py",
+            "analytics/changepoint.py", "analytics/segments.py", "analytics/queries.py",
+            "server/__init__.py", "server/router.py", "server/snapshot.py", "server/auth.py",
+            "server/ratelimit.py", "server/feed.py", "server/workers.py", "server/app.py"]
 
 
 def _code(path: Path, package: str) -> str:
@@ -111,7 +119,7 @@ def _classes(module: str, package: str) -> dict:
 
 def test_metrics_equals_jax_function_by_function():
     # Every function of the module and the MetricsServer class; only the
-    # imports differ (Entity comes from the port's server/router.py).
+    # imports differ (the port's also names the CheckResult it renders).
     port = _functions("metrics.py", "tpu_node_checker_torch")
     ref = _functions("metrics.py", "tpu_node_checker")
     assert list(port) == list(ref) == ["_escape", "_line", "_breaker_lines", "render_metrics"]
@@ -257,14 +265,36 @@ def test_quarantine_helper_equals_jax(name):
     assert _port("checker")._REMEDIATION_CACHE.keys() == jax_checker._REMEDIATION_CACHE.keys()
 
 
-class _LessStreamAndServe(ast.NodeTransformer):
-    """JAX's ``watch`` without its ``--watch-stream`` engine and ``--serve``
-    fleet server, the two branches the port leaves out: every statement
-    that assigns or tests ``engine`` or ``fleet_server`` goes (an ``if``
-    keeps its ``else``), and ``result, delta = (run_check(...), None)``
-    becomes ``result = run_check(...)``."""
+# The analytics tier's and the fleet API's pieces of checker.py.
+ANALYTICS_AND_SERVE_HELPERS = ["_build_analytics", "_node_group_labels", "_fold_round_samples",
+                               "_observe_link_drift", "_update_history", "_api_write_decision",
+                               "_make_serve_control", "_serve_pool_kwargs", "serve_store"]
 
-    GONE = {"engine", "fleet_server"}
+
+@pytest.mark.parametrize("name", ANALYTICS_AND_SERVE_HELPERS)
+def test_analytics_and_serve_helper_equals_jax(name):
+    port = _functions("checker.py", "tpu_node_checker_torch")
+    ref = _functions("checker.py", "tpu_node_checker")
+    assert port[name] == ref[name]
+    assert _port("checker")._ANALYTICS_CACHE.keys() == jax_checker._ANALYTICS_CACHE.keys()
+
+
+def test_check_result_and_round_equal_jax():
+    # The round (run_check, with its analytics block) and the result it
+    # returns (analytics_docs included) are JAX's, statement for statement.
+    port = _functions("checker.py", "tpu_node_checker_torch")
+    ref = _functions("checker.py", "tpu_node_checker")
+    assert port["run_check"] == ref["run_check"]
+    assert _classes("checker.py", "tpu_node_checker_torch")["CheckResult"] == \
+        _classes("checker.py", "tpu_node_checker")["CheckResult"]
+
+
+class _LessStream(ast.NodeTransformer):
+    """JAX's ``watch`` without its ``--watch-stream`` engine, the one branch
+    the port leaves out: every statement that assigns or tests ``engine``
+    goes (an ``if`` keeps its ``else``)."""
+
+    GONE = {"engine"}
 
     def _names(self, node):
         return {n.id for n in ast.walk(node) if isinstance(n, ast.Name)}
@@ -278,21 +308,18 @@ class _LessStreamAndServe(ast.NodeTransformer):
 
     def visit_Assign(self, node):
         targets = self._names(ast.Module(body=node.targets, type_ignores=[]))
-        if targets & self.GONE:
-            return None
-        if targets == {"result", "delta"}:
-            return ast.Assign(targets=[node.targets[0].elts[0]], value=node.value.elts[0],
-                              lineno=node.lineno)
-        return node
+        return None if targets & self.GONE else node
 
 
-def test_watch_equals_jax_less_the_stream_and_the_server():
+def test_watch_equals_jax_less_the_stream():
     def watch(package, transform=None):
         fn = next(n for n in _tree(REPO / package / "checker.py", package).body
                   if isinstance(n, ast.FunctionDef) and n.name == "watch")
         return ast.dump(transform.visit(fn) if transform else fn)
 
-    assert watch("tpu_node_checker_torch") == watch("tpu_node_checker", _LessStreamAndServe())
+    port = watch("tpu_node_checker_torch")
+    assert "fleet_server" in port
+    assert port == watch("tpu_node_checker", _LessStream())
 
 
 def test_watch_breaker_equals_jax():
@@ -392,7 +419,9 @@ def test_the_round_loads_nothing_of_jax(tmp_path):
     # In one fresh interpreter: a round over a NodeList file, one over a
     # live fake API server (paged LIST and --node-events), two rounds of
     # the --watch loop over that server (its wait ends after the second),
-    # a --cordon-failed round that PATCHes one node, and --trend-nodes.
+    # a --cordon-failed round that PATCHes one node, --trend-nodes, and two
+    # rounds of a --watch --serve --analytics loop whose fleet API each
+    # wait reads.
     items = fx.mixed_cluster_one_notready()
     reports = tmp_path / "reports"
     reports.mkdir()
@@ -432,8 +461,23 @@ def test_the_round_loads_nothing_of_jax(tmp_path):
         f"{str(reports)!r}, '--cordon-failed', '--history', {str(tmp_path / 'c.jsonl')!r}, "
         "'--json'])\n"
         f"trend = cli.main(['--trend-nodes', {str(tmp_path / 'c.jsonl')!r}, '--json'])\n"
+        "import urllib.request\n"
+        "from tpu_node_checker_torch.server import app\n"
+        "servers, served, init = [], [], app.FleetStateServer.__init__\n"
+        "app.FleetStateServer.__init__ = lambda s, *a, **k: (init(s, *a, **k), servers.append(s))[0]\n"
+        "def read(stop, s):\n"
+        "    for path in ('/readyz', '/api/v1/summary', '/api/v1/analytics/slo'):\n"
+        "        url = f'http://127.0.0.1:{servers[0].port}{path}'\n"
+        "        with urllib.request.urlopen(url, timeout=10) as resp:\n"
+        "            served.append(resp.status)\n"
+        "    return len(served) == 6\n"
+        "checker._wait_for_next_round = read\n"
+        f"served_loop = cli.main(['--kubeconfig', {str(kubeconfig)!r}, '--watch', '1', "
+        f"'--serve', '0', '--serve-workers', '2', '--history', {str(tmp_path / 's.jsonl')!r}, "
+        f"'--analytics', {str(tmp_path / 'analytics')!r}, '--json'])\n"
         "loaded = sorted(m for m in sys.modules\n"
         "                if m.split('.')[0] in ('jax', 'jaxlib', 'tpu_node_checker'))\n"
+        "print(served_loop, served, file=sys.stderr)\n"
         "print(rc, live, loop, len(waits), cordon, trend, loaded, file=sys.stderr)\n"
     )
     try:
@@ -442,8 +486,10 @@ def test_the_round_loads_nothing_of_jax(tmp_path):
     finally:
         server.shutdown()
     assert proc.returncode == 0, proc.stderr
-    assert proc.stderr.strip().splitlines()[-1] == "0 0 143 2 0 0 []"
-    first, live, *rounds, cordon, trend = _json_docs(proc.stdout)
+    assert proc.stderr.strip().splitlines()[-2:] == ["143 [200, 200, 200, 200, 200, 200]",
+                                                      "0 0 143 2 0 0 []"]
+    first, live, *rounds, cordon, trend, served1, served2 = _json_docs(proc.stdout)
+    assert [r["analytics"]["predictions"] for r in (served1, served2)] == [[], []]
     assert [r["exit_code"] for r in rounds] == [0, 0]
     assert cordon["cordon"]["cordoned"] == ["gke-gpu-pool-1"]
     assert [p["path"] for p in patches] == ["/api/v1/nodes/gke-gpu-pool-1"]

@@ -332,7 +332,7 @@ class TestUsageErrors:
         assert code == 2 and f"error: {message}" in err
 
     @pytest.mark.parametrize("flag", [
-        ["--watch-stream"], ["--serve", "0"], ["--analytics", "d"],
+        ["--watch-stream"], ["--federate", "e"], ["--no-watch-stream"],
     ])
     def test_unported_flag_is_unknown(self, capsys, flag):
         code, err = _usage_error(port_cli.parse_args,
@@ -342,6 +342,9 @@ class TestUsageErrors:
     @pytest.mark.parametrize("flag,message", [
         (["--cordon-failed"], "--cordon-failed requires --probe or --probe-results DIR"),
         (["--trend", "t.jsonl"], "--trend runs alone (only --json may accompany it)"),
+        (["--serve", "0"], "--serve cannot be combined with --emit-probe"),
+        (["--analytics", "d"], "--analytics requires --history FILE"),
+        (["--history", "h", "--analytics", "d"], "--analytics cannot be combined with --emit-probe"),
     ])
     def test_ported_flag_beside_the_emitter_as_jax(self, capsys, flag, message):
         # Once an unknown argument; ported, refused beside --emit-probe with

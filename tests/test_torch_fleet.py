@@ -529,9 +529,9 @@ class TestUsageErrors:
                 assert value == getattr(jax, dest), dest
 
     @pytest.mark.parametrize("flag", [
-        ["--serve", "0"], ["--analytics", "d"], ["--federate", "e"],
-        ["--federate-interval", "5"], ["--watch-stream"], ["--serve-token", "t"],
-        ["--serve-workers", "2"],
+        ["--federate-feed"], ["--federate-workers", "2"], ["--federate", "e"],
+        ["--federate-interval", "5"], ["--watch-stream"], ["--no-watch-stream"],
+        ["--fleet-disruption-budget", "2"],
     ])
     def test_unported_jax_flag_is_unknown(self, capsys, flag):
         code, err = _usage(port_cli.parse_args, N + flag, capsys)
@@ -550,6 +550,12 @@ class TestUsageErrors:
         (["--disruption-budget", "2"], "--disruption-budget requires --cordon-failed or "
          "--drain-failed (a budget with no actuator gates nothing)"),
         (["--drain-failed"], "--drain-failed requires --probe or --probe-results DIR"),
+        (["--serve", "0"], "--serve without --watch serves a recorded store: add --history "
+         "FILE and/or --log-jsonl FILE (or run with --watch)"),
+        (["--analytics", "d"], "--analytics requires --history FILE"),
+        (["--serve-token", "t"], "--serve-token requires --serve"),
+        (["--serve-workers", "2"], "--serve-workers requires --serve"),
+        (["--write-rps", "5"], "--write-rps requires --serve"),
     ])
     def test_ported_jax_flag_as_jax(self, capsys, flag, expected):
         # Once an unknown argument; ported, each gives JAX's usage error

@@ -362,14 +362,14 @@ class TestUsage:
 
     @pytest.mark.parametrize("flag", [
         ["--federate-workers", "2"], ["--watch-stream"], ["--no-watch-stream"],
-        ["--analytics", "d"], ["--serve", "0"],
-        ["--serve-token", "t"], ["--federate", "e"], ["--write-rps", "5"],
+        ["--federate-feed"], ["--federate-interval", "5"],
+        ["--watch-stream", "--no-watch-stream"], ["--federate", "e"], ["--federate=e"],
         ["--fleet-disruption-budget", "2"],
     ])
     def test_queue_4_flags_still_refused(self, capsys, flag):
-        # The live LIST, the polling loop and the quarantine are ported; the
-        # watch stream, analytics, serving and federation are not, and each
-        # is refused (never accepted and ignored) beside a live round.
+        # The live LIST, the polling loop, the quarantine, analytics and the
+        # fleet API are ported; the watch stream and federation are not, and
+        # each is refused (never accepted and ignored) beside a live round.
         code, err = _usage(port_cli.parse_args, ["--kubeconfig", "k", *flag], capsys)
         assert code == 2
         assert f"unrecognized arguments: {' '.join(flag)}" in err

@@ -3,8 +3,8 @@
 ``tpu_node_checker_torch/metrics.py`` copies the families an emitter pod
 serves (``tpu_node_checker_probe_*``, ``exit_code``, ``check_duration_ms``,
 ``last_run_timestamp_seconds``) and the ``MetricsServer`` that serves them,
-over a copy of the JAX package's router and entity
-(``tpu_node_checker_torch/server/router.py``).  The PrometheusRule and the
+over copies of the JAX package's router and entity
+(``tpu_node_checker_torch/server/router.py`` and ``server/snapshot.py``).  The PrometheusRule and the
 dashboards read these names, so each body here must equal JAX's byte for
 byte, with the clock pinned in both modules, and each HTTP exchange must
 give the same status, headers and body.
@@ -27,6 +27,7 @@ from tpu_node_checker.server import snapshot as jax_snapshot
 
 port_metrics = importlib.import_module("tpu_node_checker_torch.metrics")
 port_router = importlib.import_module("tpu_node_checker_torch.server.router")
+port_snapshot = importlib.import_module("tpu_node_checker_torch.server.snapshot")
 
 NOW = 1_760_000_123.25
 
@@ -131,11 +132,11 @@ class TestRender:
 
 def test_entity_and_etag_equal_jax():
     for raw in (b"", b"short", b"# HELP x\n" * 100):
-        port = port_router.Entity(raw, port_metrics.METRICS_CONTENT_TYPE)
+        port = port_snapshot.Entity(raw, port_metrics.METRICS_CONTENT_TYPE)
         jax = jax_snapshot.Entity(raw, jax_metrics.METRICS_CONTENT_TYPE)
         assert (port.etag, port.gz, port.content_type) == (jax.etag, jax.gz, jax.content_type)
-        assert port.etag == jax_snapshot.entity_tag(raw) == port_router.entity_tag(raw)
-    assert (port_router._GZIP_LEVEL, port_router._GZIP_MIN_BYTES) == (
+        assert port.etag == jax_snapshot.entity_tag(raw) == port_snapshot.entity_tag(raw)
+    assert (port_snapshot._GZIP_LEVEL, port_snapshot._GZIP_MIN_BYTES) == (
         jax_snapshot._GZIP_LEVEL, jax_snapshot._GZIP_MIN_BYTES)
 
 

@@ -32,9 +32,16 @@ nodes through the budget engine (:mod:`~tpu_node_checker_torch.remediation`):
 uncordon first, then cordon, under ``--cordon-max``, the slice floor, the
 disruption budget and the fleet lease, each decision one audit event.
 :func:`trend_summary` and :func:`trend_nodes` are the post-incident readers
-of the ``--log-jsonl`` trend log and the ``--history`` store.  Analytics,
-``--watch-stream`` and ``--serve`` are the JAX package's and not ported yet,
-so their branches are absent here.
+of the ``--log-jsonl`` trend log and the ``--history`` store.
+
+``--analytics DIR`` folds each round's verdicts into the roll-up store
+(:mod:`~tpu_node_checker_torch.analytics`) and runs the changepoint
+detectors, whose standing predictions the budget engine sees.  ``--serve``
+publishes each round of :func:`watch` to the fleet state API
+(:mod:`~tpu_node_checker_torch.server`), whose cordon/uncordon writes go
+through :func:`_make_serve_control`; without ``--watch``, :func:`serve_store`
+serves a store another process records.  ``--watch-stream`` is the JAX
+package's and not ported yet, so its branch is absent here.
 """
 
 from __future__ import annotations
@@ -47,7 +54,7 @@ import re
 import sys
 import time
 from dataclasses import dataclass, field
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 from tpu_node_checker_torch import notify, report
 from tpu_node_checker_torch.detect import (
@@ -95,6 +102,10 @@ class CheckResult:
     multislices: List = field(default_factory=list)
     payload: dict = field(default_factory=dict)
     local_probe: Optional[dict] = None
+    # --analytics: the SLO/offenders/flaps query documents this round
+    # computed from roll-ups (served by FleetStateServer.publish_analytics;
+    # never part of the payload — they are a serving surface).
+    analytics_docs: Optional[dict] = None
 
 
 def _registry_from_args(args) -> ResourceRegistry:
@@ -573,6 +584,11 @@ def _build_history(args):
     return tracker
 
 
+# Analytics bundle (segment store + changepoint detectors), cached across
+# rounds like the history tracker: the roll-up store's open buckets and the
+# CUSUM scores are cross-round state, which a per-round rebuild would lose.
+_ANALYTICS_CACHE: dict = {"key": None, "bundle": None}
+
 # Remediation bundle (budget engine + lease client + repair tracker),
 # cached across rounds like the history tracker: the sliding-window
 # actuation ledger, the lifetime denied/action counters and the last-leased
@@ -681,6 +697,54 @@ def _build_remediation(args, history, events=None) -> dict:
     return bundle
 
 
+def _build_analytics(args):
+    """``--analytics DIR`` → ``{"store", "detector"}`` (None when off).
+
+    The segment store loads its shard files once per process and then
+    rides in memory; the detector's CUSUM scores persist across rounds
+    (an episode spans rounds by definition).  Keyed by the directory so
+    two embedded runs (tests) never share buckets.
+    """
+    path = getattr(args, "analytics", None)
+    if not path:
+        return None
+    from tpu_node_checker_torch.analytics import (
+        CusumFlapDetector,
+        LinkDriftDetector,
+        SegmentStore,
+    )
+
+    key = os.path.abspath(path)
+    if _ANALYTICS_CACHE["key"] == key:
+        return _ANALYTICS_CACHE["bundle"]
+    store = SegmentStore(key)
+    store.load()
+    bundle = {
+        "store": store,
+        "detector": CusumFlapDetector(),
+        # The mesh link doctor's timing channel: CUSUM over per-link
+        # p50/budget headroom, keyed by slice-qualified link names.
+        "link_detector": LinkDriftDetector(),
+    }
+    _ANALYTICS_CACHE["key"], _ANALYTICS_CACHE["bundle"] = key, bundle
+    return bundle
+
+
+def _node_group_labels(args, n: NodeInfo, cluster: Optional[str]) -> dict:
+    """The (cluster, slice, topology) labels one node's roll-up buckets
+    carry — slice named exactly like the remediation budget's failure
+    domains (one definition, so analytics groupings and budget domains
+    can never disagree)."""
+    from tpu_node_checker_torch.detect import slice_group_key
+    from tpu_node_checker_torch.remediation.budget import _domain_name
+
+    key = slice_group_key(n)
+    return {
+        "cluster": cluster,
+        "slice": _domain_name(key) if key is not None else None,
+        "topology": n.tpu_topology,
+    }
+
 def _node_round_causes(n: NodeInfo) -> List[str]:
     """Compact cause tokens for one node's round, recorded in the history
     store."""
@@ -700,28 +764,159 @@ def _node_round_causes(n: NodeInfo) -> List[str]:
     return causes
 
 
-def _update_history(history: dict, accel: List[NodeInfo]) -> None:
+def _fold_round_samples(analytics, accel: List[NodeInfo], timer) -> None:
+    """Fold this round's duration samples into the reserved ``_fleet``
+    roll-up stream: round wall-clock (ms) and the deduplicated per-link
+    sweep medians (µs).  One ``observe_samples`` call — the sketches land
+    in whatever 1m/15m/6h buckets are open right now and persist through
+    the same TNC021-gated append path as verdict counters."""
+    import time as _time
+
+    from tpu_node_checker_torch.analytics.segments import FLEET_STREAM
+
+    samples: Dict[str, List[float]] = {}
+    round_ms = timer.total_ms()
+    if round_ms > 0:
+        samples["round_ms"] = [round_ms]
+    link_us = [p50 for _domain, _axis, p50 in _mesh_link_samples(accel)]
+    if link_us:
+        samples["link_us"] = link_us
+    if samples:
+        analytics["store"].observe_samples(
+            FLEET_STREAM, round(_time.time(), 3), samples
+        )
+
+
+def _observe_link_drift(analytics, accel: List[NodeInfo], fsm, args=None,
+                        events=None, trace_id=None,
+                        round_seq: int = 0) -> List[dict]:
+    """The per-link timing channel (``--analytics`` + mesh probes): feed
+    every probed link's p50/budget sample through the
+    :class:`~tpu_node_checker_torch.analytics.changepoint.LinkDriftDetector`.
+
+    A firing is an early warning that a link is trending toward its SLOW
+    budget: every node of the link's slice is promoted HEALTHY → SUSPECT
+    through :meth:`HealthFSM.promote_suspect` — the same zeroed-streak
+    pin as the flip channel, so link drift can never accelerate a cordon.
+    Returns the round's link prediction records (shape ``{"link",
+    "score", "nodes", "promoted"}`` — keyed by link, not node, so readers
+    can tell the two channels apart in the shared predictions list).
+    """
+    detector = analytics.get("link_detector")
+    if detector is None:
+        return []
+    members: Dict[str, List[str]] = {}
+    for n in accel:
+        domain = _node_link_domain(n)
+        members.setdefault(domain or n.name, []).append(n.name)
+    from tpu_node_checker_torch.meshprobe import qualify_link
+
+    predictions: List[dict] = []
+    live: set = set()
+    for n in accel:
+        links = _node_mesh_links(n)
+        if not links:
+            continue
+        domain = _node_link_domain(n)
+        group = members[domain or n.name]
+        for link in sorted(links):
+            entry = links[link]
+            if not isinstance(entry, dict):
+                continue
+            name = qualify_link(domain, link)
+            live.add(name)
+            fired = detector.observe(
+                name,
+                float(entry.get("p50_us") or 0.0),
+                float(entry.get("budget_us") or 0.0),
+                round_seq,
+            )
+            if not fired:
+                continue
+            promoted = sorted(
+                m for m in group
+                if fsm is not None and fsm.promote_suspect(m) is not None
+            )
+            prediction = {
+                "link": name,
+                "score": round(detector.score(name), 3),
+                "nodes": sorted(group),
+                "promoted": promoted,
+            }
+            predictions.append(prediction)
+            if events is not None:
+                events.emit(
+                    "analytics-link-drift",
+                    trace_id=trace_id,
+                    link=name,
+                    score=prediction["score"],
+                    promoted=promoted,
+                )
+    # Same fleet-tracking policy as the flip channel's prune, but over
+    # THIS round's probed link set (a drained slice's links must not
+    # stand as suspects forever).
+    detector.prune(live)
+    return predictions
+
+def _update_history(history: dict, accel: List[NodeInfo], analytics=None,
+                    args=None, events=None, trace_id=None,
+                    round_seq: int = 0, steady=None) -> List[dict]:
     """Feed this round's verdicts through the FSM and queue store lines.
+
+    With an ``analytics`` bundle (``--analytics``), every boolean verdict
+    is ALSO folded into the segment store's roll-up buckets and the CUSUM
+    flap detector — a detection on a still-HEALTHY node promotes it to
+    SUSPECT through :meth:`HealthFSM.promote_suspect` (the prediction
+    seam) BEFORE the store line and payload are stamped, so the persisted
+    round and the served state agree.  Returns the round's prediction
+    records (empty without analytics).
+
+    ``steady`` carries the watch-stream tick path's UNCHANGED nodes:
+    their current verdicts fold into analytics (roll-up buckets keep
+    counting, CUSUM scores keep draining) but they neither re-observe the
+    FSM nor append history lines — the stream mode's evidence discipline
+    (DESIGN.md §12: the FSM sees changed nodes only) is untouched, while
+    a steady fleet still produces roll-ups instead of none at all.  A
+    steady node the FSM has never observed folds nothing (analytics must
+    not mint state from a node whose first real round hasn't landed).
 
     Verdict rules:
 
     * a node's round is good iff it is *effectively* ready (kubelet Ready,
-      schedulable, chips alive when probed), the readiness the exit code
-      consumes;
+      schedulable, chips alive when probed) — the same readiness the exit
+      code consumes;
     * a node WE quarantined with no probe evidence this round observes
-      ``None``: state holds;
-    * a kubelet-healthy node whose only badness is a MISSING probe report
-      (``--probe-results-required``'s ``level="missing"``) observes
-      ``None``: absence must not bank rounds toward ``--cordon-after``;
-    * a node that passed with a degraded mesh link observes ``DEGRADED``;
+      ``None``: state holds — absence must neither heal (an evidence-free
+      "good" round counting toward ``--uncordon-after``) nor sicken;
+    * likewise a kubelet-healthy node whose only badness is a MISSING
+      probe report (``--probe-results-required`` synthesizes
+      ``level="missing"``) observes ``None`` — a wedged emitter rollout
+      must not bank rounds toward ``--cordon-after``, or K-1 rounds of
+      absence plus one real failure would defeat the debounce;
     * a quarantined-by-us node that is no longer cordoned was uncordoned
-      out of band: the FSM resets it to RECOVERING.
+      out-of-band (`kubectl uncordon` leaves our annotation behind): the
+      FSM resets it to RECOVERING, never straight to HEALTHY — the
+      stale-annotation sweep and the machine must agree that an override
+      is a decision, not evidence.
     """
+    import time as _time
+
     from tpu_node_checker_torch.history.fsm import DEGRADED
 
     fsm, store = history["fsm"], history["store"]
-    now = round(time.time(), 3)
-    for n in accel:
+    now = round(_time.time(), 3)
+    predictions: List[dict] = []
+    cluster = None
+    if analytics is not None and args is not None:
+        name, source = resolve_cluster_name(args)
+        # Same policy as the metrics label: only an EXPLICIT identity
+        # groups analytics — inferred hostnames would mint per-restart
+        # groups.
+        cluster = name if source in ("flag", "env") else None
+    rounds = [(n, False) for n in accel]
+    if steady:
+        rounds.extend((n, True) for n in steady)
+    for n, is_steady in rounds:
         verdict: Optional[bool] = n.effectively_ready
         if n.quarantined_by_us and n.probe is None:
             verdict = None
@@ -739,15 +934,58 @@ def _update_history(history: dict, accel: List[NodeInfo]) -> None:
             and n.probe is not None
             and n.probe.get("mesh_degraded")
         ):
+            # Chips passed but the mesh link sweep graded an ICI link
+            # SLOW: the DEGRADED evidence class — affirmative evidence
+            # that holds state (no banking toward --cordon-after, no
+            # SUSPECT-streak reset, no flap-window entry; see
+            # HealthFSM.observe).  The store records "ok": "degraded"
+            # verbatim; the tail-seed's flap replay skips it like any
+            # non-bool verdict.
             verdict = DEGRADED
         out_of_band = n.quarantined_by_us and not n.cordoned
+        if is_steady and n.name not in fsm.nodes:
+            continue
         if verdict is None and n.name not in fsm.nodes and not out_of_band:
             # No evidence about a node this machine has NEVER observed:
-            # record nothing and attach nothing.
+            # record nothing and attach nothing.  Minting (and persisting)
+            # a default-HEALTHY machine here would seed uncordon-eligible
+            # state from pure absence — a restart would then trust it.
             continue
-        fsm.observe(n.name, verdict, uncordoned_out_of_band=out_of_band)
+        if not is_steady:
+            fsm.observe(
+                n.name,
+                verdict,
+                uncordoned_out_of_band=out_of_band,
+            )
+        if analytics is not None and isinstance(verdict, bool):
+            detector, seg_store = analytics["detector"], analytics["store"]
+            flipped = detector.flip(n.name, verdict)
+            if detector.observe(n.name, flipped, round_seq):
+                promoted = fsm.promote_suspect(n.name)
+                prediction = {
+                    "node": n.name,
+                    "score": round(detector.score(n.name), 3),
+                    "promoted": promoted is not None,
+                }
+                predictions.append(prediction)
+                if events is not None:
+                    events.emit(
+                        "analytics-prediction",
+                        trace_id=trace_id,
+                        **prediction,
+                    )
+            # AFTER any promotion: the bucket's dwell and the store line
+            # below must both carry the state this round ends in.
+            seg_store.observe(
+                n.name, now, verdict, fsm.health(n.name).state, flipped,
+                group=_node_group_labels(args, n, cluster),
+            )
         h = fsm.health(n.name)
         n.health = {"state": h.state, "streak": h.streak, "flaps": h.flaps}
+        if is_steady:
+            # Unchanged node: analytics folded above; no history line —
+            # the store records evidence, and nothing changed.
+            continue
         store.record(
             {
                 "node": n.name,
@@ -760,6 +998,43 @@ def _update_history(history: dict, accel: List[NodeInfo]) -> None:
                 "flaps_total": h.flaps_total,
             }
         )
+    if analytics is not None:
+        # The per-link timing channel AFTER every node's verdict landed:
+        # a link-drift promotion belongs to the NEXT round's store lines
+        # (this round's were stamped with the pre-promotion state above —
+        # same before/after seam as any other prediction vs evidence).
+        link_predictions = _observe_link_drift(
+            analytics, accel, fsm, args=args, events=events,
+            trace_id=trace_id, round_seq=round_seq,
+        )
+        predictions.extend(link_predictions)
+        # Re-stamp the payload health of any node a link firing just
+        # promoted, so payload["nodes"] and the history state gauges
+        # agree within the round (the store line keeps the
+        # pre-promotion state: prediction is not evidence).
+        promoted_now = {
+            m for p in link_predictions for m in p.get("promoted", ())
+        }
+        for n in accel:
+            if n.name in promoted_now:
+                h = fsm.health(n.name)
+                n.health = {
+                    "state": h.state, "streak": h.streak, "flaps": h.flaps,
+                }
+        # A departed node's episode could never close on its own (no
+        # more observes drain its score): the standing prediction set
+        # tracks THIS round's fleet, like the FSM state gauges.  The
+        # store's lifetime aggregates deliberately keep departed nodes
+        # (the flaps_total-counter policy) until retention ages them out.
+        # On the tick path "this round's fleet" is changed ∪ steady.
+        fleet_names = {n.name for n in accel}
+        if steady:
+            fleet_names.update(n.name for n in steady)
+        analytics["detector"].prune(fleet_names)
+        # Close+append buckets whose window passed; compaction rides the
+        # same call when a shard outgrew its live set.
+        analytics["store"].flush(now)
+    return predictions
 
 
 def _history_payload(history: dict, accel: List[NodeInfo]) -> dict:
@@ -1460,9 +1735,16 @@ def run_check(args, nodes: Optional[List[dict]] = None,
     # FSM after every probe surface attached.  None when the flag is off,
     # and then the payload does not change by a byte.
     history = _build_history(args)
+    analytics = _build_analytics(args) if history is not None else None
+    predictions: List[dict] = []
     if history is not None:
         with timer.phase("history"):
-            _update_history(history, accel)
+            predictions = _update_history(
+                history, accel, analytics=analytics, args=args,
+                events=_round_events(args, events) if analytics else None,
+                trace_id=timer.trace_id,
+                round_seq=getattr(timer, "round_seq", 0) or 0,
+            )
 
     # Effective readiness: kubelet Ready minus unschedulable/probe-failed hosts.
     effective_ready = [n for n in ready if n.effectively_ready]
@@ -1494,8 +1776,9 @@ def run_check(args, nodes: Optional[List[dict]] = None,
         engine, audit = remediation["engine"], remediation["events"]
         engine.begin_round(
             accel, trace_id=timer.trace_id,
-            # No analytics tier: no standing prediction set.
-            predictions=None,
+            # The analytics tier's standing prediction set (--analytics):
+            # a predicted flapper is refused disruptive actions.
+            predictions=set(analytics["detector"].active) if analytics else None,
             # This round's DEGRADED-link evidence (node → slice-qualified
             # SLOW links), which the --cordon-degraded sweep consumes.
             degraded=_degraded_link_evidence(accel),
@@ -1616,6 +1899,24 @@ def run_check(args, nodes: Optional[List[dict]] = None,
             # Per-node state/streak/flaps ride on each node entry; this is
             # the fleet roll-up plus the round's transition log.
             payload["history"] = _history_payload(history, accel)
+        if analytics is not None:
+            # The analytics roll-up block (--analytics): this round's
+            # predictions plus store telemetry, what the
+            # tpu_node_checker_analytics_* families render.  The full SLO
+            # documents ride result.analytics_docs (below): they are a
+            # serving surface, not round state.
+            detector, seg_store = analytics["detector"], analytics["store"]
+            payload["analytics"] = {
+                "predictions": predictions,
+                "predictions_total": detector.detections_total,
+                "suspects": sorted(detector.active),
+                "buckets": seg_store.bucket_counts(),
+                "rollup_lines_total": seg_store.rollup_lines_total,
+                "compactions_total": seg_store.compactions_total,
+                "sketch_samples": dict(
+                    sorted(seg_store.sketch_samples_total.items())
+                ),
+            }
         for phase_name, rep in (("cordon", cordon_report),
                                 ("cordon_degraded", degraded_report),
                                 ("uncordon", uncordon_report),
@@ -1641,6 +1942,20 @@ def run_check(args, nodes: Optional[List[dict]] = None,
         stamp_cluster_identity(payload, args, live_client)
         payload["trace_id"] = timer.trace_id
         payload["exit_code"] = result.exit_code
+    if analytics is not None:
+        # The round's wall time and the deduplicated per-link sweep medians
+        # fold into the reserved "_fleet" stream's buckets, before the
+        # query phase, so this round's documents include this round.
+        _fold_round_samples(analytics, accel, timer)
+        # The documents of GET /api/v1/analytics/*, computed from roll-ups
+        # and serialized once by the server's publish_analytics.
+        from tpu_node_checker_torch.analytics import build_analytics_docs
+
+        with timer.phase("analytics-query"):
+            result.analytics_docs = build_analytics_docs(
+                analytics["store"], detector=analytics["detector"],
+                predictions=predictions,
+            )
     payload["timings_ms"] = timer.as_dict()
     result.payload = payload
     if tracer is None and getattr(args, "trace", None):
@@ -1999,6 +2314,275 @@ def _wait_for_next_round(stop, seconds: float) -> bool:
     return stop.wait(max(0.0, seconds))
 
 
+def _api_write_decision(node: dict, action: str) -> tuple:
+    """Evidence rules for one fleet-API write → ``(eligible, reason)``.
+
+    Evaluated over the last round's IMMUTABLE snapshot entry — the write
+    path must not race (or lock against) a round in flight.  The rules are
+    the same ones the ``--cordon-failed`` / ``--uncordon-recovered`` sweeps
+    apply: FSM-gated when the round carried hysteresis state, probe-evidence
+    gated otherwise — an authenticated caller can ask, only evidence can
+    approve.  A refusal is a 409, distinct from auth (401/403).
+    """
+    health = node.get("health") if isinstance(node.get("health"), dict) else None
+    state = (health or {}).get("state")
+    probe = node.get("probe") if isinstance(node.get("probe"), dict) else None
+    if action == "cordon":
+        if node.get("cordoned"):
+            return False, "already cordoned"
+        if not node.get("ready"):
+            return False, (
+                "node is NotReady — already the control plane's problem; "
+                "cordon is for kubelet-Ready nodes with dead chips"
+            )
+        if not node.get("schedulable", True):
+            return False, (
+                "no allocatable devices — already unschedulable for "
+                "device-requesting pods"
+            )
+        if probe is None or probe.get("level") == "missing":
+            # Same rule as the sweep: a PATCH needs a REAL probe report
+            # from the last round; absence is not evidence.
+            return False, "no probe evidence in the last round"
+        if health is not None:
+            from tpu_node_checker_torch.history.fsm import CHRONIC, FAILED
+
+            if state not in (FAILED, CHRONIC):
+                return False, (
+                    f"hysteresis state {state} is not cordon-eligible "
+                    "(needs FAILED or CHRONIC)"
+                )
+            return True, f"hysteresis state {state} with probe evidence"
+        if probe.get("ok"):
+            return False, "probe passed in the last round — nothing to quarantine"
+        return True, "probe failed in the last round"
+    # uncordon
+    if not node.get("cordoned"):
+        return False, "not cordoned"
+    if not node.get("quarantined_by_us"):
+        return False, (
+            "cordon is not ours (no quarantine annotation) — human cordons "
+            "are never touched; use kubectl uncordon"
+        )
+    if not node.get("ready"):
+        return False, "kubelet does not report Ready"
+    if probe is None or not probe.get("ok"):
+        return False, "no fresh passing probe verdict vouches for the chips"
+    if health is not None:
+        from tpu_node_checker_torch.history.fsm import CHRONIC, HEALTHY
+
+        if state == CHRONIC:
+            return False, (
+                "CHRONIC flapper: held cordoned — a passing round is the "
+                "setup for its next failure (uncordon out-of-band to override)"
+            )
+        if state != HEALTHY:
+            return False, (
+                f"hysteresis state {state} is not uncordon-eligible "
+                "(needs re-earned HEALTHY)"
+            )
+        return True, "re-earned HEALTHY with passing probe"
+    return True, "Ready with passing probe"
+
+
+def _make_serve_control(args, events=None):
+    """The fleet API's write-path seam: decide over the snapshot, PATCH on
+    a PRIVATE client.
+
+    The round's pooled session stays untouched — a write resolves (and
+    closes) its own client, so a control-plane PATCH can never race the
+    check loop's keep-alive pool or ride a round's retry budget.  Writes
+    are rare; one handshake each is the cost of isolation.
+
+    The ``--cordon-max`` budget applies here exactly as in the sweep —
+    total cordoned state, counting the snapshot's already-cordoned nodes
+    PLUS cordons this control path applied since that snapshot (the
+    snapshot is immutable, so an applied PATCH is invisible to it until
+    the next round publishes) — a token holder must not be able to drain
+    the pool one authenticated request at a time.
+    """
+    # Cordons applied via the API since the snapshot they were decided on.
+    round_state = {"seq": None, "applied": 0}
+
+    def control(name: str, action: str, dry_run: bool, node: dict, snap) -> tuple:
+        eligible, reason = _api_write_decision(node, action)
+        if eligible and action == "cordon":
+            if round_state["seq"] != snap.seq:
+                round_state["seq"], round_state["applied"] = snap.seq, 0
+            cap = getattr(args, "cordon_max", 1) or 1
+            already = sum(
+                1 for d in snap.node_docs.values() if d.get("cordoned")
+            ) + round_state["applied"]
+            if already >= cap:
+                eligible = False
+                reason = (
+                    f"--cordon-max budget exhausted ({already} nodes already "
+                    f"cordoned, cap {cap}) — raise --cordon-max deliberately "
+                    "for mass-repair workflows"
+                )
+        body = {"applied": False, "eligible": eligible, "reason": reason,
+                "dry_run": dry_run}
+        if not eligible:
+            return 409, body
+        if dry_run:
+            return 200, {**body, "would_apply": True}
+        from tpu_node_checker_torch.cluster import KubeClient, resolve_cluster_config
+        from tpu_node_checker_torch.remediation import actuate
+        from tpu_node_checker_torch.remediation.budget import Decision
+
+        client = KubeClient(
+            resolve_cluster_config(
+                getattr(args, "kubeconfig", None), getattr(args, "context", None)
+            )
+        )
+        # The API write path decided eligibility (evidence rules) and the
+        # --cordon-max budget above; the actuation itself still rides the
+        # actuate module with an explicit granted Decision, so the TNC019
+        # call-site invariant — and the per-actuation audit event — hold
+        # on every path that touches a node.
+        decision = Decision(True, action, name, None, reason)
+        try:
+            if action == "cordon":
+                actuate.cordon(client, decision, events=events,
+                               trace_id=snap.trace_id)
+            else:
+                actuate.uncordon(client, decision, events=events,
+                                 trace_id=snap.trace_id)
+        finally:
+            client.close()
+        if action == "cordon":
+            round_state["applied"] += 1
+        return 200, {**body, "applied": True}
+
+    return control
+
+
+def _serve_pool_kwargs(args) -> dict:
+    """The serving-scale knobs both --serve modes share: worker count and
+    the write-path token bucket (``None`` write_rps = unlimited)."""
+    kwargs = {"workers": getattr(args, "serve_workers", None) or 1}
+    write_rps = getattr(args, "write_rps", None)
+    if write_rps:
+        from tpu_node_checker_torch.server.ratelimit import TokenBucket
+
+        kwargs["write_limiter"] = TokenBucket(write_rps)
+    return kwargs
+
+
+def serve_store(args) -> int:
+    """``--serve PORT`` without ``--watch``: serve a RECORDED store.
+
+    The standalone half of the fleet API: no check rounds run in this
+    process.  ``/api/v1/nodes*`` and ``/api/v1/summary`` serve the
+    ``--history`` store (each node's latest FSM line + fleet roll-up),
+    ``/api/v1/trend`` the ``--log-jsonl`` trend log — both owned by
+    ANOTHER process (the aggregator Deployment, a cron one-shot) and
+    re-read only when their mtime/size signature moves, never per request.
+    With only ``--log-jsonl``, the summary degrades to the log's last
+    round.  Control-plane writes answer 503: with no live round there is
+    no evidence to gate a PATCH on.  Runs until SIGTERM (exit 143).
+    """
+    import threading
+
+    from tpu_node_checker_torch.server.app import FleetStateServer
+    from tpu_node_checker_torch.server.auth import resolve_serve_token
+    from tpu_node_checker_torch.server.snapshot import (
+        build_store_snapshot,
+        build_trendlog_snapshot,
+    )
+
+    history_path = getattr(args, "history", None)
+    trend_path = getattr(args, "log_jsonl", None)
+    source = history_path or trend_path
+    state = {"sig": object(), "seq": 0}  # sentinel: first stat always differs
+    refresh_lock = threading.Lock()
+    holder: dict = {}
+
+    def refresh() -> None:
+        """Request-time seam: stat the store, rebuild the snapshot only on
+        change.  A stat per request is the whole steady-state cost; the
+        lock serializes concurrent pollers racing one store change, so a
+        rewrite rebuilds (and bumps the served round) exactly once."""
+        from tpu_node_checker_torch.history.store import file_signature
+
+        sig = file_signature(source)
+        if sig == state["sig"]:
+            return
+        with refresh_lock:
+            if sig == state["sig"]:
+                return  # another request rebuilt while we waited
+            if sig is None:
+                state["sig"] = None  # vanished store: keep the last snapshot
+                return
+            # seq commits only AFTER a successful build: a stat-able but
+            # unreadable store (perms flipped mid-incident) must not bump
+            # the served round per poll — that would churn the trend
+            # cache's (seq, signature) key into a re-parse per request.
+            now = round(time.time(), 3)
+            snap = (
+                build_store_snapshot(history_path, state["seq"] + 1, now)
+                if history_path
+                else build_trendlog_snapshot(trend_path, state["seq"] + 1, now)
+            )
+            state["seq"] += 1
+            if snap.node_docs or snap.exit_code is not None:
+                # An empty store is "no completed round yet": /readyz must
+                # stay 503 until a real round has been recorded.
+                holder["server"].publish_snapshot(snap)
+            state["sig"] = sig
+
+    from tpu_node_checker_torch.obs import Observability
+
+    # Standalone serving runs no rounds (the debug ring stays empty) but
+    # the event log still carries the write-path audit lines.
+    obs = Observability.from_args(args)
+    server = FleetStateServer(
+        args.serve,
+        token=resolve_serve_token(getattr(args, "serve_token", None)),
+        control=None,  # no live round → no evidence → writes answer 503
+        trend_path=trend_path,
+        refresh=refresh,
+        obs=obs,
+        **_serve_pool_kwargs(args),
+    )
+    holder["server"] = server
+    try:
+        refresh()
+    except OSError as exc:
+        print(f"Cannot read store {source}: {exc} (serving not-ready)", file=sys.stderr)
+    requested_workers = getattr(args, "serve_workers", None) or 1
+    if server.workers_active != requested_workers:
+        print(
+            f"--serve-workers {requested_workers}: SO_REUSEPORT unavailable "
+            f"on this platform — serving with {server.workers_active} "
+            "listener.",
+            file=sys.stderr,
+        )
+    print(
+        f"Serving fleet state API on port {server.port} "
+        f"({server.workers_active} worker"
+        f"{'s' if server.workers_active != 1 else ''}) over "
+        f"{'history store ' + history_path if history_path else 'trend log ' + trend_path}"
+        " (standalone: no check rounds run here; writes disabled).",
+        file=sys.stderr,
+    )
+    stop = threading.Event()
+    prev_handler = _install_stop_signal(stop)
+    try:
+        # Short wait slices, not one long one: Event.wait's underlying lock
+        # acquire is NOT interruptible by signals in CPython, so a single
+        # 3600 s wait would delay the SIGTERM handler — and the clean exit —
+        # by up to an hour.  An idle wakeup per second costs one timed
+        # acquire; the watch loop never hits this because its waits are
+        # bounded by the (short) check interval.
+        while not _wait_for_next_round(stop, 1.0):
+            pass
+        print("SIGTERM: fleet state API stopped cleanly.", file=sys.stderr)
+        return 128 + 15
+    finally:
+        _restore_stop_signal(prev_handler)
+        server.close()
+
 def watch(args) -> int:
     """``--watch SECONDS``: run the round repeatedly (the aggregator
     Deployment's daemon mode).
@@ -2019,8 +2603,9 @@ def watch(args) -> int:
     interval = args.watch
     on_change = getattr(args, "slack_on_change", False)
     webhook = notify.get_slack_webhook_url(getattr(args, "slack_webhook", None))
-    # Per-round traces (debug ring + --trace), round-phase histograms on the
-    # scrape, and the event log (--event-log) the breaker/FSM lines ride.
+    # The observability layer: per-round traces (debug ring + --trace),
+    # round-phase histograms on every scrape surface, and the unified
+    # event log (--event-log) breaker/FSM/audit lines ride through.
     obs = Observability.from_args(args)
     metrics_server = None
     if getattr(args, "metrics_port", None) is not None:
@@ -2033,8 +2618,9 @@ def watch(args) -> int:
     # resumed from a log that records only the code, or an error round).
     # Part of the change fingerprint so a same-code node swap still alerts.
     last_sick: Optional[tuple] = None
-    # The previous round's budget/lease denial fingerprint (empty until the
-    # remediation engine is ported).
+    # The previous round's budget/lease denial fingerprint — one Slack
+    # alert per (domain, reason) per window, not one per refused node
+    # per round (same dedup clock the sick-set half rides).
     last_denials: Optional[tuple] = None
     if on_change:
         # Resume across restarts: recover the last recorded outcome from the
@@ -2050,20 +2636,72 @@ def watch(args) -> int:
     stop = threading.Event()
     prev_handler = _install_stop_signal(stop)
     username = getattr(args, "slack_username", notify.DEFAULT_USERNAME)
+    fleet_server = None
+    if getattr(args, "serve", None) is not None:
+        # The fleet state API rides the watch loop: each completed round
+        # publishes one immutable pre-serialized snapshot, so every poller
+        # GET is a dict lookup + ETag/gzip negotiation — never a re-encode,
+        # never a torn read mid-round (server/snapshot.py).
+        from tpu_node_checker_torch.server.app import FleetStateServer
+        from tpu_node_checker_torch.server.auth import resolve_serve_token
+
+        fleet_server = FleetStateServer(
+            args.serve,
+            token=resolve_serve_token(getattr(args, "serve_token", None)),
+            control=_make_serve_control(args, obs.events),
+            trend_path=getattr(args, "log_jsonl", None),
+            obs=obs,
+            **_serve_pool_kwargs(args),
+        )
+        requested_workers = getattr(args, "serve_workers", None) or 1
+        if fleet_server.workers_active != requested_workers:
+            print(
+                f"--serve-workers {requested_workers}: SO_REUSEPORT "
+                "unavailable on this platform — serving with "
+                f"{fleet_server.workers_active} listener.",
+                file=sys.stderr,
+            )
+        print(
+            f"Serving fleet state API on port {fleet_server.port} "
+            f"({fleet_server.workers_active} worker"
+            f"{'s' if fleet_server.workers_active != 1 else ''}: "
+            "/api/v1/{summary,nodes,slices,trend}, /healthz, /readyz, "
+            "/metrics).",
+            file=sys.stderr,
+        )
+        if webhook:
+            fleet_server.on_event = lambda kind, detail: notify.server_event(
+                webhook, kind, detail, username=username
+            )
+            notify.server_event(
+                webhook,
+                "server-start",
+                f"fleet state API listening on port {fleet_server.port}"
+                + (
+                    " (write endpoints token-gated)"
+                    if resolve_serve_token(getattr(args, "serve_token", None))
+                    else " (write endpoints disabled: no token)"
+                ),
+                username=username,
+            )
     round_seq = 0
     try:
         while True:
             round_start = time.monotonic()
             round_seq += 1
-            # One trace per round: the check's phases and the round's events
-            # share its trace_id.
+            # One trace per round: the check's phases, the publish, and the
+            # round's events all share its trace_id; completed traces land
+            # in the debug ring (/api/v1/debug/rounds) and, under --trace,
+            # in the Chrome-trace file.
             tracer = obs.tracer(round_seq)
             # The try covers ONLY the check itself: a failure here means "the
             # monitor is down" — a state of its own (EXIT_ERROR) so that
             # recovery also registers as a transition.  Render/notify problems
             # afterwards are reported but do not reclassify a successful round.
             try:
-                result = run_check(args, tracer=tracer, events=obs.events)
+                result, delta = run_check(
+                    args, tracer=tracer, events=obs.events
+                ), None
             except KeyboardInterrupt:
                 raise
             except Exception as exc:  # tnc: allow-broad-except(a bad round must not kill the daemon)
@@ -2078,6 +2716,10 @@ def watch(args) -> int:
                 if metrics_server is not None:
                     metrics_server.set_breaker(breaker.as_dict())
                     metrics_server.mark_error(EXIT_ERROR)
+                if fleet_server is not None:
+                    # The last snapshot keeps serving (fleet state is
+                    # UNKNOWN, not gone); an OPEN breaker flips /readyz.
+                    fleet_server.mark_error(breaker.as_dict())
                 _append_state_log(args, None, error=str(exc))
                 if transition == "opened":
                     obs.events.emit(
@@ -2138,6 +2780,35 @@ def watch(args) -> int:
                     metrics_server.set_breaker(breaker.as_dict())
                     metrics_server.update(result)
                 _append_state_log(args, result)
+                if fleet_server is not None:
+                    # AFTER the state log append: /api/v1/trend's cache key
+                    # includes the publication seq, so the new round's line
+                    # must already be on disk when the seq moves.  A
+                    # watch-stream tick with an EMPTY delta publishes
+                    # nothing: served content would be byte-identical, and
+                    # skipping the swap keeps every poller's cached ETag a
+                    # 304 hit — the served round advances when the fleet
+                    # changes, while the scrape surface (timestamp and
+                    # stream-age gauges) keeps moving every tick.
+                    with tracer.span("publish"):
+                        if delta is None or delta:
+                            fleet_server.publish(
+                                result, breaker=breaker.as_dict(),
+                                changed=delta, tracer=tracer,
+                            )
+                        else:
+                            fleet_server.refresh_metrics(
+                                result, breaker=breaker.as_dict()
+                            )
+                    # The budget view (GET /api/v1/remediation): swapped
+                    # per round like every other entity; absent payload
+                    # block clears it back to 404.
+                    fleet_server.publish_remediation(
+                        result.payload.get("remediation")
+                    )
+                    # The analytics view (GET /api/v1/analytics/*): same
+                    # swap discipline; absent docs clear it back to 404.
+                    fleet_server.publish_analytics(result.analytics_docs)
                 sick = _round_sick_set(result)
                 denials = _round_denials_fp(result)
                 # Change fingerprint = exit code + sick-node set: a node
@@ -2186,9 +2857,9 @@ def watch(args) -> int:
                     render_and_notify(args, result, notify_enabled=(not on_change) or changed)
                 except Exception as exc:  # tnc: allow-broad-except(e.g. stdout pipe gone)
                     print(f"Render/notify failed (check itself OK): {exc}", file=sys.stderr)
-            # The round's trace is done: freeze it, feed the phase
-            # histograms, keep it in the debug ring — failed rounds too,
-            # labeled with their error.
+            # The round's trace is done (publish span included): freeze it,
+            # feed the phase histograms, make it queryable in the debug
+            # ring — failed rounds too, labeled with their error.
             obs.complete(tracer)
             if getattr(args, "trace", None):
                 _write_trace_file(args.trace, tracer)
@@ -2212,8 +2883,8 @@ def watch(args) -> int:
                     file=sys.stderr,
                 )
             # Fixed cadence, not fixed gap: the round's own cost (a
-            # workload-level probe takes seconds) comes out of the interval,
-            # so round N starts ~N*interval after the first and
+            # workload-level probe can take minutes) comes out of the
+            # interval, so round N starts ~N*interval after the first and
             # --probe-results-max-age freshness math stays honest.  A round
             # slower than the interval runs back to back rather than
             # drifting further.  The wait is EVENT-based: SIGTERM wakes it
@@ -2229,6 +2900,8 @@ def watch(args) -> int:
                 return 128 + 15  # conventional SIGTERM exit
     finally:
         _restore_stop_signal(prev_handler)
+        if fleet_server is not None:
+            fleet_server.close()
 
 
 def _round_denials_fp(result: CheckResult) -> tuple:

@@ -17,15 +17,19 @@ and the node side (the emitter and its pod's modes).
         [--probe-results DIR [--probe-results-required]
          [--probe-results-max-age S]]
         [--history FILE [--history-max-rounds N] [--cordon-after K]
-         [--uncordon-after M] [--flap-threshold F] [--flap-window W]]
+         [--uncordon-after M] [--flap-threshold F] [--flap-window W]
+         [--analytics DIR]]
         [--slack-webhook URL] [--slack-username NAME] [--slack-only-on-error]
         [--slack-retry-count N] [--slack-retry-delay S]
-        [--watch S [--slack-on-change] [--metrics-port PORT] [--event-log FILE]]
+        [--watch S [--slack-on-change] [--metrics-port PORT] [--event-log FILE]
+         [--serve PORT [--serve-token TOKEN] [--serve-workers N] [--write-rps R]]]
         [--cordon-failed | --drain-failed [--no-drain-dry-run]] [--cordon-max N]
         [--cordon-degraded] [--uncordon-recovered] [--cordon-dry-run]
         [--disruption-budget N[/WINDOW]] [--slice-floor-pct PCT]
         [--disruption-lease URL] [--repair-cmd CMD | --repair-webhook URL
          [--no-repair-dry-run]]
+    python -m tpu_node_checker_torch --serve PORT (--history FILE | --log-jsonl FILE)
+        [--serve-token TOKEN] [--serve-workers N] [--write-rps R] [--event-log FILE]
     python -m tpu_node_checker_torch --trend FILE [--json]
     python -m tpu_node_checker_torch --trend-nodes FILE [--json]
     python -m tpu_node_checker_torch --emit-probe FILE|- \\
@@ -61,7 +65,12 @@ nodes whose probe failed, ``--uncordon-recovered`` lifts our quarantines
 once they pass again, and the budget engine refuses what would pass
 ``--cordon-max``, ``--slice-floor-pct``, ``--disruption-budget`` or the
 fleet lease (``--disruption-lease``); ``--repair-cmd`` or
-``--repair-webhook`` fires once per condemned node.  ``--trend`` summarizes
+``--repair-webhook`` fires once per condemned node.  ``--analytics`` keeps
+roll-ups of the history stream and predicts flappers; ``--serve`` publishes
+each round of the loop to the fleet state API (reads open, writes
+``--serve-token``-gated and ``--write-rps``-limited, ``--serve-workers``
+accept loops), or without ``--watch`` serves a store another process
+records.  ``--trend`` summarizes
 a ``--log-jsonl`` trend log and ``--trend-nodes`` a ``--history`` store.
 ``--emit-probe`` writes one report, or with ``--watch`` one every S seconds
 until SIGTERM (exit 143), serving the round's gauges on ``--metrics-port``;
@@ -205,6 +214,38 @@ def build_parser() -> argparse.ArgumentParser:
                    "transitions with their causes, longest outage) and exit "
                    "— post-incident analysis; runs alone")
 
+    serve = p.add_argument_group("Fleet state API (queryable health over HTTP)")
+    serve.add_argument("--serve", type=int, metavar="PORT",
+                       help="serve the fleet state HTTP API on PORT (0 = "
+                       "ephemeral): GET /api/v1/summary, /api/v1/nodes[/NAME], "
+                       "/api/v1/slices, /api/v1/trend, plus /healthz, /readyz "
+                       "and /metrics — every round publishes one immutable "
+                       "pre-serialized snapshot (strong ETag + gzip), so "
+                       "polls never re-encode JSON or race the check loop; "
+                       "with --watch serves live rounds, standalone (with "
+                       "--history and/or --log-jsonl) serves a store another "
+                       "process writes")
+    serve.add_argument("--serve-token", metavar="TOKEN",
+                       help="bearer token (or $TNC_SERVE_TOKEN) gating the "
+                       "API's write endpoints — POST /api/v1/nodes/NAME/"
+                       "cordon|uncordon, evidence/FSM-gated with ?dry_run=1 "
+                       "support, audit-logged; with no token configured every "
+                       "write answers 403 (reads stay open)")
+    serve.add_argument("--serve-workers", type=int, default=None, metavar="N",
+                       help="with --serve: accept-loop workers sharing the "
+                       "port via SO_REUSEPORT (default 1; falls back to a "
+                       "single listener where the option is unavailable) — "
+                       "hot read endpoints are answered from wire responses "
+                       "prebuilt once per round, so read throughput scales "
+                       "to tens of thousands of polls per second")
+    serve.add_argument("--write-rps", type=float, default=None, metavar="RATE",
+                       help="with --serve: token-bucket rate limit on the "
+                       "authenticated cordon/uncordon write path — sustained "
+                       "RATE requests/second (burst of the same size, "
+                       "minimum 1); refusals answer 429 with a Retry-After "
+                       "the caller's retry ladder can honor (default: "
+                       "unlimited)")
+
     probe = p.add_argument_group("Card probe (data-plane liveness)")
     probe.add_argument("--probe", action="store_true",
                        help="probe this host's card(s) in a child process and "
@@ -316,6 +357,19 @@ def build_parser() -> argparse.ArgumentParser:
     history.add_argument("--flap-window", type=int, default=None, metavar="W",
                          help="with --history: sliding window (rounds) the flap "
                          "detector counts flips over (default 10)")
+    history.add_argument("--analytics", metavar="DIR",
+                         help="with --history: maintain the fleet "
+                         "analytics tier in DIR — the per-node verdict "
+                         "stream is downsampled into 1m/15m/6h roll-up "
+                         "buckets sharded across per-shard segment files "
+                         "(append-only, atomically compacted; the raw "
+                         "history JSONL stays authoritative), SLO/"
+                         "offender/flap-rate queries are served from "
+                         "GET /api/v1/analytics/{slo,offenders,flaps} "
+                         "under --serve, and an online CUSUM changepoint "
+                         "detector promotes flappers to SUSPECT before "
+                         "the FSM sees a hard failure (predictions feed "
+                         "the remediation budget view)")
     history.add_argument("--trend-nodes", metavar="FILE",
                          help="summarize a --history store per node: "
                          "availability, MTBF/MTTR, flap counts, current "
@@ -482,11 +536,24 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
         p.error("--retry-budget must be >= 0 (0 disables retries)")
     if args.metrics_port is not None and args.watch is None:
         p.error("--metrics-port requires --watch (one-shot runs serve no scrapes)")
+    if args.serve_token and args.serve is None:
+        p.error("--serve-token requires --serve")
+    if args.serve_workers is not None:
+        if args.serve is None:
+            p.error("--serve-workers requires --serve")
+        if args.serve_workers < 1:
+            p.error("--serve-workers must be at least 1")
+    if args.write_rps is not None:
+        if args.serve is None:
+            p.error("--write-rps requires --serve")
+        if args.write_rps <= 0:
+            p.error("--write-rps must be positive (omit the flag for "
+                    "unlimited writes)")
     if args.slack_on_change and args.watch is None:
         p.error("--slack-on-change requires --watch")
-    if args.event_log and args.watch is None:
-        # One-shot runs emit no events (breaker/FSM lines are daemon-mode
-        # surfaces); the port has no --serve or --federate daemon yet.
+    if args.event_log and args.watch is None and args.serve is None:
+        # One-shot runs emit no events (breaker/FSM/audit lines are
+        # daemon-mode surfaces); the port has no --federate daemon yet.
         p.error(
             "--event-log records daemon-mode events: it requires --watch, "
             "--serve or --federate"
@@ -510,6 +577,7 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
         or args.expected_chips
         or args.history
         or args.trend_nodes
+        or args.serve is not None
     ):
         # A summary-only mode must not absorb check/emit/notify/quarantine
         # flags the operator thinks ran.
@@ -530,9 +598,11 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
         or args.strict_slices
         or args.expected_chips
         or args.history
+        or args.serve is not None
     ):
         p.error("--trend-nodes runs alone (only --json may accompany it)")
     for flag, val in (
+        ("--analytics", args.analytics),
         ("--history-max-rounds", args.history_max_rounds),
         ("--cordon-after", args.cordon_after),
         ("--uncordon-after", args.uncordon_after),
@@ -597,6 +667,7 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
         or args.probe_topology
         or args.probe_level != "enumerate"
         or args.trace
+        or args.serve is not None
     ):
         # A drill-only mode must not absorb flags the operator thinks ran.
         p.error("--selftest runs alone (only --json and --probe-timeout "
@@ -627,6 +698,7 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
             or args.json
             or args.trace
             or args.perf_floor is not None
+            or args.serve is not None
         ):
             # Calibration's stdout is the TNC_PERF_EXPECT JSON (command
             # substitution is its consumer); anything else riding along would
@@ -658,6 +730,7 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
         or args.uncordon_recovered
         or args.history
         or args.trend_nodes
+        or args.serve is not None
     ):
         # JAX's rule and words first; the port's wider rule below.
         p.error(
@@ -741,8 +814,9 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
             p.error(f"{flag} cannot be combined with --emit-probe")
     if args.emit_probe:
         for flag, on in (
-            # The emitter loop runs no fleet rounds: nothing to repair or
-            # budget.
+            # The emitter loop runs no fleet rounds: nothing to repair,
+            # budget, roll up or predict over.
+            ("--analytics", args.analytics),
             ("--repair-cmd", args.repair_cmd),
             ("--repair-webhook", args.repair_webhook),
             ("--disruption-budget", args.disruption_budget),
@@ -774,9 +848,10 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
         p.error("--cordon-max must be at least 1")
     if args.cordon_max is not None and not (
         args.cordon_failed or args.cordon_degraded or args.drain_failed
+        or args.serve is not None
     ):
-        # JAX's words: its fleet API's cordon endpoint (--serve, not ported
-        # here) shares the budget.
+        # --serve counts too: the fleet API's cordon endpoint shares the
+        # same total-cordoned-state budget as the sweep.
         p.error("--cordon-max requires --cordon-failed, --drain-failed "
                 "or --serve")
     if args.cordon_dry_run and not (
@@ -818,6 +893,54 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     if args.probe_topology and args.probe_level in ("enumerate", "compute"):
         # The per-axis block runs at the collective level and above only.
         p.error("--probe-topology requires --probe-level collective (or higher)")
+    if args.serve is not None:
+        if not 0 <= args.serve <= 65535:
+            p.error("--serve PORT must be in 0-65535 (0 = ephemeral)")
+        if args.emit_probe:
+            # The fleet API is the aggregator's surface (fleet snapshots,
+            # cordon control); an emitter pod exposes --metrics-port only.
+            p.error("--serve cannot be combined with --emit-probe")
+        if args.watch is None and not (args.history or args.log_jsonl):
+            # Standalone mode serves a recorded store; without one the
+            # server could never answer anything but 503.  Checked last so
+            # the runs-alone modes above report their own errors.
+            p.error(
+                "--serve without --watch serves a recorded store: add "
+                "--history FILE and/or --log-jsonl FILE (or run with --watch)"
+            )
+        if args.watch is None:
+            # Standalone serving runs no check rounds: a flag that only
+            # means something during a round would silently do nothing.
+            for flag, on in (
+                ("--probe", args.probe),
+                ("--probe-results", args.probe_results),
+                ("--node-events", args.node_events),
+                ("--analytics", args.analytics),
+                ("--cordon-failed", args.cordon_failed),
+                ("--cordon-degraded", args.cordon_degraded),
+                ("--uncordon-recovered", args.uncordon_recovered),
+                ("--drain-failed", args.drain_failed),
+                ("--repair-cmd", args.repair_cmd),
+                ("--repair-webhook", args.repair_webhook),
+                ("--disruption-budget", args.disruption_budget),
+                ("--disruption-lease", args.disruption_lease),
+                ("--slice-floor-pct", args.slice_floor_pct is not None),
+                ("--strict-slices", args.strict_slices),
+                ("--expected-chips", args.expected_chips),
+                ("--nodes-json", args.nodes_json),
+                ("--label-selector", args.label_selector),
+                ("--resource-key", args.resource_key),
+                ("--multislice-label", args.multislice_label),
+                ("--slack-webhook", args.slack_webhook),
+                ("--slack-only-on-error", args.slack_only_on_error),
+                ("--trace", args.trace),
+            ):
+                if on:
+                    p.error(
+                        f"--serve without --watch runs no check rounds: "
+                        f"{flag} would silently do nothing (add --watch to "
+                        "run rounds alongside the API)"
+                    )
 
     # The port's own rules, after JAX's: what the port has not ported must
     # not be accepted and silently skipped.
@@ -891,6 +1014,10 @@ def _dispatch(args) -> int:
         if args.watch is not None:
             # The aggregator's loop: returns only on SIGTERM (143).
             return checker.watch(args)
+        if args.serve is not None:
+            # The standalone fleet API over a store another process
+            # records: returns only on SIGTERM (143).
+            return checker.serve_store(args)
         return checker.one_shot(args)
     from tpu_node_checker_torch import emit
 

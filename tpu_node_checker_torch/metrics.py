@@ -19,9 +19,10 @@ the two scrapes equal.  What renders depends on the payload:
   the ``--watch`` loop ``tpu_node_checker_watch_breaker_open`` and
   ``..._watch_breaker_consecutive_failures``.
 
-Families fed by modules the port does not have yet (the watch stream, the
-fleet API server, federation, remediation, analytics) render only from
-payload keys those modules write, so they stay absent here.
+Families fed by modules the port does not have yet (the watch stream and
+federation) render only from payload keys those modules write, so they stay
+absent here; the fleet API server appends its own request families to
+``/metrics`` under ``--serve``.
 :class:`MetricsServer` serves the latest body on a thread of its own, with
 the round's phase histograms (``obs``) appended.
 """
@@ -34,7 +35,8 @@ from http.server import ThreadingHTTPServer
 from typing import List, Optional, Tuple
 
 from tpu_node_checker_torch.checker import CheckResult  # noqa: F401 (the result rendered)
-from tpu_node_checker_torch.server.router import Entity, RoutedHandler, Router, negotiate
+from tpu_node_checker_torch.server.router import RoutedHandler, Router, negotiate
+from tpu_node_checker_torch.server.snapshot import Entity
 
 # Prometheus text exposition format, version 0.0.4 — the scrape content type.
 METRICS_CONTENT_TYPE = "text/plain; version=0.0.4"

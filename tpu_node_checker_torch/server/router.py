@@ -1,69 +1,21 @@
 """Minimal HTTP routing and conditional/encoding negotiation, stdlib only.
 
-A copy of what the JAX package's metrics endpoint uses from its
-``server/router.py`` (``Request``, ``Response``, ``json_response``,
-``_etag_matches``, ``negotiate``, ``split_path_segments``,
-``route_request``, ``Router``, ``RoutedHandler``) and ``server/snapshot.py``
-(``entity_tag``, ``Entity``), so the port's scrape keeps the same contract:
-
-* unknown paths answer **404**; a known path with the wrong method **405**
-  with an ``Allow`` header;
-* **HEAD** is served from the GET handler: same status and headers
-  (``Content-Length`` and ``ETag`` included), no body;
-* a strong ETag matched by ``If-None-Match`` answers **304**, and
-  ``Accept-Encoding: gzip`` gets the pre-compressed variant;
-* every negotiated response carries ``ETag``, ``Vary: Accept-Encoding`` and
-  ``Cache-Control: no-cache``.
-
-Path segments are split on literal ``/`` first and then percent-decoded
-once each, so static segments and ``{name}`` captures are judged by the
-same text.
+A copy of the JAX package's ``server/router.py``, held equal to it by
+``tests/test_torch_copies.py``.  Both embedded HTTP surfaces (the
+``--metrics-port`` scrape and the ``--serve`` fleet API) route through it:
+unknown paths answer 404, a known path with the wrong method 405 with
+``Allow``; HEAD is served from GET without a body; a strong ETag matched by
+``If-None-Match`` answers 304 and ``Accept-Encoding: gzip`` gets the
+pre-compressed variant.  Path segments are split on ``/`` first and then
+percent-decoded once each.
 """
 
 from __future__ import annotations
 
-import gzip
-import hashlib
-import json
+import gzip as _gzip
 import urllib.parse
 from http.server import BaseHTTPRequestHandler
 from typing import Callable, Dict, List, Optional, Tuple
-
-JSON_CONTENT_TYPE = "application/json; charset=utf-8"
-
-# Level 6 is zlib's sweet spot; below this size the gzip header overhead
-# beats the savings and the raw bytes are served instead.
-_GZIP_LEVEL = 6
-_GZIP_MIN_BYTES = 256
-
-
-def entity_tag(raw: bytes) -> str:
-    """The strong ETag for a body: a quoted, truncated sha256."""
-    return '"' + hashlib.sha256(raw).hexdigest()[:32] + '"'
-
-
-class Entity:
-    """One immutable HTTP representation: raw bytes, gzip variant, ETag.
-
-    The gzip variant is served only when it actually saved bytes.
-    """
-
-    __slots__ = ("raw", "gz", "etag", "content_type")
-
-    def __init__(self, raw: bytes, content_type: str = JSON_CONTENT_TYPE,
-                 gz: Optional[bytes] = None):
-        self.raw = raw
-        self.content_type = content_type
-        if gz is None:
-            # mtime=0 pins the gzip header, so identical bodies compress to
-            # identical bytes: representation equality mirrors ETag equality.
-            gz = (
-                gzip.compress(raw, _GZIP_LEVEL, mtime=0)
-                if len(raw) >= _GZIP_MIN_BYTES
-                else None
-            )
-        self.gz = gz if gz is not None and len(gz) < len(raw) else None
-        self.etag = entity_tag(raw)
 
 
 class Request:
@@ -93,17 +45,23 @@ class Response:
 
 
 def json_response(status: int, obj) -> Response:
+    import json
+
     return Response(
         status,
         (json.dumps(obj, ensure_ascii=False) + "\n").encode("utf-8"),
-        {"Content-Type": JSON_CONTENT_TYPE},
+        {"Content-Type": "application/json; charset=utf-8"},
     )
 
 
 def _etag_matches(if_none_match: str, etag: str) -> bool:
-    """RFC 7232 ``If-None-Match`` against one strong ETag: ``*`` matches
-    any representation; otherwise a comma-separated list of (possibly
-    ``W/``-prefixed) tags, compared weakly as the RFC specifies."""
+    """RFC 7232 ``If-None-Match`` evaluation against one strong ETag.
+
+    ``*`` matches any current representation; otherwise the header is a
+    comma-separated list of (possibly ``W/``-prefixed) entity tags, compared
+    WEAKLY — the weak comparison is what the RFC specifies for
+    ``If-None-Match``, and our tags are strong, so stripping ``W/`` is safe.
+    """
     if if_none_match.strip() == "*":
         return True
     for candidate in if_none_match.split(","):
@@ -115,11 +73,17 @@ def _etag_matches(if_none_match: str, etag: str) -> bool:
     return False
 
 
-def negotiate(entity: Entity, headers, status: int = 200) -> Response:
-    """One pre-serialized entity → the wire response for this request:
-    304 on an ``If-None-Match`` hit, the gzip variant when accepted, and
-    always the strong ``ETag``, ``Vary`` and ``Cache-Control: no-cache``
-    (clients must revalidate; the 304 is the cheap path)."""
+def negotiate(entity, headers, status: int = 200) -> Response:
+    """One pre-serialized entity → the right wire response for this request.
+
+    * ``If-None-Match`` hit → **304** with the ETag and zero body bytes —
+      the cached path every poller after the first round rides;
+    * ``Accept-Encoding: gzip`` → the entity's pre-compressed variant (when
+      one exists and actually saved bytes) with ``Content-Encoding: gzip``;
+    * always: strong ``ETag`` + ``Vary: Accept-Encoding`` + ``Cache-Control:
+      no-cache`` (clients MUST revalidate — the 304 is the cheap path, a
+      stale-for-60s snapshot is not acceptable for scheduler gates).
+    """
     base = {
         "ETag": entity.etag,
         "Vary": "Accept-Encoding",
@@ -138,36 +102,59 @@ def negotiate(entity: Entity, headers, status: int = 200) -> Response:
     return Response(status, body, out)
 
 
+def gunzip(data: bytes) -> bytes:
+    """Test/debug helper: undo :func:`negotiate`'s gzip variant."""
+    return _gzip.decompress(data)
+
+
 def split_path_segments(path: str) -> List[str]:
-    """A raw request path → its segments, each percent-decoded exactly once
-    after the split on literal ``/``."""
+    """A raw request path → its percent-DECODED segments, decoding applied
+    exactly once per segment AFTER the split on literal ``/``.
+
+    This is the one normalization point both matching sides share: static
+    route segments compare against decoded text, and ``{name}`` captures
+    are the decoded segment verbatim — so ``a%2Fb`` reaches a handler as
+    ``a/b`` while ``/a/b`` stays two segments.  Before this, static
+    segments compared ENCODED while captures decoded, so
+    ``/api/v1/nodes/a%2Fb`` and ``/api/v1/%6Eodes/x`` resolved by two
+    different rules (the ambiguity the ``cluster/node`` key shape cannot
+    live with).
+    """
     return [urllib.parse.unquote(s) for s in path.split("/") if s]
 
 
 def route_request(router: "Router", method: str, target: str, headers,
-                  body: bytes, remote: str) -> Response:
-    """The dispatch core: the routed handler's response, or the router's
-    404/405.  A handler that raises answers 500 instead of killing the
-    serving thread."""
+                  body: bytes, remote: str) -> Tuple[Response, str]:
+    """The dispatch core both HTTP stacks share → ``(response, pattern)``.
+
+    :class:`RoutedHandler` (the ``--metrics-port`` surface) and the
+    fleet-API worker pool's fallback path
+    (:mod:`~tpu_node_checker_torch.server.workers`) parse bytes differently but
+    MUST route identically — query parsing, 404/405 shapes, the handler
+    try/except — so that logic lives here exactly once.  ``pattern`` is
+    the matched route pattern (``"(unmatched)"`` for 404/405), the label
+    request metrics key on.
+    """
     parsed = urllib.parse.urlsplit(target)
     query = dict(urllib.parse.parse_qsl(parsed.query)) if parsed.query else {}
     resolved = router.resolve(method, parsed.path)
     if isinstance(resolved, Response):
-        return resolved
-    handler, params, _ = resolved
+        return resolved, "(unmatched)"
+    handler, params, pattern = resolved
     request = Request(method, parsed.path, params, query, headers, body, remote)
     try:
-        return handler(request)
-    except Exception as exc:  # a handler bug must not kill the serving thread
-        return json_response(500, {"error": f"internal error: {exc}"})
+        response = handler(request)
+    except Exception as exc:  # tnc: allow-broad-except(a handler bug must not kill the serving thread)
+        response = json_response(500, {"error": f"internal error: {exc}"})
+    return response, pattern
 
 
 class Router:
     """Ordered route table: ``(method, pattern)`` → handler.
 
     ``resolve`` returns ``(handler, params, pattern)`` or a ready-made
-    404/405 :class:`Response`.  HEAD resolves through GET routes; the HTTP
-    layer suppresses the body.
+    404/405 :class:`Response`.  HEAD resolves through GET routes — the
+    HTTP layer suppresses the body.
     """
 
     def __init__(self):
@@ -180,6 +167,9 @@ class Router:
 
     @staticmethod
     def _match(segments: Tuple[str, ...], path_segs: List[str]) -> Optional[Dict[str, str]]:
+        """``path_segs`` arrive already percent-decoded
+        (:func:`split_path_segments`), so static segments and captures are
+        judged by the same text — no second decode here."""
         if len(segments) != len(path_segs):
             return None
         params: Dict[str, str] = {}
@@ -204,7 +194,8 @@ class Router:
                 return handler, params, pattern
             allowed.add(m)
         if allowed:
-            # The path exists; the verb is wrong.  GET routes also answer HEAD.
+            # The path exists; the verb is wrong.  Name what would work —
+            # GET routes also answer HEAD.
             if "GET" in allowed:
                 allowed.add("HEAD")
             resp = json_response(405, {"error": f"method {method} not allowed"})
@@ -214,15 +205,28 @@ class Router:
 
 
 class RoutedHandler(BaseHTTPRequestHandler):
-    """``BaseHTTPRequestHandler`` driven by a :class:`Router` (subclasses
-    set ``router``).  HTTP/1.1 with an explicit ``Content-Length`` on every
-    response, so pollers keep their connections alive."""
+    """``BaseHTTPRequestHandler`` driven by a :class:`Router`.
+
+    Subclasses (closures in practice) set ``router`` and optionally
+    ``observe(method, route_pattern, status, elapsed_ms)`` /
+    ``track_in_flight(delta)`` hooks for request metrics.  HTTP/1.1 with an
+    explicit ``Content-Length`` on every response, so pollers keep their
+    connections alive across rounds instead of re-dialing per poll.
+    """
 
     router: Router = None  # set by subclass
     protocol_version = "HTTP/1.1"
     # A stalled client must never wedge a handler thread forever.
     timeout = 10
 
+    # -- hooks (no-ops by default) -------------------------------------------
+    def observe(self, method: str, route: str, status: int, elapsed_ms: float) -> None:
+        pass
+
+    def track_in_flight(self, delta: int) -> None:
+        pass
+
+    # -- verb plumbing -------------------------------------------------------
     def do_GET(self):
         self._dispatch("GET")
 
@@ -245,39 +249,55 @@ class RoutedHandler(BaseHTTPRequestHandler):
             return b""
         if length <= 0:
             return b""
-        # Bound request bodies; past the cap the connection is dropped after
-        # answering, since the unread rest would desync keep-alive framing.
+        # Bound write bodies: control-plane requests are tiny JSON; a
+        # multi-MB body is abuse, not a request.  Truncating leaves the
+        # rest of the body in the socket, which would desync keep-alive
+        # framing — drop the connection after answering instead.
         cap = 1 << 20
         if length > cap:
             self.close_connection = True
         return self.rfile.read(min(length, cap))
 
     def _dispatch(self, method: str) -> None:
+        import time as _time
+
+        t0 = _time.monotonic()
+        self.track_in_flight(+1)
+        route_label = "(unmatched)"
+        status = 500
         try:
-            # Drain the body before answering, resolved or not, so a 404/405
-            # leaves no bytes in the socket for the next keep-alive request.
+            # Drain the body BEFORE answering, resolved or not: a 404/405
+            # that skips an unread POST body leaves its bytes in the
+            # socket, and the next keep-alive request on the connection
+            # would be parsed starting at the leftovers.
             body = self._read_body() if method in ("POST", "PUT") else b""
-            response = route_request(
+            response, route_label = route_request(
                 self.router, method, self.path, self.headers, body,
                 self.client_address[0],
             )
+            status = response.status
             self._send(response, head_only=(method == "HEAD"))
         except (BrokenPipeError, ConnectionResetError):
-            # The poller hung up mid-response.
+            # The poller hung up mid-response; its problem, not a log line.
             self.close_connection = True
+        finally:
+            self.track_in_flight(-1)
+            self.observe(
+                method, route_label, status, (_time.monotonic() - t0) * 1e3
+            )
 
     def _send(self, response: Response, head_only: bool = False) -> None:
         self.send_response(response.status)
         headers = dict(response.headers)
-        headers.setdefault("Content-Type", JSON_CONTENT_TYPE)
+        headers.setdefault("Content-Type", "application/json; charset=utf-8")
         for key, value in headers.items():
             self.send_header(key, value)
         # HEAD carries the GET's Content-Length with no body (RFC 7231
-        # §4.3.2); a 304 always has zero body bytes.
+        # §4.3.2); 304 always has zero body bytes.
         self.send_header("Content-Length", str(len(response.body)))
         self.end_headers()
         if not head_only and response.status != 304 and response.body:
             self.wfile.write(response.body)
 
-    def log_message(self, *args):  # scrapes must not spam stderr
+    def log_message(self, *args):  # scrapes and polls must not spam stderr
         pass
