@@ -195,13 +195,49 @@ Phases, one line each (any failure exits non-zero and prints no result):
    its own; then ``--serve 0 --history H --log-jsonl L`` standalone through
    both CLIs over the port's store (equal bodies, ``/readyz`` 200, a write
    503 with the token and 401 without, SIGTERM exit 143);
-15. the ``kernels`` line (each kernel at the compute probe's shapes, its
+15. the federation tier above two clusters, one of them graded on this
+   card's reports: the port's emitter writes, at once, this host's healthy
+   report (compute level) and its ``TNC_CHAOS_AXIS=t1`` drill
+   (``--probe-topology 1x1 --probe-level collective``; exit 0 and 3, each
+   schema-valid, every kernel launched and equal to its plain version);
+   then three processes of a CLI, each held before every round with its
+   wall clock pinned: cluster east, the Deployment's loop of phase 14 with
+   ``--cluster-name east``, without ``--serve-token`` and ``--write-rps``
+   and with its ``--disruption-lease`` on the aggregator, against the fake
+   API server of 1,000 GPU nodes; cluster west, ``--watch 1
+   --watch-stream --serve P --cluster-name west --history H --analytics
+   A`` against a second fake API server (1,000 GPU nodes, a LIST with its
+   ``resourceVersion`` and the node watch, ``WatchApi``); and the
+   federation Deployment's aggregator, ``--federate E --serve P
+   --federate-interval 1 --federate-workers 2 --serve-workers 2
+   --fleet-disruption-budget 1/10m --event-log EV --trace T`` (the ports
+   chosen ahead, since east's lease URL and the endpoints file name them,
+   and west comes back on its own).  Six steps, after each of which every
+   global route is read (summary, clusters, each cluster, nodes,
+   analytics, an unknown cluster's 404, ``/readyz``, ``/healthz``, the
+   federation families of ``/metrics``, the debug rounds, a 304 on the
+   last ETag, gzip and HEAD) with the trace's upstream tracks: all
+   healthy; east grades the drill while west's stream carries a flip,
+   100 heartbeats, a deletion, an addition and a bookmark; east's second
+   drill (FAILED, its cordon leased from the aggregator, a second lease
+   in the window denied); west's stream ended (one relist, stream_end),
+   then an in-band 410 (one relist, gone); west stopped (its shard alone
+   stale, ``/readyz`` 200); west back (recovered, logged once).  Then the
+   aggregator with ``--federate-feed`` over the same upstreams, its steady
+   rounds counted at the upstreams (none) and its nodes blocks the poll
+   aggregator's bytes; then SIGTERM to each (143).  The same through the
+   JAX checker's CLI: equal exit codes, global bodies (with the masks
+   named at ``FEDERATION_MASKED_KEYS``), lease answers, PATCH bodies,
+   posts, event lines, west's tick payloads and watch stats, and the
+   feed's bodies, each CLI loading no package but its own;
+16. the ``kernels`` line (each kernel at the compute probe's shapes, its
    launches counted on the workload path, in each emitter round, in each
    selftest leg, in each calibration rep, on the distributed workload path,
    in the one-shot round's probe, in the live round's, in each probed
-   round of the loop, in each report the quarantine grades and in each
-   report the Deployment grades, flash also at the training step's shape),
-   then the ``nvidia-smi`` line, then the result line.
+   round of the loop, in each report the quarantine grades, in each
+   report the Deployment grades and in each report east grades, flash
+   also at the training step's shape), then the ``nvidia-smi`` line, then
+   the result line.
 
 Bounds use the H100 SXM data sheet: 3.35 TB/s of device memory, 989 TFLOP/s
 bf16 on the tensor cores.  Times are steady-state CUDA-event times over many
@@ -637,12 +673,12 @@ def card_samples():
 
 
 def http_get(port: int, path: str = "/metrics", method: str = "GET",
-             headers: Optional[dict] = None) -> tuple:
-    """(status, headers, body, ms) of one request to the emitter's scrape."""
+             headers: Optional[dict] = None, body: Optional[bytes] = None) -> tuple:
+    """(status, headers, body, ms) of one request to a local HTTP server."""
     t0 = time.perf_counter()
     conn = http.client.HTTPConnection("127.0.0.1", port, timeout=10)
     try:
-        conn.request(method, path, headers=headers or {})
+        conn.request(method, path, body=body, headers=headers or {})
         resp = conn.getresponse()
         out = resp.status, dict(resp.getheaders()), resp.read()
     finally:
@@ -1668,16 +1704,22 @@ def phase11_live_round(torch, root, rows, validate_report) -> None:
 
 # The CLI of the package named after the record path (the port's or the JAX
 # checker's) with the argv after it, in a process that also appends to that
-# record one line when each round's check starts, one when it ends (its
-# seconds, exit code, phases, probe report and the payload's cordon, uncordon
-# and remediation blocks), one for each inter-round wait the loop asks for
-# (the seconds, and when), and at exit the packages loaded.  With
-# SMOKE_ROUND_PLAN set, each check first points the reports link at its
-# round's directory, and the round named stops the lease server first; with
-# "hold" in the plan, each check first records "hold" and waits for the
-# file <record>.go<n> (the script reads the fleet API between rounds).  With
-# SMOKE_CLOCK set, the wall clock the CLI reads is pinned: that time at the
-# first round, one second more each round.
+# record one line when each round starts and one when it ends (its seconds,
+# exit code and timings; a check's probe report and its payload's cordon,
+# uncordon and remediation blocks; with --watch-stream a tick's payload and
+# changed nodes; with --federate a merge round's fetch counts per cluster,
+# feeds and stitched upstream traces), one for each inter-round wait the
+# loop asks for (the seconds, and when), and at exit the packages loaded.
+# SMOKE_ROUND_PLAN may name the reports link each round first points at its
+# round's directory; the round before which the lease server is stopped,
+# until it refuses; "hold", with which each round first records "hold" and
+# waits for the file <record>.go<n> (the script reads the APIs between
+# rounds) and every wait lasts 0 s, since the holds pace the rounds; the
+# stream ticks that first wait for a resourceVersion or for the stream to
+# end; and a merge round's wait for its feeds to verify.  Such a wait that
+# outlasts 60 s is recorded as "stalled".  With SMOKE_CLOCK set, the wall
+# clock the CLI reads is pinned: that time at the first round, one second
+# more each round.
 WATCH_CLI_SCRIPT = """
 import http.client, importlib, json, os, socket, sys, time
 
@@ -1686,11 +1728,11 @@ clock = os.environ.get("SMOKE_CLOCK")
 virtual = [float(clock)] if clock else None
 if virtual is not None:
     time.time = lambda: virtual[0]
-checker = importlib.import_module(sys.argv[2] + ".checker")
-cli = importlib.import_module(sys.argv[2] + ".cli")
-record = open(sys.argv[1], "a")
-check, wait_for = checker.run_check, checker._wait_for_next_round
-plan = json.loads(os.environ.get("SMOKE_ROUND_PLAN") or "null")
+record_path, package, argv = sys.argv[1], sys.argv[2], sys.argv[3:]
+checker = importlib.import_module(package + ".checker")
+cli = importlib.import_module(package + ".cli")
+record = open(record_path, "a")
+plan = json.loads(os.environ.get("SMOKE_ROUND_PLAN") or "{}")
 started = [0]
 
 
@@ -1700,15 +1742,13 @@ def write(**entry):
 
 
 def next_round():
-    # The round plan: point the reports link at this round's directory, and
-    # stop the lease server before the round named, until it refuses.
+    # The round plan: the reports link, the lease server's stop, the hold.
     started[0] += 1
     n = started[0]
-    if plan is None:
-        return
-    tmp = plan["link"] + ".next"
-    os.symlink(plan["dirs"][min(n, len(plan["dirs"])) - 1], tmp)
-    os.replace(tmp, plan["link"])
+    if plan.get("dirs"):
+        tmp = plan["link"] + ".next"
+        os.symlink(plan["dirs"][min(n, len(plan["dirs"])) - 1], tmp)
+        os.replace(tmp, plan["link"])
     if n == plan.get("stop_round"):
         host, port = plan["stop_url"].rsplit("/", 1)[1].split(":")
         conn = http.client.HTTPConnection(host, int(port), timeout=10)
@@ -1724,37 +1764,92 @@ def next_round():
         write(event="lease-stopped", round=n)
     if plan.get("hold"):
         write(event="hold", round=n)
-        go, deadline = f"{sys.argv[1]}.go{n}", time.monotonic() + 300
+        go, deadline = f"{record_path}.go{n}", time.monotonic() + 600
         while not os.path.exists(go) and time.monotonic() < deadline:
             time.sleep(0.005)
     if virtual is not None:
         virtual[0] = float(clock) + n - 1
+    return n
+
+
+def until(ready, n, what):
+    deadline = time.monotonic() + 60
+    while not ready():
+        if time.monotonic() > deadline:
+            write(event="stalled", round=n, waiting_for=what)
+            return
+        time.sleep(0.005)
+
+
+def recorded(n, trace_id, call, fields):
+    write(event="start", round=n, trace_id=trace_id)
+    t0 = time.perf_counter()
+    try:
+        out = call()
+    except Exception as exc:
+        write(event="end", round=n, trace_id=trace_id, seconds=time.perf_counter() - t0,
+              error=str(exc))
+        raise
+    write(**{"event": "end", "round": n, "trace_id": trace_id,
+             "seconds": time.perf_counter() - t0, **fields(out)})
+    return out
+
+
+check, wait_for = checker.run_check, checker._wait_for_next_round
 
 
 def run_check(args, **kw):
-    next_round()
-    trace_id = kw["tracer"].trace_id
-    write(event="start", trace_id=trace_id)
-    t0 = time.perf_counter()
-    try:
-        result = check(args, **kw)
-    except Exception as exc:
-        write(event="end", trace_id=trace_id, seconds=time.perf_counter() - t0, error=str(exc))
-        raise
-    write(event="end", trace_id=trace_id, seconds=time.perf_counter() - t0,
-          exit_code=result.exit_code, timings_ms=result.payload.get("timings_ms"),
-          probe=result.local_probe, blocks={k: result.payload[k] for k in (
-              "cordon", "uncordon", "remediation") if k in result.payload})
-    return result
+    return recorded(next_round(), kw["tracer"].trace_id, lambda: check(args, **kw),
+                    lambda result: dict(
+                        exit_code=result.exit_code, timings_ms=result.payload.get("timings_ms"),
+                        probe=result.local_probe, blocks={k: result.payload[k] for k in (
+                            "cordon", "uncordon", "remediation") if k in result.payload}))
 
 
 def wait(stop, seconds):
     write(event="wait", seconds=seconds)
-    return wait_for(stop, seconds)
+    return wait_for(stop, 0.0 if plan.get("hold") else seconds)
 
 
 checker.run_check, checker._wait_for_next_round = run_check, wait
-rc = cli.main(sys.argv[3:])
+if "--watch-stream" in argv:
+    watchstream = importlib.import_module(package + ".watchstream")
+    tick = watchstream.StreamRoundEngine.tick
+
+    def stream_tick(self, tracer=None):
+        n = next_round()
+        want = plan.get("ticks", {}).get(str(n), {})
+        if "rv" in want:
+            until(lambda: self.cache.resource_version == want["rv"], n, want)
+        if want.get("ended"):
+            until(lambda: not self.stream_alive(), n, want)
+        return recorded(n, tracer.trace_id if tracer is not None else None,
+                        lambda: tick(self, tracer=tracer), lambda out: dict(
+                            exit_code=out[0].exit_code,
+                            timings_ms=out[0].payload.get("timings_ms"),
+                            changed=None if out[1] is None else sorted(out[1]),
+                            payload=out[0].payload))
+
+    watchstream.StreamRoundEngine.tick = stream_tick
+if "--federate" in argv:
+    aggregator = importlib.import_module(package + ".federation.aggregator")
+    merge_round = aggregator.FederationEngine.round
+
+    def federation_round(self, server=None):
+        n = next_round()
+        if plan.get("await_feeds") and n > 1:
+            until(lambda: len(self._feeds) == len(self.views) and all(
+                c._state is not None for c in self._feeds.values()), n, "feeds")
+        return recorded(n, None, lambda: merge_round(self, server), lambda snap: dict(
+            trace_id=self.last_tracer.trace_id, round_ms=self.last_round_ms,
+            timings_ms=self.last_tracer.as_dict(),
+            fetch={k: [v.fetch_fresh, v.fetch_not_modified, v.fetch_errors]
+                   for k, v in sorted(self.views.items())},
+            feeds={k: c._state is not None for k, c in sorted(self._feeds.items())},
+            upstream_traces={k: v.upstream_trace for k, v in sorted(self.views.items())}))
+
+    aggregator.FederationEngine.round = federation_round
+rc = cli.main(argv)
 write(event="exit", exit_code=rc, packages=sorted({m.split(".")[0] for m in sys.modules} & {
     "jax", "jaxlib", "tpu_node_checker", "tpu_node_checker_torch"}))
 sys.exit(rc)
@@ -2109,7 +2204,7 @@ def masked_patches(patches: list) -> list:
     return out
 
 
-def phase13_quarantine(torch, root, rows, validate_report, emit_args=()) -> dict:
+def phase13_quarantine(torch, root, rows, validate_report) -> dict:
     """Phase 13: the aggregator's quarantine, graded on reports that the
     port's emitter writes on this card: the Deployment's --watch loop with
     --cordon-failed --uncordon-recovered and the budget engine, against the
@@ -2145,7 +2240,7 @@ def phase13_quarantine(torch, root, rows, validate_report, emit_args=()) -> dict
         if axis != "0":
             e["TNC_CHAOS_AXIS"] = axis
         t0 = time.perf_counter()
-        proc = port_cli(root, "--emit-probe", paths[key], *args, *emit_args, env=e)
+        proc = port_cli(root, "--emit-probe", paths[key], *args, env=e)
         return proc.returncode, time.perf_counter() - t0, proc.stderr
 
     t0 = time.perf_counter()
@@ -2462,64 +2557,113 @@ def fleet_api_timings(port: int) -> dict:
             "publish_ms": publish}
 
 
+class HeldCli:
+    """One CLI process (``side`` "port" or "jax") through WATCH_CLI_SCRIPT
+    with the "hold" plan in ``env``: its rounds released one at a time, its
+    record read as it grows.  Its files are ``work/<name>.*``."""
+
+    def __init__(self, root: str, side: str, name: str, argv: list, env: dict, work: str):
+        self.name, self.side = name, side
+        self.record = os.path.join(work, f"{name}.record.jsonl")
+        self.err = os.path.join(work, f"{name}.stderr.txt")
+        self.lines, self._offset = [], 0
+        package = "tpu_node_checker_torch" if side == "port" else "tpu_node_checker"
+        with open(os.path.join(work, f"{name}.stdout.txt"), "w") as fo, \
+                open(self.err, "w") as fe:
+            self.proc = subprocess.Popen(
+                [sys.executable, "-c", WATCH_CLI_SCRIPT, self.record, package, *argv],
+                stdout=fo, stderr=fe, cwd=root, env=env)
+
+    def records(self) -> list:
+        if os.path.exists(self.record):
+            with open(self.record) as f:
+                f.seek(self._offset)
+                text = f.read()
+            done = text.rfind("\n") + 1
+            self._offset += len(text[:done].encode())
+            self.lines += [json.loads(x) for x in text[:done].splitlines() if x.strip()]
+        return self.lines
+
+    def of(self, event: str) -> list:
+        return [r for r in self.records() if r["event"] == event]
+
+    def wait_hold(self, n: int, timeout: float = 300.0) -> None:
+        deadline = time.perf_counter() + timeout
+        while not any(r["round"] == n for r in self.of("hold")):
+            if self.proc.poll() is not None or time.perf_counter() > deadline:
+                with open(self.err) as f:
+                    fail(f"the {self.side} {self.name} ended or stalled before round {n} "
+                         f"(exit {self.proc.poll()}): {f.read()[-3000:]}")
+            time.sleep(0.01)
+
+    def go(self, n: int) -> None:
+        open(f"{self.record}.go{n}", "w").close()
+
+    def round(self, n: int) -> dict:
+        """Release round n; return its end line once the loop holds again."""
+        self.wait_hold(n)
+        self.go(n)
+        self.wait_hold(n + 1)
+        return next(r for r in self.of("end") if r["round"] == n)
+
+    def stop(self, n: int) -> tuple:
+        """SIGTERM while held before round n, then release it: (exit code,
+        seconds from the signal to the exit)."""
+        self.wait_hold(n)
+        t0 = time.perf_counter()
+        self.proc.send_signal(signal.SIGTERM)
+        self.go(n)
+        rc = self.proc.wait(timeout=120)
+        return rc, time.perf_counter() - t0
+
+    def stderr(self) -> list:
+        with open(self.err) as f:
+            return f.read().splitlines()
+
+    def kill(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+
+
 def deployment_run(root: str, side: str, argv: list, env: dict, work: str, host: str,
                    rounds: int) -> dict:
-    """One run of the Deployment's loop through WATCH_CLI_SCRIPT, held
-    before each round: before round 1 the script reads /healthz and
+    """One run of the Deployment's loop, held before each round
+    (:class:`HeldCli`): before round 1 the script reads /healthz and
     /readyz, after each round every route of the fleet API (after round 1
     also the write burst, after the last the timings), then lets the next
     round go; SIGTERM as round ``rounds + 1`` starts."""
     os.makedirs(work)
-    paths = {k: os.path.join(work, f) for k, f in (
-        ("record", "record.jsonl"), ("out", "stdout.txt"), ("err", "stderr.txt"),
-        ("events", "events.jsonl"))}
-    package = "tpu_node_checker_torch" if side == "port" else "tpu_node_checker"
-    cmd = [sys.executable, "-c", WATCH_CLI_SCRIPT, paths["record"], package,
-           *(a.replace("{dir}", work) for a in argv)]
     out = {"rounds": [], "writes": None, "timings": None, "serving_line": None}
     t0 = time.perf_counter()
-    with open(paths["out"], "w") as fo, open(paths["err"], "w") as fe:
-        proc = subprocess.Popen(cmd, stdout=fo, stderr=fe, cwd=root, env=env)
-        try:
-            port = None
-            for k in range(1, rounds + 2):
-                deadline = time.perf_counter() + 300
-                while not any(r["event"] == "hold" and r["round"] == k
-                              for r in read_jsonl(paths["record"])):
-                    if proc.poll() is not None or time.perf_counter() > deadline:
-                        fail(f"the {side} loop ended or stalled before round {k} "
-                             f"(exit {proc.poll()}): {open(paths['err']).read()[-2000:]}")
-                    time.sleep(0.005)
-                if port is None:
-                    with open(paths["err"]) as f:
-                        m = re.search(r"Serving fleet state API on port (\d+) .*", f.read())
-                    if m is None:
-                        fail(f"the {side} loop named no fleet API port before round 1")
-                    port, out["serving_line"] = int(m.group(1)), m.group(0)
-                if k == 1:
-                    out["pre"] = {p: served(p, *http_get(port, p)[:3])
-                                  for p in ("/healthz", "/readyz")}
-                else:
-                    out["rounds"].append(read_fleet_api(port, host))
-                if k == 2:
-                    out["writes"] = write_burst(port, host)
-                if k == rounds + 1:
-                    out["timings"] = fleet_api_timings(port)
-                    t_term = time.perf_counter()
-                    proc.send_signal(signal.SIGTERM)
-                open(f"{paths['record']}.go{k}", "w").close()
-            out["exit_code"] = proc.wait(timeout=120)
-            out["sigterm_to_exit_s"] = time.perf_counter() - t_term
-            out["port_closed"] = not port_open(port)
-        finally:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
+    loop = HeldCli(root, side, "loop", [a.replace("{dir}", work) for a in argv], env, work)
+    try:
+        port = None
+        for k in range(1, rounds + 2):
+            loop.wait_hold(k)
+            if port is None:
+                m = re.search(r"Serving fleet state API on port (\d+) .*", "\n".join(loop.stderr()))
+                if m is None:
+                    fail(f"the {side} loop named no fleet API port before round 1")
+                port, out["serving_line"] = int(m.group(1)), m.group(0)
+            if k == 1:
+                out["pre"] = {p: served(p, *http_get(port, p)[:3])
+                              for p in ("/healthz", "/readyz")}
+            else:
+                out["rounds"].append(read_fleet_api(port, host))
+            if k == 2:
+                out["writes"] = write_burst(port, host)
+            if k <= rounds:
+                loop.go(k)
+        out["timings"] = fleet_api_timings(port)
+        out["exit_code"], out["sigterm_to_exit_s"] = loop.stop(rounds + 1)
+        out["port_closed"] = not port_open(port)
+    finally:
+        loop.kill()
     out["seconds"] = time.perf_counter() - t0
-    out["record"] = read_jsonl(paths["record"])
-    out["events"] = read_jsonl(paths["events"])
-    with open(paths["err"]) as f:
-        out["stderr"] = f.read().splitlines()
+    out["record"] = loop.records()
+    out["events"] = read_jsonl(os.path.join(work, "events.jsonl"))
+    out["stderr"] = loop.stderr()
     return out
 
 
@@ -2777,6 +2921,625 @@ def phase14_deployment(torch, root, rows, validate_report, quarantine: dict) -> 
           get_ms=port["timings"]["get_ms"], not_modified_ms=port["timings"]["not_modified_ms"],
           publish_ms=port["timings"]["publish_ms"],
           analytics_query_ms=port["analytics_query_ms"])
+
+
+class WatchApi:
+    """The fake Kubernetes API server of cluster "west", served from a
+    thread: ``GET /api/v1/nodes`` is one page with
+    ``metadata.resourceVersion``; with ``watch=1`` it is the node watch,
+    newline-delimited JSON frames in a chunked body that stays open until
+    the script ends it.  :meth:`emit` applies an event to the server's own
+    nodes (so a relist sees it) and sends it down the newest watch
+    connection; ``requests`` counts LISTs and watch connections."""
+
+    def __init__(self, nodes: list):
+        import queue
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+        from urllib.parse import parse_qs, urlparse
+
+        self.nodes = {n["metadata"]["name"]: n for n in nodes}
+        self.rv, self.lock, self.streams = 1000, threading.Lock(), []
+        self.requests = {"list": 0, "watch": 0}
+        self.closed = threading.Event()
+        api = self
+
+        class Handler(BaseHTTPRequestHandler):
+            protocol_version = "HTTP/1.1"
+
+            def chunk(self, data: bytes) -> None:
+                self.wfile.write(b"%x\r\n%s\r\n" % (len(data), data))
+                self.wfile.flush()
+
+            def do_GET(self):  # noqa: N802 — the handler protocol's name
+                url = urlparse(self.path)
+                q = {k: v[0] for k, v in parse_qs(url.query).items()}
+                if url.path != "/api/v1/nodes":
+                    body = json.dumps({"kind": "Status", "code": 404}).encode()
+                    self.send_response(404)
+                    self.send_header("Content-Length", str(len(body)))
+                    self.end_headers()
+                    self.wfile.write(body)
+                    return
+                if not q.get("watch"):
+                    with api.lock:
+                        api.requests["list"] += 1
+                        body = json.dumps({"kind": "NodeList", "apiVersion": "v1",
+                                           "metadata": {"resourceVersion": str(api.rv)},
+                                           "items": list(api.nodes.values())}).encode()
+                    self.send_response(200)
+                    self.send_header("Content-Type", "application/json")
+                    self.send_header("Content-Length", str(len(body)))
+                    self.end_headers()
+                    self.wfile.write(body)
+                    return
+                frames = queue.Queue()
+                with api.lock:
+                    api.requests["watch"] += 1
+                    api.streams.append(frames)
+                self.send_response(200)
+                self.send_header("Content-Type", "application/json")
+                self.send_header("Transfer-Encoding", "chunked")
+                self.end_headers()
+                try:
+                    while not api.closed.is_set():
+                        try:
+                            frame = frames.get(timeout=0.5)
+                        except queue.Empty:
+                            continue
+                        if frame is None:
+                            break
+                        self.chunk(json.dumps(frame).encode() + b"\n")
+                    self.wfile.write(b"0\r\n\r\n")
+                    self.wfile.flush()
+                except (BrokenPipeError, ConnectionResetError):
+                    self.close_connection = True
+
+            def log_message(self, *args):
+                pass
+
+        self.server = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self.server.daemon_threads = True
+        self.url = f"http://127.0.0.1:{self.server.server_address[1]}"
+        self.thread = threading.Thread(target=self.server.serve_forever,
+                                       name="chip-smoke-watch-apiserver", daemon=True)
+        self.thread.start()
+
+    def _send(self, frame) -> None:
+        with self.lock:
+            if not self.streams:
+                fail("west's watch has no connection to send a frame down")
+            self.streams[-1].put(frame)
+
+    def emit(self, etype: str, node: dict) -> str:
+        node = json.loads(json.dumps(node))
+        with self.lock:
+            self.rv += 1
+            node["metadata"]["resourceVersion"] = str(self.rv)
+            if etype == "DELETED":
+                self.nodes.pop(node["metadata"]["name"], None)
+            else:
+                self.nodes[node["metadata"]["name"]] = node
+            rv = str(self.rv)
+        self._send({"type": etype, "object": node})
+        return rv
+
+    def bookmark(self) -> str:
+        with self.lock:
+            self.rv += 1
+            rv = str(self.rv)
+        self._send({"type": "BOOKMARK", "object": {"kind": "Node",
+                                                   "metadata": {"resourceVersion": rv}}})
+        return rv
+
+    def end_stream(self) -> None:
+        self._send(None)
+
+    def gone(self) -> None:
+        """The in-band 410: the ERROR frame an apiserver sends when the
+        resourceVersion expired under an open watch, then the stream's end."""
+        self._send({"type": "ERROR", "object": {"kind": "Status", "code": 410,
+                                                 "reason": "Expired",
+                                                 "message": "too old resource version"}})
+        self._send(None)
+
+    def close(self) -> None:
+        self.closed.set()
+        self.server.shutdown()
+        self.server.server_close()
+        self.thread.join()
+
+
+# Phase 15's masks between the port's tier and the JAX checker's: a round's
+# trace id (the X-TNC-Trace header is not compared) and every ms value and
+# age, which are wall times.  The wall clock each CLI reads is pinned
+# (SMOKE_CLOCK), so every timestamp is compared.  Of /metrics the
+# federation families are compared, less their durations and the feed's
+# lag.
+FEDERATION_MASKED_KEYS = ("trace_id", "stream_age_seconds")
+FEDERATION_MASKED_SUFFIXES = ("_ms",)
+FEDERATION_METRICS = re.compile(
+    r"^tpu_node_checker_federation_(?!round_duration|fetch_duration|feed_lag)")
+GLOBAL_ROUTES = ["/api/v1/global/summary", "/api/v1/global/clusters",
+                 "/api/v1/global/clusters/east", "/api/v1/global/clusters/west",
+                 "/api/v1/global/nodes", "/api/v1/global/analytics",
+                 "/api/v1/global/clusters/nope", "/readyz", "/healthz", "/metrics",
+                 "/api/v1/debug/rounds"]
+
+
+def federation_masked(obj):
+    if isinstance(obj, dict):
+        return {k: "<masked>" if k in FEDERATION_MASKED_KEYS
+                or k.endswith(FEDERATION_MASKED_SUFFIXES) else federation_masked(v)
+                for k, v in obj.items()}
+    if isinstance(obj, list):
+        return [federation_masked(v) for v in obj]
+    return obj
+
+
+def read_global(port: int, etags: dict) -> dict:
+    """Every route of the aggregator once after a round; then a 304 for
+    each ETag the previous read saw, gzip and HEAD of the nodes body."""
+    got, raw = {}, {}
+    for path in GLOBAL_ROUTES:
+        status, headers, body, ms = http_get(port, path)
+        if path == "/metrics":
+            doc = sorted(x for x in body.decode().splitlines() if FEDERATION_METRICS.match(x))
+        else:
+            doc = federation_masked(json.loads(body)) if body else None
+        got[path] = {"status": status, "round": headers.get("X-TNC-Round"), "body": doc,
+                     "ms": ms}
+        raw[path] = (headers, body)
+    not_modified = {}
+    for path, etag in etags.items():
+        not_modified[path] = http_get(port, path, headers={"If-None-Match": etag})[0]
+    for path, (headers, _) in raw.items():
+        if headers.get("ETag"):
+            etags[path] = headers["ETag"]
+    nodes = raw["/api/v1/global/nodes"][1]
+    sgz, hgz, bgz, _ = http_get(port, "/api/v1/global/nodes",
+                                headers={"Accept-Encoding": "gzip"})
+    shead, hhead, bhead, _ = http_get(port, "/api/v1/global/nodes", method="HEAD")
+    return {"routes": got, "304": not_modified, "nodes_raw": nodes,
+            "gzip": sgz == 200 and hgz.get("Content-Encoding") == "gzip"
+            and gzip.decompress(bgz) == nodes,
+            "head": shead == 200 and bhead == b""
+            and hhead.get("Content-Length") == str(len(nodes))}
+
+
+def upstream_requests(port: int) -> dict:
+    """The fleet API's own request counters by route, less the script's
+    scrapes and the feed's long-polls."""
+    out = {}
+    for key, value in samples(http_get(port, "/metrics")[2]).items():
+        if key.startswith("tpu_node_checker_api_server_requests_total{"):
+            route = key.split('route="')[1].split('"')[0]
+            if route not in ("/metrics", "/api/v1/watch"):
+                out[route] = out.get(route, 0) + value
+    return out
+
+
+def west_fleet() -> list:
+    """Cluster west: 1,000 H100 nodes of 8 cards (one LIST page)."""
+    nodes = []
+    for i in range(1000):
+        node = k8s_node(f"gke-h100-west-{i}", {"nvidia.com/gpu": "8"}, True)
+        node["metadata"]["labels"] = {"cloud.google.com/gke-accelerator": "nvidia-h100-80gb",
+                                      "cloud.google.com/gke-nodepool": "h100-west"}
+        nodes.append(node)
+    return nodes
+
+
+def federation_run(root: str, side: str, host: str, n: int, dirs: dict, ports: dict,
+                   env: dict, work: str, clock: float) -> dict:
+    """One life of the federation tier through one package's CLI: east,
+    west and the aggregator, the six steps, then the feed aggregator."""
+    os.makedirs(work)
+    api_e = LiveApi(watch_fleet(host, n, set()), {})
+    api_w = WatchApi(west_fleet())
+    endpoints = os.path.join(work, "endpoints.json")
+    with open(endpoints, "w") as f:
+        json.dump({"clusters": [{"name": "east", "url": f"http://127.0.0.1:{ports['east']}"},
+                                {"name": "west", "url": f"http://127.0.0.1:{ports['west']}"}]},
+                  f)
+    link = os.path.join(work, "reports")
+    os.symlink(dirs["healthy"], link)
+    east_argv = ["--kubeconfig", kubeconfig(os.path.join(work, "kubeconfig-east"), api_e.url),
+                 "--watch", "1", "--strict-slices", "--probe-results", link,
+                 "--probe-results-required", "--slack-on-change", "--metrics-port", "0",
+                 "--log-jsonl", f"{work}/east-rounds.jsonl",
+                 "--history", f"{work}/east-history.jsonl", "--cordon-after", "2",
+                 "--uncordon-after", "3", "--disruption-budget", "2/10m",
+                 "--slice-floor-pct", "90",
+                 "--disruption-lease", f"http://127.0.0.1:{ports['aggregator']}",
+                 "--cordon-failed", "--uncordon-recovered", "--serve", str(ports["east"]),
+                 "--serve-workers", "2", "--event-log", f"{work}/east-events.jsonl",
+                 "--analytics", f"{work}/east-analytics", "--cluster-name", "east"]
+    west_argv = ["--kubeconfig", kubeconfig(os.path.join(work, "kubeconfig-west"), api_w.url),
+                 "--watch", "1", "--watch-stream", "--serve", str(ports["west"]),
+                 "--cluster-name", "west", "--history", f"{work}/west-history.jsonl",
+                 "--analytics", f"{work}/west-analytics"]
+    agg_argv = ["--federate", endpoints, "--serve", str(ports["aggregator"]),
+                "--federate-interval", "1", "--federate-workers", "2", "--serve-workers", "2",
+                "--fleet-disruption-budget", "1/10m", "--event-log", f"{work}/agg-events.jsonl",
+                "--trace", f"{work}/agg-trace.json"]
+    feed_argv = ["--federate", endpoints, "--serve", str(ports["feed"]),
+                 "--federate-interval", "1", "--federate-workers", "2", "--serve-workers", "2",
+                 "--federate-feed", "--event-log", f"{work}/feed-events.jsonl"]
+    # West's events at step 2: a flip to NotReady, 100 heartbeats that
+    # change no grading input, a node deleted, one added, a bookmark.
+    west = api_w.nodes
+    rv_step2 = str(api_w.rv + 104)
+    plans = {
+        "east": {"link": link, "dirs": [dirs["healthy"], dirs["drill"], dirs["drill"]]},
+        "west": {"ticks": {"2": {"rv": rv_step2}, "4": {"ended": True},
+                           "5": {"ended": True}}},
+    }
+    out = {"steps": [], "reads": [], "exit_codes": {}, "sigterm_to_exit_s": {}}
+    tiers = {}
+    with webhook() as (url, posts):
+        try:
+            def start(name, argv, plan, at):
+                tiers[name] = HeldCli(root, side, name, argv,
+                                      dict(env, SLACK_WEBHOOK_URL=url,
+                                           SMOKE_ROUND_PLAN=json.dumps(dict(plan, hold=True)),
+                                           SMOKE_CLOCK=repr(at)), work)
+                return tiers[name]
+
+            east = start("east", east_argv, plans["east"], clock)
+            west_tier = start("west", west_argv, plans["west"], clock)
+            agg = start("aggregator", agg_argv, {}, clock + 0.5)
+            etags = {}
+
+            def step(k, label, *parts):
+                t0 = time.perf_counter()
+                ends = {}
+                for name, fn in parts:
+                    ends.setdefault(name, []).append(fn())
+                ends["aggregator"] = [agg.round(k)]
+                read = read_global(ports["aggregator"], etags)
+                with open(f"{work}/agg-trace.json") as f:
+                    trace = json.load(f)
+                read["trace_tracks"] = {
+                    e["args"]["name"]: next(
+                        (m["args"]["trace_id"] for m in trace["traceEvents"]
+                         if m.get("name") == "trace_id" and m["pid"] == e["pid"]), None)
+                    for e in trace["traceEvents"] if e.get("name") == "process_name"}
+                out["reads"].append(read)
+                out["steps"].append({"step": k, "label": label, "ends": ends,
+                                     "seconds": time.perf_counter() - t0})
+
+            # 1. Everything healthy.
+            step(1, "healthy", ("east", lambda: east.round(1)),
+                 ("west", lambda: west_tier.round(1)))
+            # 2. East grades the drill; west's stream carries the events.
+            west_tier.wait_hold(2)
+            names = list(west)
+            sick = json.loads(json.dumps(west[names[1]]))
+            sick["status"]["conditions"][0]["status"] = "False"
+            api_w.emit("MODIFIED", sick)
+            for i in range(100):
+                beat = json.loads(json.dumps(west[names[2 + i]]))
+                beat["status"]["conditions"][0]["lastHeartbeatTime"] = (
+                    f"2026-10-17T00:{i // 60:02d}:{i % 60:02d}Z")
+                api_w.emit("MODIFIED", beat)
+            api_w.emit("DELETED", west[names[-1]])
+            api_w.emit("ADDED", k8s_node("gke-h100-west-new", {"nvidia.com/gpu": "8"}, True))
+            if api_w.bookmark() != rv_step2:
+                fail("west's script and its plan disagree on the resourceVersion")
+            step(2, "east drill; west events", ("east", lambda: east.round(2)),
+                 ("west", lambda: west_tier.round(2)))
+            # 3. East's second drill: FAILED, the cordon leased from the
+            # aggregator; a second lease in the window is denied.
+            step(3, "east drill again; the lease", ("east", lambda: east.round(3)),
+                 ("west", lambda: west_tier.round(3)))
+            status, _, body, _ = http_get(
+                ports["aggregator"], "/api/v1/global/disruption-lease", "POST",
+                {"Content-Type": "application/json"}, json.dumps(
+                    {"count": 1, "action": "cordon", "node": "gke-h100-west-1",
+                     "cluster": "west"}).encode())
+            out["second_lease"] = (status, json.loads(body))
+
+            # 4. West's server ends the stream (one relist, stream_end), then
+            # an in-band 410 (one relist, gone).
+            def west_relists():
+                west_tier.wait_hold(4)
+                api_w.end_stream()
+                first = west_tier.round(4)
+                api_w.gone()
+                return [first, west_tier.round(5)]
+
+            step(4, "west's stream ends, then a 410", ("west", west_relists))
+
+            # 5. West stops: its shard alone goes stale.
+            def west_stops():
+                rc, seconds = west_tier.stop(6)
+                out["exit_codes"]["west"], out["sigterm_to_exit_s"]["west"] = rc, seconds
+                return {"exit_code": rc}
+
+            step(5, "west stopped", ("west", west_stops))
+            # 6. West again, on its port: its shard recovers.
+            west2 = start("west2", west_argv, {}, clock + 10.0)
+            step(6, "west restarted", ("west2", lambda: west2.round(1)))
+
+            # (e) The feed aggregator over the same upstreams: its first
+            # round polls and opens the feeds, its second waits for them to
+            # verify, then three steady rounds; the upstreams count each.
+            feed = start("feed", feed_argv, {"await_feeds": True}, clock + 20.5)
+            counts = []
+            for k in (1, 2, 3, 4, 5):
+                before = {c: upstream_requests(ports[c]) for c in ("east", "west")}
+                feed.round(k)
+                after = {c: upstream_requests(ports[c]) for c in ("east", "west")}
+                counts.append({c: {r: after[c][r] - before[c].get(r, 0) for r in after[c]
+                                   if after[c][r] != before[c].get(r, 0)}
+                               for c in after})
+            out["feed_counts"] = counts
+            out["feed_read"] = read_global(ports["feed"], {})
+            for name, k in (("feed", 6), ("aggregator", 7), ("east", 4), ("west2", 2)):
+                rc, seconds = tiers[name].stop(k)
+                out["exit_codes"][name], out["sigterm_to_exit_s"][name] = rc, seconds
+        finally:
+            for tier in tiers.values():
+                tier.kill()
+            api_e.close()
+            api_w.close()
+    with api_e.lock:
+        out["patches"] = masked_patches(api_e.patches)
+    out["posts"] = [re.sub(r"port \d+", "port N", p[2]["text"].rsplit("\n`trace: ", 1)[0])
+                    for p in posts]
+    out["west_requests"] = dict(api_w.requests)
+    out["records"] = {name: tier.records() for name, tier in tiers.items()}
+    out["stderr"] = {name: tier.stderr() for name, tier in tiers.items()}
+    out["events"] = {name: read_jsonl(f"{work}/{name}-events.jsonl")
+                     for name in ("agg", "east", "feed")}
+    return out
+
+
+def phase15_federation(torch, root, rows, validate_report) -> None:
+    """Phase 15: the federation tier above two clusters, one of them graded
+    on this card's reports: two emits on the card, then east (the
+    Deployment's loop), west (the loop over the node watch) and the
+    federation aggregator, through the port and through the JAX checker's
+    CLI; then the aggregator over the upstreams' watch feeds."""
+    t_phase = time.perf_counter()
+    n = torch.cuda.device_count()
+    host = "gke-h100-east-0"
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("TNC_", "KUBERNETES_SERVICE_"))
+           and k not in ("SLACK_WEBHOOK_URL", "KUBECONFIG", "SMOKE_ROUND_PLAN", "SMOKE_CLOCK")}
+    env.update(NODE_NAME=host, TNC_SCHEMA_STRICT="1")
+    work = tempfile.mkdtemp(prefix="chip-smoke-federation-")
+
+    # (a) This host's two reports, written at once on the card: healthy at
+    # the compute level, and the t1 drill at the collective level.
+    emits = {"healthy": (("--probe-level", "compute"), None),
+             "drill": (("--probe-topology", "1x1", "--probe-level", "collective"), "t1")}
+    dirs, reports, per_emit = {}, {}, {}
+    for key in emits:
+        dirs[key] = os.path.join(work, "emits", key)
+        os.makedirs(dirs[key])
+
+    def emit(key):
+        args, axis = emits[key]
+        e = dict(env, TNC_CHAOS_AXIS=axis) if axis else env
+        t0 = time.perf_counter()
+        proc = port_cli(root, "--emit-probe", os.path.join(dirs[key], f"{host}.json"), *args,
+                        env=e)
+        return proc.returncode, time.perf_counter() - t0, proc.stderr
+
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(max_workers=2) as pool:
+        done = dict(zip(emits, pool.map(emit, emits)))
+    emit_seconds = time.perf_counter() - t0
+    for key, (rc, seconds, err) in done.items():
+        try:
+            with open(os.path.join(dirs[key], f"{host}.json")) as f:
+                doc = reports[key] = json.load(f)
+        except (OSError, json.JSONDecodeError):
+            fail(f"the emit {key} wrote no report (exit {rc}): {err[-2000:]}")
+        per_emit[key] = dict(
+            exit_code=rc, seconds=seconds, ok=doc.get("ok"), level=doc.get("level"),
+            hostname=doc.get("hostname"), error=doc.get("error"),
+            kernel_launches=doc.get("kernel_launches"),
+            kernels_match_plain={k: doc.get(k) for k in ("pallas_ok", "dma_ok",
+                                                         "flash_attention_ok")},
+            schema_violations=validate_report(doc))
+    phase(15, "this host's reports, written by the port's emitter at once", reports=per_emit,
+          seconds=emit_seconds)
+    for key, e in per_emit.items():
+        launches = e["kernel_launches"] or {}
+        if (e["exit_code"] != (0 if key == "healthy" else 3) or e["schema_violations"]
+                or e["hostname"] != host
+                or (key == "drill" and "t1" not in (e["error"] or ""))
+                or not all(v is True for v in e["kernels_match_plain"].values())
+                or any(not launches.get(r["name"]) for r in rows)):
+            fail(f"the emit {key}: {e}")
+    for r in rows:
+        r["federation_launches"] = {k: e["kernel_launches"][r["name"]]
+                                    for k, e in per_emit.items()}
+
+    federation_tier(root, host, n, dirs, env, work)
+    phase(15, "the federation tier over this card's reports",
+          seconds=time.perf_counter() - t_phase, emit_seconds=emit_seconds)
+
+
+def federation_tier(root: str, host: str, n: int, dirs: dict, env: dict, work: str) -> None:
+    """Phase 15 (b)-(e): east, west and the aggregator through each CLI,
+    against the same servers and the same pinned clock (one second past
+    the next minute boundary), then the aggregator over the feeds; what
+    the port's run must show, and the JAX checker's run beside it."""
+    clock = math.ceil(time.time() / 60.0) * 60.0 + 1.0
+    ports = {name: free_port() for name in ("east", "west", "aggregator", "feed")}
+    runs = {side: federation_run(root, side, host, n, dirs, ports, env,
+                                 os.path.join(work, side), clock)
+            for side in ("port", "jax")}
+
+    seen = {}
+    for side, run in runs.items():
+        recs = run["records"]
+        stalled = {name: [r["waiting_for"] for r in rs if r["event"] == "stalled"]
+                   for name, rs in recs.items()}
+        if any(stalled.values()):
+            fail(f"the {side} tier ran a round after a wait of 60 s for: {stalled}")
+        agg_ends = [r for r in recs["aggregator"] if r["event"] == "end"]
+        west_ends = [r for r in recs["west"] + recs["west2"] if r["event"] == "end"]
+        east_ends = [r for r in recs["east"] if r["event"] == "end"]
+        host_entries = []
+        for read in run["reads"]:
+            doc = read["routes"]["/api/v1/global/nodes"]["body"]
+            block = next(c for c in doc["clusters"] if c["cluster"] == "east")
+            entry = next(x for x in block["nodes"] if x["name"] == host)
+            host_entries.append({"probe_ok": (entry.get("probe") or {}).get("ok"),
+                                 "state": (entry.get("health") or {}).get("state"),
+                                 "cordoned": entry.get("cordoned")})
+        got = {
+            "exit_codes": run["exit_codes"],
+            "sigterm_to_exit_s": run["sigterm_to_exit_s"],
+            "step_seconds": [s["seconds"] for s in run["steps"]],
+            "east_round_exit_codes": [r.get("exit_code") for r in east_ends],
+            "east_round_seconds": [r["seconds"] for r in east_ends],
+            "east_blocks": [r.get("blocks") for r in east_ends],
+            "west_ticks": [{"exit_code": r.get("exit_code"), "changed": r.get("changed"),
+                            "payload": federation_masked(r.get("payload"))}
+                           for r in west_ends],
+            "west_timings_ms": [r.get("timings_ms") for r in west_ends],
+            "west_watch": [federation_masked((r.get("payload") or {}).get("watch_stream"))
+                           for r in west_ends],
+            "west_requests": run["west_requests"],
+            "aggregator_timings_ms": [r.get("timings_ms") for r in agg_ends],
+            "aggregator_round_ms": [r.get("round_ms") for r in agg_ends],
+            "fetch_counts": [r.get("fetch") for r in agg_ends],
+            "bodies": [{p: {k: v for k, v in x.items() if k != "ms"}
+                        for p, x in read["routes"].items()} for read in run["reads"]],
+            "get_ms": [{p: x["ms"] for p, x in read["routes"].items()}
+                       for read in run["reads"]],
+            "304": [read["304"] for read in run["reads"]],
+            "gzip_head": [(read["gzip"], read["head"]) for read in run["reads"]],
+            "trace_tracks": [read["trace_tracks"] for read in run["reads"]],
+            "host_in_global_nodes": host_entries,
+            "second_lease": run["second_lease"],
+            "lease_events": [{k: v for k, v in e.items() if k not in ("ts", "trace_id")}
+                             for e in run["events"]["agg"] if e["event"] == "disruption-lease"],
+            "agg_events": [{k: v for k, v in e.items() if k not in ("ts", "trace_id")}
+                           for e in run["events"]["agg"]],
+            "east_events": [{k: v for k, v in e.items() if k not in ("ts", "trace_id")}
+                            for e in run["events"]["east"]],
+            "patches": run["patches"], "posts": run["posts"],
+            "feed_counts": run["feed_counts"],
+            "feed_fetch_counts": [r.get("fetch") for r in run["records"]["feed"]
+                                  if r["event"] == "end"],
+            "feed_bodies": {p: {k: v for k, v in x.items() if k != "ms"}
+                            for p, x in run["feed_read"]["routes"].items()},
+            "feed_nodes_blocks_equal_poll": (
+                run["feed_read"]["nodes_raw"].partition(b'"clusters": [')[2]
+                == run["reads"][-1]["nodes_raw"].partition(b'"clusters": [')[2]),
+            "packages_loaded": {name: next((r.get("packages") for r in recs[name]
+                                            if r["event"] == "exit"), None) for name in recs},
+            "upstream_traces": [r.get("upstream_traces") for r in agg_ends],
+            "east_trace_ids": [r.get("trace_id") for r in east_ends],
+            "west_trace_ids": [r.get("trace_id") for r in west_ends],
+        }
+        seen[side] = got
+        phase(15, f"the federation tier, {side} run", **{k: v for k, v in got.items() if k in (
+            "exit_codes", "sigterm_to_exit_s", "step_seconds", "east_round_exit_codes",
+            "east_round_seconds", "west_watch", "west_requests", "fetch_counts",
+            "host_in_global_nodes", "second_lease", "lease_events", "feed_counts",
+            "feed_fetch_counts", "feed_nodes_blocks_equal_poll", "packages_loaded")},
+            west_changed=[t["changed"] if t["changed"] is None or len(t["changed"]) < 8
+                          else len(t["changed"]) for t in got["west_ticks"]],
+            patches=[(p["node"], p["body"].get("spec")) for p in got["patches"]],
+            agg_events=[e["event"] for e in got["agg_events"]])
+        phase(15, f"each round's timings_ms, {side} run", east=[r.get("timings_ms")
+                                                                 for r in east_ends],
+              west=got["west_timings_ms"], aggregator=got["aggregator_timings_ms"],
+              aggregator_round_ms=got["aggregator_round_ms"], get_ms=got["get_ms"])
+
+    port = seen["port"]
+    summaries = [b["/api/v1/global/summary"]["body"] for b in port["bodies"]]
+    ready = [b["/readyz"]["status"] for b in port["bodies"]]
+    watch = port["west_watch"]
+    relists = [(w or {}).get("relists_total") for w in watch]
+    events = [(w or {}).get("events_total") for w in watch]
+    shard_events = [(e["event"], e.get("shard")) for e in port["agg_events"]
+                    if e["event"].startswith("shard-")]
+    lease = port["lease_events"]
+    feed_polls = [sum(c.values()) for c in port["feed_counts"][0].values()]
+    feed_steady = [sum(c.values()) for counts in port["feed_counts"][2:]
+                   for c in counts.values()]
+    checks = {
+        "every process exits 143 on SIGTERM": set(port["exit_codes"].values()) == {143}
+        and len(port["exit_codes"]) == 5,
+        "east: healthy, drill, drill (exit 0 each: the fleet stays Ready)": (
+            port["east_round_exit_codes"][:3] == [0, 0, 0]),
+        "east's cordon of this host, leased from the aggregator and granted": (
+            [(p["node"], p["body"].get("spec")) for p in port["patches"]]
+            == [(host, {"unschedulable": True})]
+            and [(e["granted"], e["remaining"], e["cluster_requesting"]) for e in lease]
+            == [(True, 0, "east"), (False, 0, "west")]),
+        "the second lease in the window is denied": (
+            port["second_lease"][0] == 409 and port["second_lease"][1]["granted"] is False
+            and port["second_lease"][1]["remaining"] == 0),
+        "east/this host carries its round's report and state": (
+            [h["probe_ok"] for h in port["host_in_global_nodes"][:3]] == [True, False, False]
+            and [h["state"] for h in port["host_in_global_nodes"][:3]]
+            == ["HEALTHY", "SUSPECT", "FAILED"]),
+        "west's step-2 tick changed the flip, the deletion and the addition": (
+            port["west_ticks"][1]["changed"] == sorted(
+                ["gke-h100-west-1", "gke-h100-west-999", "gke-h100-west-new"])),
+        "west's events: 101 MODIFIED, 1 DELETED, 1 ADDED, 1 BOOKMARK, one ERROR": (
+            events[1] == {"MODIFIED": 101, "DELETED": 1, "ADDED": 1, "BOOKMARK": 1}
+            and events[4] == {"MODIFIED": 101, "DELETED": 1, "ADDED": 1, "BOOKMARK": 1,
+                              "ERROR": 1}),
+        "west relists once at stream end, once on the 410": (
+            relists[:5] == [{"seed": 1}, {"seed": 1}, {"seed": 1},
+                            {"seed": 1, "stream_end": 1},
+                            {"seed": 1, "stream_end": 1, "gone": 1}]
+            and port["west_ticks"][2]["changed"] == []),
+        "west's server saw 4 LISTs and 4 watches (two processes)": (
+            port["west_requests"] == {"list": 4, "watch": 4}),
+        "west stopped: its shard alone stale, the summary says so, /readyz 200": (
+            summaries[4]["degraded_clusters"] == ["west"]
+            and summaries[4]["clusters"]["fresh"] == 1 and ready == [200] * 6
+            and summaries[5]["degraded_clusters"] == []),
+        "west's shard degraded and recovered, each logged once": (
+            shard_events == [("shard-degraded", "west"), ("shard-recovered", "west")]),
+        "every global route answers; an unknown cluster 404": all(
+            b[p]["status"] == 200 for b in port["bodies"] for p in GLOBAL_ROUTES
+            if p != "/api/v1/global/clusters/nope") and all(
+            b["/api/v1/global/clusters/nope"]["status"] == 404 for b in port["bodies"]),
+        "304 on the previous ETag, gzip and HEAD after each step": all(
+            g and h for g, h in port["gzip_head"]) and all(
+            set(x.values()) <= {200, 304} for x in port["304"]) and any(
+            304 in x.values() for x in port["304"]),
+        "the trace stitches both upstreams' rounds": all(
+            t.get("cluster:east") in port["east_trace_ids"]
+            and t.get("cluster:west") in port["west_trace_ids"]
+            for t in port["trace_tracks"]),
+        "the feed's first round polls each upstream; its steady rounds cost none": (
+            min(feed_polls) > 0 and feed_steady == [0] * 6),
+        "the feed's global nodes blocks are the poll aggregator's bytes": (
+            port["feed_nodes_blocks_equal_poll"]),
+        "only its own package": all(v == ["tpu_node_checker_torch"]
+                                    for v in port["packages_loaded"].values()),
+    }
+    phase(15, "the port's federation tier", **checks)
+    if not all(checks.values()):
+        fail(f"the port's federation tier: {[k for k, v in checks.items() if not v]}")
+
+    same = {k: seen["port"][k] == seen["jax"][k] for k in (
+        "exit_codes", "east_round_exit_codes", "east_blocks", "west_ticks", "west_watch",
+        "west_requests", "fetch_counts", "bodies", "304", "gzip_head",
+        "host_in_global_nodes", "second_lease", "lease_events", "agg_events", "east_events",
+        "patches", "posts", "feed_counts", "feed_fetch_counts", "feed_bodies",
+        "feed_nodes_blocks_equal_poll")}
+    differing = sorted({p for a, b in zip(seen["port"]["bodies"], seen["jax"]["bodies"])
+                        for p in a if a[p] != b.get(p)})
+    phase(15, "the port's federation tier beside the JAX checker's", **same,
+          differing_routes=differing,
+          packages_loaded={k: seen[k]["packages_loaded"] for k in seen})
+    if not all(same.values()) or any(v != ["tpu_node_checker"]
+                                     for v in seen["jax"]["packages_loaded"].values()):
+        fail(f"the port's federation tier unlike the JAX checker's: {same}, routes {differing}")
 
 
 def main() -> int:
@@ -3321,11 +4084,14 @@ def main() -> int:
     # -- 14. the aggregator Deployment as written, on the same reports
     phase14_deployment(torch, root, rows, validate_report, quarantine)
 
-    # -- 15. the kernels line, the card line, the result line
+    # -- 15. the federation tier over two clusters, one graded on this card
+    phase15_federation(torch, root, rows, validate_report)
+
+    # -- 16. the kernels line, the card line, the result line
     keys = ("name", "route", "source", "replaces", "launches", "compute_launches",
             "emitter_launches", "selftest_launches", "calibrate_launches",
             "distributed_launches", "oneshot_launches", "live_round_launches", "watch_launches",
-            "quarantine_launches", "deployment_launches",
+            "quarantine_launches", "deployment_launches", "federation_launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "device_ms",
             "library_device_ms", "ok", "check", "training_step")
     print(json.dumps({"kernels": [{k2: r[k2] for k2 in keys if k2 in r} for r in rows]}),

@@ -6,24 +6,26 @@ modules, so it keeps copies: ``utils/quantity.py``, ``resources.py``,
 ``history/``, and the live LIST's ``cluster.py``, ``utils/fanout.py``,
 ``utils/retry.py``, ``utils/miniyaml.py``, ``fastpath/``, the watch
 loop's ``obs/``, the quarantine's ``remediation/``, the history tier's
-``analytics/`` with ``federation/endpoints.py``, and the fleet state API's
-``server/`` verbatim (only the package name and the module docstring
-differ).  Here each copy's code is
-held equal to its original (the syntax trees, docstrings dropped, the
-package name substituted where it names a module, never inside a metric
-name); the modules copied in part are held equal function by function
-(``watchstream.grading_view``, ``metrics.py`` with its ``MetricsServer``
-class, and ``checker.py``'s watch-loop helpers, remediation helpers,
-sweeps, trend readers, analytics helpers and serving pieces, and its
-``watch`` less the ``--watch-stream`` engine); the budget engine is driven through the same
+``analytics/``, the fleet state API's ``server/``, the federation tier's
+``federation/`` and the ``--watch-stream`` engine's ``watchstream.py``
+verbatim (only the package name and the module docstring differ).  Here
+each copy's code is held equal to its original (the syntax trees,
+docstrings dropped, the package name substituted where it names a module,
+never inside a metric name); the modules copied in part are held equal
+function by function (``metrics.py`` with its ``MetricsServer`` class,
+and ``checker.py``'s watch-loop helpers, remediation helpers, sweeps,
+trend readers, analytics helpers and serving pieces, and its ``watch``
+whole, the stream engine's branch included); the budget engine is driven through the same
 decisions on both sides; and the constants the fleet grades, lists and
 loops by are compared one by one, in the manner of
 ``tests/test_torch_probe.py::test_floor_tables_equal_jax``.
 
 Also here: a fresh interpreter runs the port's one-shot round over a
 NodeList file and over a live fake API server, then two rounds of its
-``--watch`` loop, a ``--cordon-failed`` round, ``--trend-nodes``, and two
+``--watch`` loop, a ``--cordon-failed`` round, ``--trend-nodes``, two
 rounds of a ``--watch --serve --analytics`` loop whose fleet API it reads,
+two ticks of a ``--watch --watch-stream`` loop over a node watch, and one
+``--federate`` round over an upstream fleet API whose global view it reads,
 and finds neither ``jax`` nor the JAX package among its modules.
 
 The port is reached through ``importlib.import_module``:
@@ -63,7 +65,8 @@ VERBATIM = ["utils/quantity.py", "resources.py", "detect.py", "report.py", "util
             "federation/endpoints.py", "analytics/__init__.py", "analytics/sketch.py",
             "analytics/changepoint.py", "analytics/segments.py", "analytics/queries.py",
             "server/__init__.py", "server/router.py", "server/snapshot.py", "server/auth.py",
-            "server/ratelimit.py", "server/feed.py", "server/workers.py", "server/app.py"]
+            "server/ratelimit.py", "server/feed.py", "server/workers.py", "server/app.py",
+            "federation/merge.py", "federation/aggregator.py", "watchstream.py"]
 
 
 def _code(path: Path, package: str) -> str:
@@ -97,11 +100,10 @@ def _functions(module: str, package: str) -> dict:
 
 
 def test_grading_view_equals_jax():
-    # The port keeps one function of watchstream.py (the stream engine is
-    # not ported); it must equal the original, function by function.
+    # The content address's preimage, which the relist fast path and the
+    # stream's node cache share: equal in code, and on a node.
     port = _functions("watchstream.py", "tpu_node_checker_torch")
     ref = _functions("watchstream.py", "tpu_node_checker")
-    assert list(port) == ["grading_view"]
     assert port["grading_view"] == ref["grading_view"]
     node = fx.make_node("gpu-0", allocatable={"nvidia.com/gpu": "8"})
     assert _port("watchstream").grading_view(node) == \
@@ -289,37 +291,16 @@ def test_check_result_and_round_equal_jax():
         _classes("checker.py", "tpu_node_checker")["CheckResult"]
 
 
-class _LessStream(ast.NodeTransformer):
-    """JAX's ``watch`` without its ``--watch-stream`` engine, the one branch
-    the port leaves out: every statement that assigns or tests ``engine``
-    goes (an ``if`` keeps its ``else``)."""
-
-    GONE = {"engine"}
-
-    def _names(self, node):
-        return {n.id for n in ast.walk(node) if isinstance(n, ast.Name)}
-
-    def visit_If(self, node):
-        assigned = {t.id for n in node.body for t in getattr(n, "targets", [])
-                    if isinstance(t, ast.Name)}
-        if (self._names(node.test) | assigned) & self.GONE:
-            return [self.visit(n) for n in node.orelse]
-        return self.generic_visit(node)
-
-    def visit_Assign(self, node):
-        targets = self._names(ast.Module(body=node.targets, type_ignores=[]))
-        return None if targets & self.GONE else node
-
-
-def test_watch_equals_jax_less_the_stream():
-    def watch(package, transform=None):
+def test_watch_equals_jax():
+    # The whole loop, its --serve and --watch-stream branches included.
+    def watch(package):
         fn = next(n for n in _tree(REPO / package / "checker.py", package).body
                   if isinstance(n, ast.FunctionDef) and n.name == "watch")
-        return ast.dump(transform.visit(fn) if transform else fn)
+        return ast.dump(fn)
 
     port = watch("tpu_node_checker_torch")
-    assert "fleet_server" in port
-    assert port == watch("tpu_node_checker", _LessStream())
+    assert "fleet_server" in port and "StreamRoundEngine" in port
+    assert port == watch("tpu_node_checker")
 
 
 def test_watch_breaker_equals_jax():
@@ -419,9 +400,11 @@ def test_the_round_loads_nothing_of_jax(tmp_path):
     # In one fresh interpreter: a round over a NodeList file, one over a
     # live fake API server (paged LIST and --node-events), two rounds of
     # the --watch loop over that server (its wait ends after the second),
-    # a --cordon-failed round that PATCHes one node, --trend-nodes, and two
+    # a --cordon-failed round that PATCHes one node, --trend-nodes, two
     # rounds of a --watch --serve --analytics loop whose fleet API each
-    # wait reads.
+    # wait reads, two ticks of a --watch-stream loop over a second server
+    # that speaks the node watch, and one --federate round over an upstream
+    # fleet API whose global summary the wait reads.
     items = fx.mixed_cluster_one_notready()
     reports = tmp_path / "reports"
     reports.mkdir()
@@ -432,13 +415,17 @@ def test_the_round_loads_nothing_of_jax(tmp_path):
     nodes = tmp_path / "nodes.json"
     nodes.write_text(json.dumps(fx.node_list(items)))
     server = fx.serve_http(_nodes_and_events_handler(items, patches))
-    kubeconfig = tmp_path / "kubeconfig"
-    kubeconfig.write_text(
-        "apiVersion: v1\ncurrent-context: c\n"
-        "contexts:\n- name: c\n  context:\n    cluster: cl\n    user: u\n"
-        "clusters:\n- name: cl\n  cluster:\n"
-        f"    server: http://127.0.0.1:{server.server_address[1]}\n"
-        "users:\n- name: u\n  user:\n    token: tok\n")
+    script_feed = fx.WatchScript([{"live": True}])
+    stream_server = fx.serve_http(fx.watch_nodelist_handler(items, script_feed))
+    kubeconfig, stream_kubeconfig = tmp_path / "kubeconfig", tmp_path / "stream-kubeconfig"
+    for path, srv in ((kubeconfig, server), (stream_kubeconfig, stream_server)):
+        path.write_text(
+            "apiVersion: v1\ncurrent-context: c\n"
+            "contexts:\n- name: c\n  context:\n    cluster: cl\n    user: u\n"
+            "clusters:\n- name: cl\n  cluster:\n"
+            f"    server: http://127.0.0.1:{srv.server_address[1]}\n"
+            "users:\n- name: u\n  user:\n    token: tok\n")
+    endpoints = tmp_path / "endpoints.json"
     script = (
         "import json, sys\n"
         "from tpu_node_checker_torch import cli\n"
@@ -477,6 +464,29 @@ def test_the_round_loads_nothing_of_jax(tmp_path):
         f"'--analytics', {str(tmp_path / 'analytics')!r}, '--json'])\n"
         "loaded = sorted(m for m in sys.modules\n"
         "                if m.split('.')[0] in ('jax', 'jaxlib', 'tpu_node_checker'))\n"
+        "ticks = []\n"
+        "checker._wait_for_next_round = lambda stop, s: ticks.append(s) or len(ticks) == 2\n"
+        f"stream = cli.main(['--kubeconfig', {str(stream_kubeconfig)!r}, '--watch', '1', "
+        "'--watch-stream', '--json'])\n"
+        "upstream = app.FleetStateServer(0, host='127.0.0.1')\n"
+        f"upstream.publish(checker.run_check(cli.parse_args(['--nodes-json', {str(nodes)!r}, "
+        "'--cluster-name', 'up'])))\n"
+        f"open({str(endpoints)!r}, 'w').write(json.dumps({{'clusters': [{{'name': 'up', "
+        "'url': f'http://127.0.0.1:{upstream.port}'}]}))\n"
+        "summary = []\n"
+        "def read_global(stop, s):\n"
+        "    url = f'http://127.0.0.1:{servers[-1].port}/api/v1/global/summary'\n"
+        "    with urllib.request.urlopen(url, timeout=10) as resp:\n"
+        "        summary.append(json.loads(resp.read()))\n"
+        "    return True\n"
+        "checker._wait_for_next_round = read_global\n"
+        f"fed = cli.main(['--federate', {str(endpoints)!r}, '--serve', '0', "
+        "'--retry-budget', '0'])\n"
+        "upstream.close()\n"
+        "loaded = sorted(m for m in sys.modules\n"
+        "                if m.split('.')[0] in ('jax', 'jaxlib', 'tpu_node_checker'))\n"
+        "print(stream, len(ticks), fed, summary[0]['total_nodes'], summary[0]['healthy'], "
+        "file=sys.stderr)\n"
         "print(served_loop, served, file=sys.stderr)\n"
         "print(rc, live, loop, len(waits), cordon, trend, loaded, file=sys.stderr)\n"
     )
@@ -485,10 +495,17 @@ def test_the_round_loads_nothing_of_jax(tmp_path):
                               cwd=REPO, timeout=120)
     finally:
         server.shutdown()
+        script_feed.close()
+        stream_server.shutdown()
     assert proc.returncode == 0, proc.stderr
-    assert proc.stderr.strip().splitlines()[-2:] == ["143 [200, 200, 200, 200, 200, 200]",
+    (first, live, *rounds, cordon, trend, served1, served2,
+     tick1, tick2) = _json_docs(proc.stdout)
+    assert proc.stderr.strip().splitlines()[-3:] == [f"143 2 143 {first['total_nodes']} True",
+                                                      "143 [200, 200, 200, 200, 200, 200]",
                                                       "0 0 143 2 0 0 []"]
-    first, live, *rounds, cordon, trend, served1, served2 = _json_docs(proc.stdout)
+    assert tick2["nodes"] == tick1["nodes"]
+    assert [n["name"] for n in tick1["nodes"]] == [n["name"] for n in first["nodes"]]
+    assert tick2["watch_stream"]["relists_total"] == {"seed": 1}
     assert [r["analytics"]["predictions"] for r in (served1, served2)] == [[], []]
     assert [r["exit_code"] for r in rounds] == [0, 0]
     assert cordon["cordon"]["cordoned"] == ["gke-gpu-pool-1"]

@@ -367,12 +367,15 @@ class TestUsage:
         ["--fleet-disruption-budget", "2"],
     ])
     def test_queue_4_flags_still_refused(self, capsys, flag):
-        # The live LIST, the polling loop, the quarantine, analytics and the
-        # fleet API are ported; the watch stream and federation are not, and
-        # each is refused (never accepted and ignored) beside a live round.
-        code, err = _usage(port_cli.parse_args, ["--kubeconfig", "k", *flag], capsys)
-        assert code == 2
-        assert f"unrecognized arguments: {' '.join(flag)}" in err
+        # The watch stream and federation, the last of Queue 4, are ported:
+        # beside a one-shot live round each is still refused (never accepted
+        # and ignored), now with JAX's usage error, or parsed as JAX parses
+        # it (--no-watch-stream, the default, last on the line).
+        got = outcome_vs_jax(["--kubeconfig", "k", *flag], capsys)
+        if flag[-1] == "--no-watch-stream":
+            assert got.watch_stream is False
+        else:
+            assert flag[0].split("=")[0] in got
 
     @pytest.mark.parametrize("flag,expected", [
         (["--cordon-failed"], "--cordon-failed requires --probe or --probe-results DIR"),

@@ -471,8 +471,20 @@ def test_serve_argv_parses_as_jax_parses_it(argv):
     ["--no-watch-stream"],
 ])
 def test_unported_flags_stay_unknown(capsys, flag):
-    code, err = _usage(port_cli.parse_args, ["--watch", "5", "--serve", "0", *flag], capsys)
-    assert code == 2 and f"unrecognized arguments: {' '.join(flag)}" in err
+    # Once unknown arguments; now ported, each beside the served loop gives
+    # JAX's usage error or JAX's values (--watch-stream rides the loop).
+    port_args = port_cli.parse_args
+    argv = ["--watch", "5", "--serve", "0", *flag]
+    try:
+        jax_args = jax_cli.parse_args(argv)
+    except SystemExit:
+        _, jax_err = _usage(jax_cli.parse_args, argv, capsys)
+        port_code, port_err = _usage(port_args, argv, capsys)
+        assert port_code == 2
+        assert port_err.split(": error: ")[1] == jax_err.split(": error: ")[1]
+    else:
+        assert vars(port_args(argv)).items() >= {
+            k: v for k, v in vars(jax_args).items() if k != "device"}.items()
 
 
 @pytest.mark.parametrize("flag", ["--serve", "--serve-token", "--serve-workers", "--write-rps",

@@ -40,8 +40,9 @@ detectors, whose standing predictions the budget engine sees.  ``--serve``
 publishes each round of :func:`watch` to the fleet state API
 (:mod:`~tpu_node_checker_torch.server`), whose cordon/uncordon writes go
 through :func:`_make_serve_control`; without ``--watch``, :func:`serve_store`
-serves a store another process records.  ``--watch-stream`` is the JAX
-package's and not ported yet, so its branch is absent here.
+serves a store another process records.  With ``--watch-stream`` each round
+of :func:`watch` is a tick of :class:`~tpu_node_checker_torch.watchstream.StreamRoundEngine`
+over a node cache that a Kubernetes watch keeps current.
 """
 
 from __future__ import annotations
@@ -2636,6 +2637,21 @@ def watch(args) -> int:
     stop = threading.Event()
     prev_handler = _install_stop_signal(stop)
     username = getattr(args, "slack_username", notify.DEFAULT_USERNAME)
+    engine = None
+    if getattr(args, "watch_stream", False):
+        # Watch-stream mode (--watch-stream): the round becomes a tick over
+        # an event-fed node cache — one LIST seeds it, a watch stream keeps
+        # it current, and only changed nodes are re-graded/re-encoded.  A
+        # tick raises exactly like run_check when the stream is down and
+        # the relist fails, so the breaker/backoff path below is shared.
+        from tpu_node_checker_torch.watchstream import StreamRoundEngine
+
+        engine = StreamRoundEngine(args)
+        print(
+            "Watch-stream mode: LIST once, then incremental rounds over "
+            "the node watch (full relist only on stream loss/410).",
+            file=sys.stderr,
+        )
     fleet_server = None
     if getattr(args, "serve", None) is not None:
         # The fleet state API rides the watch loop: each completed round
@@ -2699,9 +2715,12 @@ def watch(args) -> int:
             # recovery also registers as a transition.  Render/notify problems
             # afterwards are reported but do not reclassify a successful round.
             try:
-                result, delta = run_check(
-                    args, tracer=tracer, events=obs.events
-                ), None
+                if engine is not None:
+                    result, delta = engine.tick(tracer=tracer)
+                else:
+                    result, delta = run_check(
+                        args, tracer=tracer, events=obs.events
+                    ), None
             except KeyboardInterrupt:
                 raise
             except Exception as exc:  # tnc: allow-broad-except(a bad round must not kill the daemon)
@@ -2712,6 +2731,10 @@ def watch(args) -> int:
                 # the next round redials (and re-resolves credentials) instead
                 # of re-trusting a pool that may hold only dead sockets.
                 reset_client_cache()
+                if engine is not None:
+                    # The stream rode that client (or died with it): tear it
+                    # down so the next tick reconnects from a clean dial.
+                    engine.abort_stream()
                 transition = breaker.record_failure()
                 if metrics_server is not None:
                     metrics_server.set_breaker(breaker.as_dict())
@@ -2900,6 +2923,8 @@ def watch(args) -> int:
                 return 128 + 15  # conventional SIGTERM exit
     finally:
         _restore_stop_signal(prev_handler)
+        if engine is not None:
+            engine.close()
         if fleet_server is not None:
             fleet_server.close()
 

@@ -21,7 +21,8 @@ and the node side (the emitter and its pod's modes).
          [--analytics DIR]]
         [--slack-webhook URL] [--slack-username NAME] [--slack-only-on-error]
         [--slack-retry-count N] [--slack-retry-delay S]
-        [--watch S [--slack-on-change] [--metrics-port PORT] [--event-log FILE]
+        [--watch S [--watch-stream] [--slack-on-change] [--metrics-port PORT]
+         [--event-log FILE]
          [--serve PORT [--serve-token TOKEN] [--serve-workers N] [--write-rps R]]]
         [--cordon-failed | --drain-failed [--no-drain-dry-run]] [--cordon-max N]
         [--cordon-degraded] [--uncordon-recovered] [--cordon-dry-run]
@@ -30,6 +31,10 @@ and the node side (the emitter and its pod's modes).
          [--no-repair-dry-run]]
     python -m tpu_node_checker_torch --serve PORT (--history FILE | --log-jsonl FILE)
         [--serve-token TOKEN] [--serve-workers N] [--write-rps R] [--event-log FILE]
+    python -m tpu_node_checker_torch --federate ENDPOINTS_JSON --serve PORT
+        [--federate-interval S] [--federate-workers N] [--federate-feed]
+        [--fleet-disruption-budget N[/WINDOW]] [--serve-workers N]
+        [--retry-budget S] [--event-log FILE] [--trace FILE]
     python -m tpu_node_checker_torch --trend FILE [--json]
     python -m tpu_node_checker_torch --trend-nodes FILE [--json]
     python -m tpu_node_checker_torch --emit-probe FILE|- \\
@@ -70,7 +75,13 @@ roll-ups of the history stream and predicts flappers; ``--serve`` publishes
 each round of the loop to the fleet state API (reads open, writes
 ``--serve-token``-gated and ``--write-rps``-limited, ``--serve-workers``
 accept loops), or without ``--watch`` serves a store another process
-records.  ``--trend`` summarizes
+records.  ``--watch-stream`` turns each round of the loop into a tick over a
+node cache that one LIST seeds and a Kubernetes watch keeps current, so only
+changed nodes are graded again.  ``--federate`` runs the aggregator over
+many clusters' fleet state APIs (polled with conditional GETs, or with
+``--federate-feed`` through their watch feeds), serves the merged
+``/api/v1/global/*`` view, and with ``--fleet-disruption-budget`` grants the
+fleet-wide disruption lease.  ``--trend`` summarizes
 a ``--log-jsonl`` trend log and ``--trend-nodes`` a ``--history`` store.
 ``--emit-probe`` writes one report, or with ``--watch`` one every S seconds
 until SIGTERM (exit 143), serving the round's gauges on ``--metrics-port``;
@@ -81,8 +92,8 @@ every detector on this host (the emitter pod's initContainer), and
 JSON, which ``--perf-floor`` grades against.  ``--report-fresh`` is the
 emitter pod's liveness verdict on its report.  ``--probe-report-schema``
 prints the report's JSON Schema.  The flags keep the JAX checker's names,
-defaults, meanings and usage errors; a flag of the JAX checker that is not
-ported is an unknown argument here.
+defaults, meanings and usage errors, and every flag of the JAX checker is
+accepted here; ``--device`` and the port's stricter mode rules are its own.
 
 Exit codes of the round: 0 when at least one accelerator node is
 effectively Ready, 2 when there is none, 3 when none is Ready (or the
@@ -127,8 +138,8 @@ def _expected_chips(raw: str):
 
 
 def build_parser() -> argparse.ArgumentParser:
-    # No abbreviations: a JAX checker flag the port lacks must stay an unknown
-    # argument, never a prefix of one it has (--cordon-after).
+    # No abbreviations: a flag is spelled whole, so a port-only flag
+    # (--device) never makes a JAX spelling ambiguous.
     p = argparse.ArgumentParser(
         prog="python -m tpu_node_checker_torch",
         description="Check a Kubernetes NodeList for Ready accelerator nodes, probe "
@@ -188,8 +199,11 @@ def build_parser() -> argparse.ArgumentParser:
                    "every accelerator family counts")
     p.add_argument("--debug", action="store_true", help="print phase timings")
     p.add_argument("--trace", metavar="FILE",
-                   help="write a Chrome-trace-format timeline of the round's phases "
-                   "to FILE (open in Perfetto / chrome://tracing)")
+                   help="write a Chrome-trace-format timeline of the check's "
+                   "phases to FILE (open in Perfetto / chrome://tracing); "
+                   "with --watch or --federate the file is atomically "
+                   "rewritten every round with that round's trace — the "
+                   "same documents GET /api/v1/debug/rounds serves")
     p.add_argument("--event-log", metavar="FILE",
                    help="append the unified structured event stream (fleet-"
                    "API write audits, shard degraded/recovered, breaker "
@@ -201,6 +215,17 @@ def build_parser() -> argparse.ArgumentParser:
                    help="daemon mode: repeat the check every SECONDS, measured "
                    "from the start of a round, until SIGTERM (exit 143); with "
                    "--emit-probe, rewrite the report every SECONDS")
+    p.add_argument("--watch-stream", dest="watch_stream", action="store_true",
+                   default=False,
+                   help="with --watch: replace per-round LISTs with a "
+                   "Kubernetes watch stream — one LIST seeds a node cache, "
+                   "ADDED/MODIFIED/DELETED events keep it current, each "
+                   "round re-grades only changed nodes and delta-patches "
+                   "the --serve snapshot; a 410/stream loss triggers one "
+                   "clean relist through the normal retry ladder")
+    p.add_argument("--no-watch-stream", dest="watch_stream", action="store_false",
+                   help="force classic poll-and-relist rounds (the default; "
+                   "overrides an earlier --watch-stream on the command line)")
     p.add_argument("--slack-on-change", action="store_true",
                    help="with --watch: notify only when the check outcome changes")
     p.add_argument("--metrics-port", type=int, metavar="PORT",
@@ -245,6 +270,43 @@ def build_parser() -> argparse.ArgumentParser:
                        "minimum 1); refusals answer 429 with a Retry-After "
                        "the caller's retry ladder can honor (default: "
                        "unlimited)")
+
+    federate = p.add_argument_group(
+        "Multi-cluster federation (a stateless aggregator over N checkers)"
+    )
+    federate.add_argument("--federate", metavar="ENDPOINTS_JSON",
+                          help="aggregator mode (requires --serve): poll the "
+                          "per-cluster fleet state APIs registered in "
+                          "ENDPOINTS_JSON with conditional GETs (an "
+                          "unchanged cluster costs one 304 per endpoint), "
+                          "merge them into a global view keyed "
+                          "cluster/node, and serve /api/v1/global/"
+                          "{summary,clusters,clusters/NAME,nodes} — an "
+                          "unreachable or stale cluster degrades only its "
+                          "shard (staleness-labeled), never the fleet; the "
+                          "file is re-read between rounds, so a ConfigMap "
+                          "rollout adds/removes clusters live; runs no "
+                          "check rounds of its own")
+    federate.add_argument("--federate-interval", type=float, default=None,
+                          metavar="SECONDS",
+                          help="with --federate: seconds between fetch+merge "
+                          "rounds (default 10)")
+    federate.add_argument("--federate-workers", type=int, default=None,
+                          metavar="N",
+                          help="with --federate: fetcher threads the cluster "
+                          "set is consistent-hash sharded across (default "
+                          "4); assignments are stable under cluster churn, "
+                          "so each worker's keep-alive connections stay "
+                          "warm")
+    federate.add_argument("--federate-feed", action="store_true",
+                          help="with --federate: stream mode — consume each "
+                          "upstream's GET /api/v1/watch push-delta feed "
+                          "instead of re-polling unchanged state (a steady "
+                          "round costs zero upstream requests, churn costs "
+                          "one delta frame of only the changed entries); an "
+                          "upstream without the feed (older build) silently "
+                          "degrades to conditional-GET polling, and a dead "
+                          "stream degrades only its shard")
 
     probe = p.add_argument_group("Card probe (data-plane liveness)")
     probe.add_argument("--probe", action="store_true",
@@ -479,6 +541,13 @@ def build_parser() -> argparse.ArgumentParser:
                              "fleet allowance last leased — degrading "
                              "toward less actuation, never more; requires "
                              "--cordon-failed or --drain-failed")
+    remediation.add_argument("--fleet-disruption-budget", metavar="N[/WINDOW]",
+                             help="with --federate: the fleet-wide actuation "
+                             "budget the aggregator grants disruption "
+                             "leases against (N per merge round, or N per "
+                             "sliding WINDOW); without it the lease "
+                             "endpoint answers 404 and checkers fall back "
+                             "to their local budgets")
 
     slack = p.add_argument_group("Slack")
     slack.add_argument("--slack-webhook", help="Slack incoming-webhook URL (or $SLACK_WEBHOOK_URL)")
@@ -536,6 +605,29 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
         p.error("--retry-budget must be >= 0 (0 disables retries)")
     if args.metrics_port is not None and args.watch is None:
         p.error("--metrics-port requires --watch (one-shot runs serve no scrapes)")
+    if args.watch_stream:
+        if args.watch is None:
+            p.error("--watch-stream requires --watch (one-shot runs have no "
+                    "stream to hold open)")
+        if args.nodes_json:
+            p.error("--watch-stream requires a live API server "
+                    "(--nodes-json is an offline node source)")
+        if args.emit_probe:
+            # The emitter's loop re-probes this host on a cadence: there is
+            # no node LIST to stream.
+            p.error("--watch-stream cannot be combined with --emit-probe "
+                    "(the emitter loop watches a chip, not the node list)")
+        for flag, val in (
+            ("--probe", args.probe),
+            ("--probe-results", args.probe_results),
+            ("--node-events", args.node_events),
+        ):
+            if val:
+                # These gather evidence outside the node-object stream,
+                # which the incremental tick does not re-poll: accepting
+                # them would grade on stale probe or event data.
+                p.error(f"{flag} is not supported with --watch-stream yet "
+                        "(use poll-mode --watch)")
     if args.serve_token and args.serve is None:
         p.error("--serve-token requires --serve")
     if args.serve_workers is not None:
@@ -549,11 +641,81 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
         if args.write_rps <= 0:
             p.error("--write-rps must be positive (omit the flag for "
                     "unlimited writes)")
+    if args.federate:
+        if args.serve is None:
+            p.error("--federate requires --serve PORT (serving the merged "
+                    "global view is the aggregator's whole job)")
+        if args.federate_interval is not None and args.federate_interval <= 0:
+            p.error("--federate-interval must be a positive number of seconds")
+        if args.federate_workers is not None and args.federate_workers < 1:
+            p.error("--federate-workers must be at least 1")
+        for flag, on in (
+            # The aggregator runs no check rounds and talks to no
+            # apiserver, and its write path is off: each of these would
+            # silently do nothing.
+            ("--watch", args.watch is not None),
+            ("--kubeconfig", args.kubeconfig),
+            ("--context", args.context),
+            ("--cluster-name", args.cluster_name),
+            ("--nodes-json", args.nodes_json),
+            ("--label-selector", args.label_selector),
+            ("--resource-key", args.resource_key),
+            ("--multislice-label", args.multislice_label),
+            ("--strict-slices", args.strict_slices),
+            ("--expected-chips", args.expected_chips),
+            ("--node-events", args.node_events),
+            ("--api-concurrency", args.api_concurrency is not None),
+            ("--probe", args.probe),
+            ("--emit-probe", args.emit_probe),
+            ("--probe-results", args.probe_results),
+            ("--report-fresh", args.report_fresh),
+            ("--selftest", args.selftest),
+            ("--calibrate", args.calibrate is not None),
+            ("--history", args.history),
+            ("--analytics", args.analytics),
+            ("--trend", args.trend),
+            ("--trend-nodes", args.trend_nodes),
+            ("--log-jsonl", args.log_jsonl),
+            ("--metrics-port", args.metrics_port is not None),
+            ("--slack-webhook", args.slack_webhook),
+            ("--slack-only-on-error", args.slack_only_on_error),
+            ("--slack-on-change", args.slack_on_change),
+            ("--cordon-failed", args.cordon_failed),
+            ("--cordon-degraded", args.cordon_degraded),
+            ("--uncordon-recovered", args.uncordon_recovered),
+            ("--cordon-max", args.cordon_max is not None),
+            ("--cordon-dry-run", args.cordon_dry_run),
+            ("--drain-failed", args.drain_failed),
+            ("--repair-cmd", args.repair_cmd),
+            ("--repair-webhook", args.repair_webhook),
+            ("--disruption-budget", args.disruption_budget),
+            ("--disruption-lease", args.disruption_lease),
+            ("--slice-floor-pct", args.slice_floor_pct is not None),
+            ("--serve-token", args.serve_token),
+            ("--write-rps", args.write_rps is not None),
+            ("--json", args.json),
+            ("--debug", args.debug),
+        ):
+            if on:
+                p.error(
+                    f"--federate runs no check rounds (and serves no write "
+                    f"path): {flag} would silently do nothing"
+                )
+    else:
+        for flag, val in (
+            ("--federate-interval", args.federate_interval),
+            ("--federate-workers", args.federate_workers),
+            ("--federate-feed", args.federate_feed or None),
+        ):
+            if val is not None:
+                p.error(f"{flag} requires --federate")
     if args.slack_on_change and args.watch is None:
         p.error("--slack-on-change requires --watch")
-    if args.event_log and args.watch is None and args.serve is None:
+    if args.event_log and (
+        args.watch is None and args.serve is None and args.federate is None
+    ):
         # One-shot runs emit no events (breaker/FSM/audit lines are
-        # daemon-mode surfaces); the port has no --federate daemon yet.
+        # daemon-mode surfaces).
         p.error(
             "--event-log records daemon-mode events: it requires --watch, "
             "--serve or --federate"
@@ -756,11 +918,15 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                 "instead of a bare PATCH) — pass one, not both")
     from tpu_node_checker_torch.remediation.budget import parse_disruption_budget
 
-    if args.disruption_budget is not None:
-        try:
-            parse_disruption_budget(args.disruption_budget)
-        except ValueError as exc:
-            p.error(f"--disruption-budget: {exc}")
+    for flag, raw in (
+        ("--disruption-budget", args.disruption_budget),
+        ("--fleet-disruption-budget", args.fleet_disruption_budget),
+    ):
+        if raw is not None:
+            try:
+                parse_disruption_budget(raw)
+            except ValueError as exc:
+                p.error(f"{flag}: {exc}")
     if args.slice_floor_pct is not None and not (
         0 < args.slice_floor_pct <= 100
     ):
@@ -792,6 +958,9 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     if not args.repair_dry_run and not (args.repair_cmd or args.repair_webhook):
         p.error("--no-repair-dry-run requires --repair-cmd or "
                 "--repair-webhook")
+    if args.fleet_disruption_budget and not args.federate:
+        p.error("--fleet-disruption-budget requires --federate (the fleet "
+                "budget lives on the aggregator tier)")
     if args.cordon_degraded and args.probe and args.probe_level not in (
         "mesh", "workload"
     ):
@@ -822,6 +991,7 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
             ("--disruption-budget", args.disruption_budget),
             ("--disruption-lease", args.disruption_lease),
             ("--slice-floor-pct", args.slice_floor_pct is not None),
+            ("--fleet-disruption-budget", args.fleet_disruption_budget),
         ):
             if on:
                 p.error(f"{flag} cannot be combined with --emit-probe")
@@ -900,7 +1070,9 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
             # The fleet API is the aggregator's surface (fleet snapshots,
             # cordon control); an emitter pod exposes --metrics-port only.
             p.error("--serve cannot be combined with --emit-probe")
-        if args.watch is None and not (args.history or args.log_jsonl):
+        if args.watch is None and args.federate is None and not (
+            args.history or args.log_jsonl
+        ):
             # Standalone mode serves a recorded store; without one the
             # server could never answer anything but 503.  Checked last so
             # the runs-alone modes above report their own errors.
@@ -908,9 +1080,11 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                 "--serve without --watch serves a recorded store: add "
                 "--history FILE and/or --log-jsonl FILE (or run with --watch)"
             )
-        if args.watch is None:
+        if args.watch is None and args.federate is None:
             # Standalone serving runs no check rounds: a flag that only
-            # means something during a round would silently do nothing.
+            # means something during a round would silently do nothing
+            # (--federate passed its own stricter list above, and --trace
+            # is meaningful there: the merge round's two-tier trace).
             for flag, on in (
                 ("--probe", args.probe),
                 ("--probe-results", args.probe_results),
@@ -942,8 +1116,8 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                         "run rounds alongside the API)"
                     )
 
-    # The port's own rules, after JAX's: what the port has not ported must
-    # not be accepted and silently skipped.
+    # The port's own rules, after JAX's: a flag beside a mode that never
+    # reads it must not be accepted and silently skipped.
     mode = next((m for m, on in (
         ("--emit-probe", args.emit_probe), ("--selftest", args.selftest),
         ("--calibrate", args.calibrate is not None), ("--report-fresh", args.report_fresh),
@@ -1011,6 +1185,12 @@ def _dispatch(args) -> int:
     from tpu_node_checker_torch import checker
 
     if not args.emit_probe and not args.report_fresh:
+        if args.federate:
+            # The federation aggregator: merges N per-cluster fleet APIs
+            # into /api/v1/global/*; returns only on SIGTERM (143).
+            from tpu_node_checker_torch.federation.aggregator import federate
+
+            return federate(args)
         if args.watch is not None:
             # The aggregator's loop: returns only on SIGTERM (143).
             return checker.watch(args)
