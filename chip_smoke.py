@@ -230,7 +230,21 @@ Phases, one line each (any failure exits non-zero and prints no result):
    named at ``FEDERATION_MASKED_KEYS``), lease answers, PATCH bodies,
    posts, event lines, west's tick payloads and watch stats, and the
    feed's bodies, each CLI loading no package but its own;
-16. the ``kernels`` line (each kernel at the compute probe's shapes, its
+16. the ``simulate`` subcommand (the seeded chaos simulator, which
+   writes its own probe reports and launches no kernel) through the port's
+   CLI and the JAX checker's, cold processes four at a time, each with its
+   own scratch directory and ephemeral ports: ``--list-scenarios``, every
+   scenario at its defaults with ``--seed 7 --report json``,
+   ``mass-cordon-storm`` and ``watch-loss-relist`` at 1,000 nodes a
+   cluster, ``federated-world`` at 3 x 64, ``flap-storm`` at 64 (red, exit
+   3), ``--fuzz --seeds 10 --seed 7``, ``--replay`` of each file in
+   ``tests/sim_reproducers/``, ``python -m <package>.sim.analytics_smoke
+   --seed 7``, and ``flap-storm`` (json and human) and ``federated-world``
+   through ``python -m <package>`` itself (where a SIGPIPE death of either
+   side, the entry point's SIG_DFL, is counted, not failed); equal stdout
+   and exit code for each, each CLI loading no package but its own, with
+   each CLI's seconds and the runs in which the port imported torch;
+17. the ``kernels`` line (each kernel at the compute probe's shapes, its
    launches counted on the workload path, in each emitter round, in each
    selftest leg, in each calibration rep, on the distributed workload path,
    in the one-shot round's probe, in the live round's, in each probed
@@ -3542,6 +3556,173 @@ def federation_tier(root: str, host: str, n: int, dirs: dict, env: dict, work: s
         fail(f"the port's federation tier unlike the JAX checker's: {same}, routes {differing}")
 
 
+SIM_CLI_SCRIPT = """
+import importlib, json, runpy, sys, time
+
+t0 = time.perf_counter()
+record_path, entry, module, argv = sys.argv[1], sys.argv[2], sys.argv[3], sys.argv[4:]
+if entry == "main":
+    rc = importlib.import_module(module).main(argv)
+else:
+    sys.argv = [module] + argv
+    try:
+        runpy.run_module(module, run_name="__main__", alter_sys=True)
+        rc = 0
+    except SystemExit as exc:
+        rc = exc.code
+        if rc is None:
+            rc = 0
+        elif not isinstance(rc, int):
+            print(rc, file=sys.stderr)
+            rc = 1
+sys.stdout.flush()
+with open(record_path, "w") as f:
+    json.dump({"exit_code": rc, "seconds": time.perf_counter() - t0,
+               "packages": sorted({m.split(".")[0] for m in sys.modules} & {
+                   "jax", "jaxlib", "tpu_node_checker", "tpu_node_checker_torch", "torch"})}, f)
+sys.exit(rc)
+"""
+SIM_PACKAGES = {"port": "tpu_node_checker_torch", "jax": "tpu_node_checker"}
+SIM_FOREIGN = {"port": {"jax", "jaxlib", "tpu_node_checker"},
+               "jax": {"jax", "jaxlib", "tpu_node_checker_torch", "torch"}}
+SIGPIPE_DEATH = (-signal.SIGPIPE, 128 + signal.SIGPIPE)
+
+
+def sim_run(root: str, side: str, label: str, argv: list, env: dict, work: str) -> dict:
+    """One cold process of a CLI (``side`` "port" or "jax") through
+    SIM_CLI_SCRIPT, in a scratch directory of its own (its ``TMPDIR``): its
+    stdout, stderr, exit code, seconds and the packages it loaded.  ``argv``
+    starts with the entry: ``simulate`` calls the CLI's ``main``;
+    ``analytics_smoke`` runs ``python -m <package>.sim.analytics_smoke``;
+    ``-m`` runs ``python -m <package>`` (its ``entrypoint``, which sets
+    SIGPIPE to SIG_DFL)."""
+    package = SIM_PACKAGES[side]
+    entry, module, args = {
+        "simulate": ("main", package + ".cli", argv),
+        "analytics_smoke": ("-m", package + ".sim.analytics_smoke", argv[1:]),
+        "-m": ("-m", package, argv[1:]),
+    }[argv[0]]
+    scratch = os.path.join(work, side, re.sub(r"[^\w.+-]", "_", label))
+    os.makedirs(scratch)
+    record = os.path.join(scratch, "record.json")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", SIM_CLI_SCRIPT, record, entry, module, *args],
+                          capture_output=True, cwd=root, timeout=600,
+                          env=dict(env, TMPDIR=scratch))
+    out = dict(exit_code=proc.returncode, seconds=time.perf_counter() - t0,
+               stdout=proc.stdout, stderr=proc.stderr.decode(errors="replace"))
+    try:
+        with open(record) as f:
+            out.update(packages=json.load(f)["packages"])
+    except (OSError, json.JSONDecodeError):
+        out.update(packages=None)
+    return out
+
+
+def sim_jobs(root: str, scenarios: list) -> list:
+    """Phase 16's runs, (label, argv, expected exit code), longest first."""
+    repro = os.path.join(root, "tests", "sim_reproducers")
+    jobs = [("fuzz --seeds 10 --seed 7",
+             ["simulate", "--fuzz", "--seeds", "10", "--seed", "7", "--report", "json"], 0),
+            ("federated-world 3 x 64", ["simulate", "--scenario", "federated-world",
+                                        "--clusters", "3", "--nodes-per-cluster", "64",
+                                        "--seed", "7", "--report", "json"], 0),
+            ("mass-cordon-storm 1000", ["simulate", "--scenario", "mass-cordon-storm",
+                                        "--nodes-per-cluster", "1000", "--seed", "7",
+                                        "--report", "json"], 0),
+            ("watch-loss-relist 1000", ["simulate", "--scenario", "watch-loss-relist",
+                                        "--nodes-per-cluster", "1000", "--seed", "7",
+                                        "--report", "json"], 0),
+            ("flap-storm 64 (red)", ["simulate", "--scenario", "flap-storm",
+                                     "--nodes-per-cluster", "64", "--seed", "7",
+                                     "--report", "json"], 3)]
+    jobs += [(name, ["simulate", "--scenario", name, "--seed", "7", "--report", "json"], 0)
+             for name in scenarios]
+    for path in sorted(os.listdir(repro)):
+        if path.endswith(".json"):
+            with open(os.path.join(repro, path)) as f:
+                expect = json.load(f)["expect"]
+            jobs.append((f"replay {path}", ["simulate", "--replay", os.path.join(repro, path),
+                                            "--report", "json"],
+                         0 if expect == "green" else 3))
+    jobs.append(("analytics_smoke --seed 7", ["analytics_smoke", "--seed", "7"], 0))
+    # Through ``python -m <package>`` itself; the federated world's shard
+    # death can write to a closed socket there, which SIG_DFL turns into a
+    # SIGPIPE death on either side (None: that death is counted, not failed).
+    jobs += [("python -m: flap-storm", ["-m", "simulate", "--scenario", "flap-storm",
+                                        "--seed", "7", "--report", "json"], 0),
+             ("python -m: flap-storm human", ["-m", "simulate", "--scenario", "flap-storm",
+                                              "--seed", "7"], 0),
+             ("python -m: federated-world", ["-m", "simulate", "--scenario", "federated-world",
+                                             "--seed", "7", "--report", "json"], None)]
+    return jobs
+
+
+def phase16_simulator(root: str) -> None:
+    """Phase 16: the ``simulate`` subcommand through both CLIs, cold
+    processes four at a time: the scenario list, the grid at its defaults,
+    three larger worlds and the red flap storm, the fuzz campaign, each
+    reproducer's replay, the analytics smoke, and three runs through
+    ``python -m``.  Every stdout and exit code must be equal, and each CLI
+    must load no package but its own."""
+    t_phase = time.perf_counter()
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("TNC_", "KUBERNETES_SERVICE_"))
+           and k not in ("SLACK_WEBHOOK_URL", "KUBECONFIG", "NODE_NAME")}
+    work = tempfile.mkdtemp(prefix="chip-smoke-simulate-")
+    listed = {side: sim_run(root, side, "--list-scenarios", ["simulate", "--list-scenarios"],
+                            env, work) for side in SIM_PACKAGES}
+    if (listed["port"]["exit_code"] != 0 or listed["jax"]["exit_code"] != 0
+            or listed["port"]["stdout"] != listed["jax"]["stdout"]):
+        fail(f"simulate --list-scenarios differs: port {listed['port']}, jax {listed['jax']}")
+    scenarios = [line.split()[0] for line in listed["port"]["stdout"].decode().splitlines()
+                 if line and not line[0].isspace()]
+    jobs = sim_jobs(root, scenarios)
+    with concurrent.futures.ThreadPoolExecutor(max_workers=4) as pool:
+        futures = {(label, side): pool.submit(sim_run, root, side, label, argv, env, work)
+                   for label, argv, _ in jobs for side in SIM_PACKAGES}
+        runs = {key: f.result() for key, f in futures.items()}
+    runs.update({("--list-scenarios", side): listed[side] for side in SIM_PACKAGES})
+    bad, torch_labels, sigpipe = [], [], {side: 0 for side in SIM_PACKAGES}
+    for label, _, expect in [("--list-scenarios", None, 0)] + jobs:
+        port, ref = runs[(label, "port")], runs[(label, "jax")]
+        # Where a SIGPIPE death is allowed (expect None) it is counted, and
+        # the sides that lived must exit 0 and agree.
+        died = {side: expect is None and runs[(label, side)]["exit_code"] in SIGPIPE_DEATH
+                for side in SIM_PACKAGES}
+        lived = [side for side in SIM_PACKAGES if not died[side]]
+        if expect is None:
+            for side in SIM_PACKAGES:
+                sigpipe[side] += died[side]
+            equal = len(lived) < 2 or port["stdout"] == ref["stdout"]
+            ok = equal and all(runs[(label, side)]["exit_code"] == 0 for side in lived)
+        else:
+            equal = port["stdout"] == ref["stdout"] and port["exit_code"] == ref["exit_code"]
+            ok = equal and port["exit_code"] == expect
+        own = {side: set(runs[(label, side)]["packages"] or ())
+               & (SIM_FOREIGN[side] | {SIM_PACKAGES[side]}) == {SIM_PACKAGES[side]}
+               for side in lived}
+        imported_torch = "torch" in (port["packages"] or [])
+        if imported_torch:
+            torch_labels.append(label)
+        phase(16, f"simulate {label}", exit_code=[port["exit_code"], ref["exit_code"]],
+              equal=equal, stdout_bytes=len(port["stdout"]),
+              seconds={"port": round(port["seconds"], 2), "jax": round(ref["seconds"], 2)},
+              port_imported_torch=imported_torch, own_package_only=own)
+        if not ok or not all(own.values()):
+            bad.append({"label": label, "expect": expect, "exit_code": port["exit_code"],
+                        "jax_exit_code": ref["exit_code"], "equal": equal, "own": own,
+                        "port_stderr": port["stderr"][-1500:],
+                        "jax_stderr": ref["stderr"][-1500:]})
+    if bad:
+        fail(f"the simulator differs between the CLIs: {bad}")
+    phase(16, "the simulator through both CLIs", runs=len(runs), all_equal=True,
+          port_imported_torch=torch_labels, sigpipe_deaths=sigpipe,
+          process_seconds={side: round(sum(r["seconds"] for (_, s), r in runs.items()
+                                           if s == side), 2) for side in SIM_PACKAGES},
+          seconds=round(time.perf_counter() - t_phase, 2))
+
+
 def main() -> int:
     try:
         import torch
@@ -4087,7 +4268,10 @@ def main() -> int:
     # -- 15. the federation tier over two clusters, one graded on this card
     phase15_federation(torch, root, rows, validate_report)
 
-    # -- 16. the kernels line, the card line, the result line
+    # -- 16. the simulate subcommand through both CLIs
+    phase16_simulator(root)
+
+    # -- 17. the kernels line, the card line, the result line
     keys = ("name", "route", "source", "replaces", "launches", "compute_launches",
             "emitter_launches", "selftest_launches", "calibrate_launches",
             "distributed_launches", "oneshot_launches", "live_round_launches", "watch_launches",

@@ -7,7 +7,8 @@ modules, so it keeps copies: ``utils/quantity.py``, ``resources.py``,
 ``utils/retry.py``, ``utils/miniyaml.py``, ``fastpath/``, the watch
 loop's ``obs/``, the quarantine's ``remediation/``, the history tier's
 ``analytics/``, the fleet state API's ``server/``, the federation tier's
-``federation/`` and the ``--watch-stream`` engine's ``watchstream.py``
+``federation/``, the ``--watch-stream`` engine's ``watchstream.py`` and
+the ``simulate`` subcommand's ``sim/``
 verbatim (only the package name and the module docstring differ).  Here
 each copy's code is held equal to its original (the syntax trees,
 docstrings dropped, the package name substituted where it names a module,
@@ -66,7 +67,10 @@ VERBATIM = ["utils/quantity.py", "resources.py", "detect.py", "report.py", "util
             "analytics/changepoint.py", "analytics/segments.py", "analytics/queries.py",
             "server/__init__.py", "server/router.py", "server/snapshot.py", "server/auth.py",
             "server/ratelimit.py", "server/feed.py", "server/workers.py", "server/app.py",
-            "federation/merge.py", "federation/aggregator.py", "watchstream.py"]
+            "federation/merge.py", "federation/aggregator.py", "watchstream.py",
+            "sim/clock.py", "sim/fixtures.py", "sim/__init__.py", "sim/fleet.py",
+            "sim/invariants.py", "sim/engine.py", "sim/scenarios.py", "sim/compose.py",
+            "sim/fuzz.py", "sim/cli.py", "sim/analytics_smoke.py"]
 
 
 def _code(path: Path, package: str) -> str:

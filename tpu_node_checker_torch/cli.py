@@ -52,6 +52,9 @@ and the node side (the emitter and its pod's modes).
     python -m tpu_node_checker_torch --report-fresh FILE [--probe-results-max-age S]
     python -m tpu_node_checker_torch --probe-report-schema
     python -m tpu_node_checker_torch --version
+    python -m tpu_node_checker_torch simulate (--scenario NAME [--seed N]
+        [--clusters K] [--nodes-per-cluster M] [--rounds R] | --list-scenarios
+        | --fuzz [--seed N] [--seeds N] | --replay FILE) [--report {human,json}]
 
 With no mode flag the one-shot round runs: it lists the cluster's nodes
 (``--kubeconfig``, else ``$KUBECONFIG``, ``~/.kube/config`` or the pod's
@@ -91,7 +94,9 @@ every detector on this host (the emitter pod's initContainer), and
 ``--calibrate`` prints this host's healthy figures as ``TNC_PERF_EXPECT``
 JSON, which ``--perf-floor`` grades against.  ``--report-fresh`` is the
 emitter pod's liveness verdict on its report.  ``--probe-report-schema``
-prints the report's JSON Schema.  The flags keep the JAX checker's names,
+prints the report's JSON Schema.  ``simulate`` runs the seeded chaos
+simulator (``sim/``) over these same fleet modules, with its own flags and
+exit codes.  The flags keep the JAX checker's names,
 defaults, meanings and usage errors, and every flag of the JAX checker is
 accepted here; ``--device`` and the port's stricter mode rules are its own.
 
@@ -1140,6 +1145,14 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
 
 
 def main(argv: Optional[List[str]] = None) -> int:
+    if argv is None:
+        argv = sys.argv[1:]
+    if argv and argv[0] == "simulate":
+        # The chaos simulator, as in the JAX CLI: its flags are its own
+        # (sim/cli.py), and --device does not apply to it.
+        from tpu_node_checker_torch.sim.cli import main as simulate_main
+
+        return simulate_main(argv[1:])
     args = parse_args(argv)
     try:
         return _dispatch(args)
