@@ -244,7 +244,19 @@ Phases, one line each (any failure exits non-zero and prints no result):
    side, the entry point's SIG_DFL, is counted, not failed); equal stdout
    and exit code for each, each CLI loading no package but its own, with
    each CLI's seconds and the runs in which the port imported torch;
-17. the ``kernels`` line (each kernel at the compute probe's shapes, its
+17. tnc-lint, the port's ``python -m tpu_node_checker_torch.analysis``
+   (stdlib code that launches no kernel), in cold processes two at a
+   time, each with its own scratch directory: the port's lint over the
+   checkout (exit 0, no finding, JSON) and the JAX lint over it (exit 0);
+   the port's lint over a copy of ``tests/analysis_fixtures/repo`` with its
+   package renamed, against the JAX lint over the original, in human, JSON
+   and SARIF form (exit 1 each, equal output once the package name is
+   mapped back, timings masked); ``--changed-only --cache FILE`` on the
+   port's copy, cold and then warm with one file touched, each equal to
+   the full run; every port process loading no ``torch``, ``jax`` or JAX
+   package; with each run's seconds and exit code beside the card's name
+   and power limit;
+18. the ``kernels`` line (each kernel at the compute probe's shapes, its
    launches counted on the workload path, in each emitter round, in each
    selftest leg, in each calibration rep, on the distributed workload path,
    in the one-shot round's probe, in the live round's, in each probed
@@ -270,6 +282,7 @@ import json
 import math
 import os
 import re
+import shutil
 import signal
 import socket
 import statistics
@@ -3595,12 +3608,14 @@ def sim_run(root: str, side: str, label: str, argv: list, env: dict, work: str) 
     starts with the entry: ``simulate`` calls the CLI's ``main``;
     ``analytics_smoke`` runs ``python -m <package>.sim.analytics_smoke``;
     ``-m`` runs ``python -m <package>`` (its ``entrypoint``, which sets
-    SIGPIPE to SIG_DFL)."""
+    SIGPIPE to SIG_DFL); ``analysis`` runs ``python -m <package>.analysis``,
+    the lint."""
     package = SIM_PACKAGES[side]
     entry, module, args = {
         "simulate": ("main", package + ".cli", argv),
         "analytics_smoke": ("-m", package + ".sim.analytics_smoke", argv[1:]),
         "-m": ("-m", package, argv[1:]),
+        "analysis": ("-m", package + ".analysis", argv[1:]),
     }[argv[0]]
     scratch = os.path.join(work, side, re.sub(r"[^\w.+-]", "_", label))
     os.makedirs(scratch)
@@ -3721,6 +3736,130 @@ def phase16_simulator(root: str) -> None:
           process_seconds={side: round(sum(r["seconds"] for (_, s), r in runs.items()
                                            if s == side), 2) for side in SIM_PACKAGES},
           seconds=round(time.perf_counter() - t_phase, 2))
+
+
+LINT_TIMINGS = re.compile(r"^tnc-lint timings: .*$", re.MULTILINE)
+LINT_FORMATS = ("human", "json", "sarif")
+
+
+def lint_run(root: str, side: str, label: str, args: list, env: dict, work: str) -> dict:
+    """One cold process of a lint (``side`` "port" or "jax"), ``python -m
+    <package>.analysis`` through SIM_CLI_SCRIPT at the checkout's root, in a
+    scratch directory of its own (its ``TMPDIR``)."""
+    out = sim_run(root, side, label, args, env, work)
+    out["stdout"] = out["stdout"].decode()
+    return out
+
+
+def lint_output(side: str, fmt: str, text: str) -> str:
+    """A lint's output with the port's package name mapped back to the JAX
+    one and the timings masked."""
+    if side == "port":
+        text = re.sub(r"\btpu_node_checker_torch\b", "tpu_node_checker", text)
+    if fmt == "json":
+        doc = json.loads(text)
+        doc.pop("timings_ms")
+        return json.dumps(doc, indent=2, sort_keys=True)
+    return LINT_TIMINGS.sub("tnc-lint timings: <masked>", text)
+
+
+def renamed_corpus(root: str, dst: str) -> str:
+    """A copy of the seeded corpus with its package renamed for the port
+    (the directory, and the package name in every file; the metric prefix
+    ``tpu_node_checker_`` stays)."""
+    shutil.copytree(os.path.join(root, "tests", "analysis_fixtures", "repo"), dst,
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    os.rename(os.path.join(dst, "tpu_node_checker"), os.path.join(dst, "tpu_node_checker_torch"))
+    for dirpath, _, names in os.walk(dst):
+        for name in names:
+            path = os.path.join(dirpath, name)
+            with open(path) as f:
+                text = f.read()
+            with open(path, "w") as f:
+                f.write(re.sub(r"\btpu_node_checker\b", "tpu_node_checker_torch", text))
+    return dst
+
+
+def phase17_lint(root: str, smi: str) -> None:
+    """Phase 17: the port's tnc-lint and the JAX one, cold processes two at
+    a time: both over the checkout (clean), both over the seeded corpus (the
+    port's on its renamed copy) in each format, and the port's incremental
+    cache, cold and warm, against its full run.  Every port process must
+    load no package but its own."""
+    t_phase = time.perf_counter()
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("TNC_", "KUBERNETES_SERVICE_"))
+           and k not in ("SLACK_WEBHOOK_URL", "KUBECONFIG", "NODE_NAME")}
+    work = tempfile.mkdtemp(prefix="chip-smoke-lint-")
+    corpus = {"jax": os.path.join(root, "tests", "analysis_fixtures", "repo"),
+              "port": renamed_corpus(root, os.path.join(work, "corpus", "repo"))}
+    jobs = [("repo", "port", ["analysis", "--format", "json"]),
+            ("repo", "jax", ["analysis"])]
+    jobs += [(f"corpus {fmt}", side, ["analysis", "--root", corpus[side], "--format", fmt])
+             for fmt in LINT_FORMATS for side in SIM_PACKAGES]
+    with concurrent.futures.ThreadPoolExecutor(max_workers=2) as pool:
+        futures = {(label, side): pool.submit(lint_run, root, side, label, args, env, work)
+                   for label, side, args in jobs}
+        runs = {key: f.result() for key, f in futures.items()}
+
+    repo = runs[("repo", "port")]
+    findings = (len(json.loads(repo["stdout"])["findings"]) if repo["exit_code"] == 0
+                else None)
+    phase(17, "lint the checkout", exit_code={s: runs[("repo", s)]["exit_code"]
+                                              for s in SIM_PACKAGES},
+          port_findings=findings)
+    if repo["exit_code"] != 0 or findings != 0 or runs[("repo", "jax")]["exit_code"] != 0:
+        fail(f"the checkout does not lint clean: port {repo['stdout'][-3000:]} "
+             f"{repo['stderr'][-1500:]}, jax {runs[('repo', 'jax')]['stdout'][-3000:]}")
+    for fmt in LINT_FORMATS:
+        port, ref = runs[(f"corpus {fmt}", "port")], runs[(f"corpus {fmt}", "jax")]
+        equal = (port["exit_code"] == ref["exit_code"] == 1
+                 and lint_output("port", fmt, port["stdout"])
+                 == lint_output("jax", fmt, ref["stdout"]))
+        phase(17, f"corpus {fmt}", exit_code=[port["exit_code"], ref["exit_code"]],
+              equal=equal, stdout_bytes=len(port["stdout"]))
+        if not equal:
+            fail(f"the lints differ on the corpus in {fmt}: port {port['stderr'][-1500:]}, "
+                 f"jax {ref['stderr'][-1500:]}")
+    full = json.loads(runs[("corpus json", "port")]["stdout"])
+
+    def verdict(doc: dict) -> dict:
+        return {k: v for k, v in doc.items() if k not in ("timings_ms", "cached_files")}
+
+    cache = os.path.join(work, "lint-cache.json")
+    incremental = ["analysis", "--root", corpus["port"], "--changed-only", "--cache", cache,
+                   "--format", "json"]
+    runs[("cache cold", "port")] = lint_run(root, "port", "cache cold", incremental, env, work)
+    touched = os.path.join(corpus["port"], "tpu_node_checker_torch", "sample_broad.py")
+    with open(touched, "a") as f:
+        f.write("# touched\n")
+    with concurrent.futures.ThreadPoolExecutor(max_workers=2) as pool:
+        warm = pool.submit(lint_run, root, "port", "cache warm", incremental, env, work)
+        again = pool.submit(lint_run, root, "port", "full after touch",
+                            ["analysis", "--root", corpus["port"], "--format", "json"], env,
+                            work)
+        runs[("cache warm", "port")], runs[("full after touch", "port")] = (
+            warm.result(), again.result())
+    docs = {label: json.loads(runs[(label, "port")]["stdout"])
+            for label in ("cache cold", "cache warm", "full after touch")}
+    cached = {label: doc["cached_files"] for label, doc in docs.items()}
+    ok = (all(runs[(label, "port")]["exit_code"] == 1 for label in docs)
+          and cached["cache cold"] == 0 and cached["cache warm"] > 0
+          and verdict(docs["cache cold"]) == verdict(full)
+          and verdict(docs["cache warm"]) == verdict(docs["full after touch"]))
+    phase(17, "--changed-only --cache", cached_files=cached, equal_to_full_run=ok)
+    if not ok:
+        fail(f"the incremental lint differs from the full run: {cached}")
+
+    foreign = {label: run["packages"] for (label, side), run in runs.items()
+               if run["packages"] != [SIM_PACKAGES[side]]}
+    phase(17, "tnc-lint runs", card=smi, own_package_only=not foreign,
+          runs={f"{side} {label}": {"exit_code": run["exit_code"],
+                                    "seconds": round(run["seconds"], 3)}
+                for (label, side), run in runs.items()},
+          seconds=round(time.perf_counter() - t_phase, 2))
+    if foreign:
+        fail(f"a lint process loaded another package: {foreign}")
 
 
 def main() -> int:
@@ -4271,7 +4410,10 @@ def main() -> int:
     # -- 16. the simulate subcommand through both CLIs
     phase16_simulator(root)
 
-    # -- 17. the kernels line, the card line, the result line
+    # -- 17. tnc-lint over the checkout and the seeded corpus
+    phase17_lint(root, smi)
+
+    # -- 18. the kernels line, the card line, the result line
     keys = ("name", "route", "source", "replaces", "launches", "compute_launches",
             "emitter_launches", "selftest_launches", "calibrate_launches",
             "distributed_launches", "oneshot_launches", "live_round_launches", "watch_launches",

@@ -8,8 +8,10 @@ modules, so it keeps copies: ``utils/quantity.py``, ``resources.py``,
 loop's ``obs/``, the quarantine's ``remediation/``, the history tier's
 ``analytics/``, the fleet state API's ``server/``, the federation tier's
 ``federation/``, the ``--watch-stream`` engine's ``watchstream.py`` and
-the ``simulate`` subcommand's ``sim/``
-verbatim (only the package name and the module docstring differ).  Here
+the ``simulate`` subcommand's ``sim/`` and tnc-lint's ``analysis/``
+verbatim (only the package name and the module docstring differ; the
+lint's ``analysis/__init__.py`` also imports ``analysis.rules``, which
+breaks the reference's circular import).  Here
 each copy's code is held equal to its original (the syntax trees,
 docstrings dropped, the package name substituted where it names a module,
 never inside a metric name); the modules copied in part are held equal
@@ -70,7 +72,13 @@ VERBATIM = ["utils/quantity.py", "resources.py", "detect.py", "report.py", "util
             "federation/merge.py", "federation/aggregator.py", "watchstream.py",
             "sim/clock.py", "sim/fixtures.py", "sim/__init__.py", "sim/fleet.py",
             "sim/invariants.py", "sim/engine.py", "sim/scenarios.py", "sim/compose.py",
-            "sim/fuzz.py", "sim/cli.py", "sim/analytics_smoke.py"]
+            "sim/fuzz.py", "sim/cli.py", "sim/analytics_smoke.py",
+            "analysis/engine.py", "analysis/rules/base.py", "analysis/rules/locks.py",
+            "analysis/rules/contracts.py", "analysis/rules/invariants.py",
+            "analysis/flow/graph.py", "analysis/flow/entries.py", "analysis/flow/rules.py",
+            "analysis/flow/typestate.py", "analysis/flow/__init__.py",
+            "analysis/rules/__init__.py", "analysis/cache.py", "analysis/sarif.py",
+            "analysis/__main__.py"]
 
 
 def _code(path: Path, package: str) -> str:
@@ -95,6 +103,19 @@ def test_verbatim_copy_equals_jax(module):
     port = _code(REPO / "tpu_node_checker_torch" / module, "tpu_node_checker_torch")
     ref = _code(REPO / "tpu_node_checker" / module, "tpu_node_checker")
     assert port == ref
+
+
+def test_lint_package_init_differs_only_by_the_rules_import():
+    # Importing ``analysis.flow.rules`` first fails on the JAX side on its
+    # import cycle; the port's package loads ``analysis.rules`` whole first.
+    port = _tree(REPO / "tpu_node_checker_torch" / "analysis" / "__init__.py",
+                 "tpu_node_checker_torch")
+    ref = _tree(REPO / "tpu_node_checker" / "analysis" / "__init__.py", "tpu_node_checker")
+    extra = [n for n in port.body if isinstance(n, ast.Import)]
+    assert [ast.dump(n) for n in extra] == \
+        [ast.dump(ast.parse("import PKG.analysis.rules").body[0])]
+    port.body = [n for n in port.body if n not in extra]
+    assert ast.dump(port) == ast.dump(ref)
 
 
 def _functions(module: str, package: str) -> dict:

@@ -324,7 +324,7 @@ def build_parser() -> argparse.ArgumentParser:
     probe.add_argument("--probe-timeout", type=float, default=None, metavar="S",
                        help="kill the probe child after S seconds (default: the level's "
                        "budget, plus --probe-soak)")
-    probe.add_argument("--device", default="cuda:0",
+    probe.add_argument("--device", default="cuda:0",  # tnc: allow-drift-readme-flags(port-only flag; the README table lists the JAX CLI's)
                        help="device to probe: cuda:0 (default) or cpu")
     probe.add_argument("--emit-probe", metavar="FILE",
                        help="write the probe report to FILE atomically ('-' for stdout)")

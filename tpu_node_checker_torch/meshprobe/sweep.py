@@ -277,7 +277,7 @@ def mesh_link_sweep(
             )
         report.latency_us = (time.perf_counter() - t_sweep) * 1e6
         return report
-    except Exception as exc:  # probes report, never raise
+    except Exception as exc:  # tnc: allow-broad-except(probes report, never raise)
         return MeshLinkReport(
             ok=False,
             degraded=False,

@@ -5,26 +5,179 @@ round's :class:`~tpu_node_checker_torch.checker.CheckResult` into the text
 exposition format (version 0.0.4).  Family names, label sets, HELP and TYPE
 text are the JAX package's byte for byte (the TPU words in the HELP text
 included): the PrometheusRule and the dashboards read them, and tests hold
-the two scrapes equal.  What renders depends on the payload:
-
-* the fleet round of the aggregator's ``--watch`` loop renders the fleet
-  families (``tpu_node_checker_nodes{state}``, ``..._chips{state}``,
-  ``..._node_notready{reason}``, the slice, multislice, probe-host,
-  history, transport and degradation families);
-* with ``--probe``, or in an emitter round (payload
-  ``{"local_probe": report}``), the ``tpu_node_checker_probe_*`` families of
-  the probe's report;
-* every round renders ``tpu_node_checker_exit_code``,
-  ``..._check_duration_ms`` and ``..._last_run_timestamp_seconds``, and in
-  the ``--watch`` loop ``tpu_node_checker_watch_breaker_open`` and
-  ``..._watch_breaker_consecutive_failures``.
-
-Families fed by modules the port does not have yet (the watch stream and
-federation) render only from payload keys those modules write, so they stay
-absent here; the fleet API server appends its own request families to
-``/metrics`` under ``--serve``.
+the two scrapes equal.  What renders depends on the payload: the fleet round
+of the aggregator's ``--watch`` loop renders the fleet families; with
+``--probe``, or in an emitter round (payload ``{"local_probe": report}``),
+the probe families of its report; every round the exit code, duration and
+timestamp, and in the ``--watch`` loop the breaker's.  The fleet API server
+appends its own request families to ``/metrics`` under ``--serve``, and
 :class:`MetricsServer` serves the latest body on a thread of its own, with
 the round's phase histograms (``obs``) appended.
+
+Exported metric families:
+
+* ``tpu_node_checker_nodes{state="total|ready"}`` — accelerator node counts;
+* ``tpu_node_checker_chips{state="total|ready"}`` — device counts;
+* ``tpu_node_checker_slice_complete{nodepool,topology}`` — per-slice 0/1;
+* ``tpu_node_checker_slice_ready_chips{nodepool,topology}`` / ``..._expected_chips``;
+* ``tpu_node_checker_exit_code`` — the would-be CLI exit code (0/2/3);
+* ``tpu_node_checker_check_duration_ms`` — end-to-end phase total;
+* ``tpu_node_checker_last_run_timestamp_seconds`` — staleness detector;
+* ``tpu_node_checker_probe_*`` — when ``--probe`` ran: pass/fail by level and
+  numeric chip telemetry (device count, MXU TFLOP/s, HBM/DMA GB/s, collective
+  bus and per-link ICI bandwidth, workload step time);
+* ``tpu_node_checker_probe_perf_floor_ok{generation}`` /
+  ``..._probe_perf_floor_ratio{metric}`` — floor grading of measured perf
+  vs the device kind's published peak (a ratio trending down is thermal
+  degradation in progress);
+* ``tpu_node_checker_probe_fault_domain_ok{axis}`` — multislice hybrid-mesh
+  verdicts (axis ``dcn`` = the slice boundary) and
+  ``..._probe_dcn_busbw_gbps`` — cross-slice bandwidth;
+* ``tpu_node_checker_probe_reports_skipped{reason}`` — refused report files
+  (stale / future_skew / unreadable / schema);
+* ``tpu_node_checker_probe_hosts{state="reported|ok|failed|missing|floor_failed"}`` — the
+  ``--probe-results`` fleet roll-up, plus
+  ``tpu_node_checker_probe_host_unhealthy{host,state}`` naming each sick host;
+* ``tpu_node_checker_multislice_{complete,ready_chips,slices}{group}`` — the
+  DCN-joined multislice roll-up, when grouping labels are present;
+* ``tpu_node_checker_{cordoned,uncordoned}_nodes`` and
+  ``tpu_node_checker_cordon_skipped_over_cap`` — the quarantine lifecycle
+  (nonzero skipped-over-cap means humans must look NOW);
+* ``tpu_node_checker_kind_mismatch_nodes`` — nodes whose probed TPU
+  generation contradicts their GKE accelerator label;
+* ``tpu_node_checker_node_notready{reason}`` — NotReady node counts keyed by
+  the kubelet Ready-condition reason (KubeletNotReady vs NetworkUnavailable
+  vs NodeStatusUnknown route to different responders);
+* ``tpu_node_checker_slice_expected_chips{nodepool,topology}`` — the per-slice
+  denominator ``slice_ready_chips`` is graded against;
+* ``tpu_node_checker_planned_disruption_nodes`` — sick nodes attributed to a
+  planned GKE disruption (maintenance/upgrade), split out of availability;
+* ``tpu_node_checker_node_state{state}`` /
+  ``tpu_node_checker_node_flaps_total`` — hysteresis FSM occupancy (all five
+  states always emitted) and the monotonic flap counter, under ``--history``;
+* ``tpu_node_checker_round_degraded`` — 1 when the round completed but a
+  non-fatal phase (events/cordon/uncordon) degraded;
+* ``tpu_node_checker_api_{connections_opened,requests,requests_reused}_total``
+  and ``tpu_node_checker_api_retries_total{reason}`` — k8s API transport
+  lifecycle: sockets dialed, requests sent, keep-alive reuse, retry ladder;
+* ``tpu_node_checker_api_list_truncated_total{resource}`` — paginated LIST
+  walks whose page budget ran out with the continue token still set (the
+  listing's tail was silently absent before this counter existed);
+* ``tpu_node_checker_watch_breaker_open`` /
+  ``tpu_node_checker_watch_breaker_consecutive_failures`` — watch-mode
+  circuit-breaker state ("the monitor itself is degraded" is alertable
+  separately from "the fleet is degraded");
+* ``tpu_node_checker_watch_stream_events_total{type}`` /
+  ``tpu_node_checker_watch_relists_total{reason}`` /
+  ``tpu_node_checker_watch_stream_age_seconds`` — watch-stream mode
+  (``--watch-stream``): events folded into the node cache by type, full
+  LISTs by cause (seed / 410 gone / stream loss — steady state adds none),
+  and seconds since the stream last showed life;
+* ``tpu_node_checker_api_server_workers`` — accept loops serving the
+  fleet API (``--serve-workers`` SO_REUSEPORT pool size; 1 = single
+  listener, including the no-SO_REUSEPORT fallback);
+* ``tpu_node_checker_api_server_rate_limited_total`` — authenticated
+  write requests refused 429 by the ``--write-rps`` token bucket;
+* ``tpu_node_checker_api_server_swr_stale_served_total`` — ``/api/v1/trend``
+  responses served stale while a background rebuild ran
+  (stale-while-revalidate hits; a climbing rate with no matching rebuilds
+  means the trend log is churning faster than it can be summarized);
+* ``tpu_node_checker_cluster_info{cluster,source}`` — the resolved cluster
+  identity this checker stamps into every payload/snapshot
+  (``--cluster-name`` → ``$TNC_CLUSTER_NAME`` → kube context → hostname);
+  explicitly configured names (flag/env) additionally label every round
+  family above with ``cluster=...``;
+* ``tpu_node_checker_federation_clusters{state}`` /
+  ``tpu_node_checker_federation_cluster_up{cluster}`` /
+  ``tpu_node_checker_federation_staleness_rounds{cluster}`` — the
+  ``--federate`` aggregator's view of its cluster set: counts by fetch
+  state (configured/with_data/fresh/degraded), per-cluster up gauges, and
+  rounds since each cluster was last fetched successfully;
+* ``tpu_node_checker_federation_fetch_total{cluster,result}`` — upstream
+  fleet-API fetches (fresh = 200, not_modified = 304, error): a healthy
+  steady state is almost all 304s;
+* ``tpu_node_checker_federation_nodes{state}`` — total/ready nodes in the
+  merged global view (stale shards' last-known numbers included);
+* ``tpu_node_checker_federation_round_duration_ms`` /
+  ``tpu_node_checker_federation_workers`` — fetch+merge round wall-clock
+  and the consistent-hash fetcher pool size;
+* ``tpu_node_checker_round_phase_duration_ms{phase}`` — NATIVE histogram
+  (``_bucket``/``_sum``/``_count``) of per-phase round cost;
+  ``phase="total"`` is the whole round, so
+  ``histogram_quantile(0.99, ...)`` is the production-side counterpart of
+  the bench's steady-round assertions;
+* ``tpu_node_checker_federation_fetch_duration_ms{cluster}`` — histogram
+  of per-cluster upstream fetch cost in the ``--federate`` aggregator;
+* ``tpu_node_checker_federation_feed_frames_total{cluster,kind}`` —
+  watch-feed frames applied per upstream in ``--federate-feed`` mode, by
+  kind (``delta`` / ``heartbeat`` / ``resync``): a healthy steady state
+  is deltas and heartbeats with resyncs flat at their seed value;
+* ``tpu_node_checker_federation_feed_resyncs_total{cluster,reason}`` —
+  full-state resync frames by cause (``requested`` = cold start,
+  ``stale-cursor`` = the upstream's ring evicted our cursor — a climbing
+  rate means the consumer cannot keep up with upstream churn);
+* ``tpu_node_checker_federation_feed_lag_seconds{cluster}`` — seconds
+  since each stream last applied a frame (the feed-side counterpart of
+  ``watch_stream_age_seconds``: lag past a few long-poll windows means
+  the stream is wedged and the engine is riding last-known state);
+* ``tpu_node_checker_api_server_request_duration_ms{route}`` — histogram
+  of routed-path fleet-API request latency (replaces the
+  ``tpu_node_checker_api_server_request_latency_ms`` pseudo-summary,
+  which remains one release as a deprecated alias derived from the merged
+  histogram);
+* ``tpu_node_checker_remediation_denied_total{reason}`` — actuations the
+  budget engine refused, by reason (``cordon-max``, ``slice-floor``,
+  ``disruption-budget``, ``pdb``, ``lease-denied``,
+  ``lease-unreachable``; ``none`` = zero denials so far) — the
+  no-silent-caps counter: a refused cordon/drain is audit-visible, never
+  a silent skip;
+* ``tpu_node_checker_remediation_actions_total{action}`` — actuations
+  APPLIED through the budget engine (cordon / drain / uncordon /
+  clear-annotation / repair; dry runs excluded);
+* ``tpu_node_checker_remediation_domains{state}`` — failure domains in
+  the budget engine's round view (``total``, and ``at_floor`` = domains
+  with no actuation headroom left above their healthy-chip floor);
+* ``tpu_node_checker_remediation_budget_remaining`` — actuation permits
+  left in the ``--disruption-budget`` window/round;
+* ``tpu_node_checker_remediation_repairs_total{result}`` — repair hooks
+  by outcome (``fired`` / ``succeeded`` / ``failed``), and
+  ``tpu_node_checker_remediation_repair_age_seconds`` — age of the
+  OLDEST repair still without a terminal state (the stuck-repair alert's
+  input; 0 when none are in flight);
+* ``tpu_node_checker_analytics_predictions_total`` — changepoint
+  detections (CUSUM flap episodes, ``--analytics``): each one promoted a
+  still-HEALTHY flapper to SUSPECT before the FSM saw a hard failure;
+* ``tpu_node_checker_analytics_suspects`` — nodes currently inside an
+  active changepoint episode (the standing prediction set);
+* ``tpu_node_checker_analytics_buckets{res}`` — closed roll-up buckets
+  retained in the analytics segment store, by resolution (60/900/21600 s);
+* ``tpu_node_checker_analytics_rollup_lines_total`` /
+  ``tpu_node_checker_analytics_compactions_total`` — segment-store write
+  telemetry: lines appended through the ``append_bucket`` gate, and
+  atomic tmp+rename shard compactions;
+* ``tpu_node_checker_analytics_sketch_samples_total{metric}`` — duration
+  samples folded into the mergeable percentile sketches, by stream
+  (``mttr_s`` / ``repair_age_s`` / ``round_ms`` / ``link_us``);
+* ``tpu_node_checker_analytics_global_clusters`` /
+  ``tpu_node_checker_analytics_global_slo{metric,q}`` /
+  ``tpu_node_checker_analytics_global_merge_ms`` — the ``--federate``
+  aggregator's global analytics view (rendered by its own scrape body,
+  not this module): clusters contributing sketch blocks, fleet-wide SLO
+  percentiles from merged sketches, and the last sketch-merge cost;
+* ``tpu_node_checker_federation_lease_total{result}`` /
+  ``tpu_node_checker_federation_fleet_budget_remaining`` — the
+  ``--federate`` aggregator's disruption-lease traffic (granted permits
+  vs denied requests) and the fleet budget's remaining permits;
+* ``tpu_node_checker_mesh_link_duration_us{slice,axis}`` — NATIVE
+  histogram of per-link ICI sweep p50 from ``--probe-level mesh``, in
+  MICROSECONDS (the tree's one ``_us`` family — link legs are two orders
+  of magnitude under the millisecond ladder), one sample per distinct
+  link per round, labeled by slice budget-domain and mesh axis: the
+  scrape-side view of a link drifting toward its SLOW budget.
+
+This docstring is the package's metric index: tnc-lint's
+``drift-readme-metrics`` rule (TNC202) fails CI when a family is emitted
+below but listed neither here nor in the README — keep it current.
 """
 
 from __future__ import annotations

@@ -538,5 +538,5 @@ def workload_probe(
         elif not decreasing:
             err = f"loss not decreasing: {losses}"
         return WorkloadResult(ok=ok, losses=tuple(losses), step_time_ms=elapsed_ms, error=err)
-    except Exception as exc:  # probes report, never raise
+    except Exception as exc:  # tnc: allow-broad-except(probes report, never raise)
         return WorkloadResult(ok=False, error=f"{type(exc).__name__}: {exc}")

@@ -137,7 +137,7 @@ def _burn_round(
             iters=iters,
             error=None if ok else f"tensor-core/elementwise invariant mismatch: rel_err={rel_err:.3e}",
         )
-    except Exception as exc:  # probes report, never raise
+    except Exception as exc:  # tnc: allow-broad-except(probes report, never raise)
         return _raised(exc, n, iters)
 
 
@@ -151,7 +151,7 @@ def matmul_burn(
     try:
         a = _burn_input(n, resolve_device(device))
         run = _chain_runner(a, iters)
-    except Exception as exc:  # probes report, never raise
+    except Exception as exc:  # tnc: allow-broad-except(probes report, never raise)
         return _raised(exc, n, iters)
     return _burn_round(a, run, iters, rel_tol)
 
@@ -258,7 +258,7 @@ def soak_burn(
                 f"{min(tflops):.2f} TFLOP/s is {ratio:.0%} of median {median:.2f}"
             ),
         )
-    except Exception as exc:  # probes report, never raise
+    except Exception as exc:  # tnc: allow-broad-except(probes report, never raise)
         return SoakResult(
             ok=False, rounds=0, seconds=0.0, tflops_min=0.0, tflops_median=0.0,
             tflops_max=0.0, sustained_ratio=0.0,

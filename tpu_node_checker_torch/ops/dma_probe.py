@@ -119,7 +119,7 @@ def dma_stream_probe(
             interpreted=interpreted,
             error=None if ok else "bulk-copy-streamed result differs from the plain 2x+1",
         )
-    except Exception as exc:  # probes report, never raise
+    except Exception as exc:  # tnc: allow-broad-except(probes report, never raise)
         return DmaProbeResult(
             ok=False, gbps=0.0, elapsed_ms=0.0, interpreted=interpreted,
             error=f"{type(exc).__name__}: {exc}",

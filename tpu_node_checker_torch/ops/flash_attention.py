@@ -172,7 +172,7 @@ def flash_attention_probe(
             interpreted=interpreted,
             error=None if ok else f"flash/plain mismatch: max|Δ|={max_abs_err:.3e}",
         )
-    except Exception as exc:  # probes report, never raise
+    except Exception as exc:  # tnc: allow-broad-except(probes report, never raise)
         return FlashAttentionProbeResult(
             ok=False, max_abs_err=float("inf"), elapsed_ms=0.0,
             interpreted=interpreted, error=f"{type(exc).__name__}: {exc}",

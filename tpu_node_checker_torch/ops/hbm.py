@@ -82,7 +82,7 @@ def hbm_bandwidth_probe(
             elapsed_ms=elapsed * 1e3,
             bytes_moved=bytes_moved,
         )
-    except Exception as exc:  # probes report, never raise
+    except Exception as exc:  # tnc: allow-broad-except(probes report, never raise)
         return HbmResult(
             ok=False, gbps=0.0, elapsed_ms=0.0, bytes_moved=0,
             error=f"{type(exc).__name__}: {exc}",

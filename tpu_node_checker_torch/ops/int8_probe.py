@@ -114,7 +114,7 @@ def int8_matmul_probe(
             else 0.0
         )
         return Int8Result(ok=True, tops=tops, elapsed_ms=elapsed_ms)
-    except Exception as exc:  # probes report, never raise
+    except Exception as exc:  # tnc: allow-broad-except(probes report, never raise)
         return Int8Result(
             ok=False, tops=0.0, elapsed_ms=0.0, error=f"{type(exc).__name__}: {exc}"
         )

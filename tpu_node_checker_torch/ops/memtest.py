@@ -123,7 +123,7 @@ def hbm_pattern_probe(
                 + ", ".join(f"{k}={v} words" for k, v in bad.items())
             ),
         )
-    except Exception as exc:  # probes report, never raise
+    except Exception as exc:  # tnc: allow-broad-except(probes report, never raise)
         return MemtestResult(
             ok=False, mib=mib, dwell_s=dwell_s, error=f"{type(exc).__name__}: {exc}"
         )

@@ -130,7 +130,7 @@ def pallas_matmul_probe(
             interpreted=interpreted,
             error=None if ok else f"kernel/plain mismatch: max_rel_err={max_rel_err:.3e}",
         )
-    except Exception as exc:  # probes report, never raise
+    except Exception as exc:  # tnc: allow-broad-except(probes report, never raise)
         return PallasProbeResult(
             ok=False, max_rel_err=float("inf"), elapsed_ms=0.0,
             interpreted=interpreted, error=f"{type(exc).__name__}: {exc}",

@@ -232,7 +232,7 @@ def collective_probe(
                 "leg_latency_us": leg_latency_us,
             },
         )
-    except Exception as exc:  # probes report, never raise
+    except Exception as exc:  # tnc: allow-broad-except(probes report, never raise)
         return CollectiveResult(
             ok=False, n_devices=0, latency_us=0.0, error=f"{type(exc).__name__}: {exc}"
         )
@@ -321,7 +321,7 @@ def ring_probe(
         return CollectiveResult(
             ok=ok, n_devices=n, latency_us=latency_us, error=error, details=details,
         )
-    except Exception as exc:  # probes report, never raise
+    except Exception as exc:  # tnc: allow-broad-except(probes report, never raise)
         return CollectiveResult(
             ok=False, n_devices=0, latency_us=0.0, error=f"{type(exc).__name__}: {exc}"
         )
@@ -394,7 +394,7 @@ def per_axis_probe(
             ),
             details={"topology": "x".join(str(s) for s in shape), "axis_ok": axis_ok},
         )
-    except Exception as exc:  # probes report, never raise
+    except Exception as exc:  # tnc: allow-broad-except(probes report, never raise)
         return CollectiveResult(
             ok=False, n_devices=0, latency_us=0.0, error=f"{type(exc).__name__}: {exc}"
         )
@@ -457,7 +457,7 @@ def axis_bandwidth_probe(
             error=None if ok else f"psum along axis {axis!r} returned wrong sums",
             details={"axis": axis, "axis_size": s_a, "busbw_gbps": busbw_gbps},
         )
-    except Exception as exc:  # probes report, never raise
+    except Exception as exc:  # tnc: allow-broad-except(probes report, never raise)
         return CollectiveResult(
             ok=False, n_devices=0, latency_us=0.0, error=f"{type(exc).__name__}: {exc}"
         )

@@ -410,7 +410,7 @@ def _meet(store, rdv: Rendezvous, n_local: int, deadline: float) -> Tuple[int, .
 def _call(fn: Callable, args: tuple, kwargs: dict):
     try:
         return fn(*args, **kwargs)
-    except Exception as exc:  # a rank reports its failure to rank 0, never dies silent
+    except Exception as exc:  # tnc: allow-broad-except(a rank reports its failure to rank 0, never dies silent)
         traceback.print_exc()
         return RankFailure(ok=False, error=f"{type(exc).__name__}: {exc}")
 

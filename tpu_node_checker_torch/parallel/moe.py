@@ -220,7 +220,7 @@ def moe_probe(
             error=error,
             details=details,
         )
-    except Exception as exc:  # probes report, never raise
+    except Exception as exc:  # tnc: allow-broad-except(probes report, never raise)
         return MoEResult(
             ok=False,
             n_experts=0,

@@ -193,7 +193,7 @@ def pipeline_probe(
             error=error,
             details=details,
         )
-    except Exception as exc:  # probes report, never raise
+    except Exception as exc:  # tnc: allow-broad-except(probes report, never raise)
         return PipelineResult(
             ok=False,
             n_stages=0,

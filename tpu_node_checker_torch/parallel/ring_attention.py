@@ -141,7 +141,7 @@ def ring_attention_probe(
             latency_ms=latency_ms,
             error=None if ok else f"ring attention mismatch: max|Δ|={max_abs_err:.3e}",
         )
-    except Exception as exc:  # probes report, never raise
+    except Exception as exc:  # tnc: allow-broad-except(probes report, never raise)
         return RingAttentionResult(
             ok=False, n_devices=0, seq_len=0, max_abs_err=float("inf"),
             latency_ms=0.0, error=f"{type(exc).__name__}: {exc}",

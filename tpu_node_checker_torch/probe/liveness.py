@@ -541,7 +541,7 @@ try:
                 _append_error(ep.error)
     if hbm_capacity_error:
         _append_error(hbm_capacity_error)
-except Exception as exc:  # the whole point is to catch anything
+except Exception as exc:  # tnc: allow-broad-except(the whole point is to catch anything)
     # ok may already be True from a completed earlier stage; a crash anywhere
     # is a failed probe.
     out["ok"] = False
@@ -743,9 +743,9 @@ def _run_child(argv: List[str], *, timeout: float, env: Mapping[str, str]):
             _kill_session(proc)
             stdout, stderr = proc.communicate()
             raise subprocess.TimeoutExpired(argv, timeout, output=stdout, stderr=stderr)
-        except BaseException:
-            _kill_session(proc)
-            raise
+        finally:
+            if proc.returncode is None:  # interrupted while the child runs
+                _kill_session(proc)
     return subprocess.CompletedProcess(argv, proc.returncode, stdout, stderr)
 
 
