@@ -1,0 +1,114 @@
+"""The one general driver of probe rounds: what a traffic file describes.
+
+The configuration (``configs/<name>.json``, the deployment) gives the
+emitter's arguments: ``probe_level``, ``perf_floor`` and ``soak_s`` (the
+soak's seconds, ``"window"`` for the run's ``--seconds``, or 0).  A traffic
+file (``traffic/<name>.json``) gives how the rounds are sent:
+
+* ``warmup_rounds``: rounds run before the window, counted as set-up;
+* ``window``: ``"rounds"``, one client sending round after round until the
+  window closes (a round that starts inside it runs to its end), or
+  ``"soak"``, one round whose soak is the window;
+* ``samples``, ``soak_stream_samples``: how many elements of each output the
+  hook keeps for the reference;
+* ``judged``, ``soak_judged``: the least of each output a round (a soak
+  round) must yield;
+* ``trace``: what the hook traces in a ``--trace 1`` run's window rounds,
+  ``"rounds"`` or ``"soak:<from>:<count>"``;
+* ``trace_every_run``: trace the window's rounds in every run, not only with
+  ``--trace 1``, for an end-to-end metric read from the device trace.
+
+Each round is one ``emit_probe_once`` call, the emitter's round as deployed:
+the probe child, the schema check, the atomic write of the report.  After
+each round the report file is read back (``read_back``), for the judge to
+hold against what the round returned.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import time
+from pathlib import Path
+from typing import Callable, List
+
+
+def drive(emit: Callable, config: dict, traffic: dict, seconds: float, trace: bool,
+          device: str, scratch: Path) -> dict:
+    """Run the warm-up rounds and the window; returns their rounds and clocks."""
+    soak_s = seconds if config["soak_s"] == "window" else float(config["soak_s"])
+    target = str(scratch / "report.json")
+    counter = iter(range(10 ** 6))
+
+    def one(traced: bool) -> dict:
+        prefix = str(scratch / f"round-{next(counter):03d}")
+        os.environ["PROBEBENCH_CAPTURE"] = prefix
+        os.environ["PROBEBENCH_TRACE"] = traffic["trace"] if traced else ""
+        before = file_id(target)
+        start_wall, start = time.time(), time.perf_counter()
+        try:
+            rc, report = emit(target, level=config["probe_level"], device=device,
+                              soak_s=soak_s, perf_floor=config["perf_floor"])
+        finally:
+            end = time.perf_counter()
+            del os.environ["PROBEBENCH_CAPTURE"], os.environ["PROBEBENCH_TRACE"]
+        return {"prefix": prefix, "end": end, "wall_s": end - start, "rc": rc, "report": report,
+                "start_wall": start_wall, "written": read_back(target, before)}
+
+    warm = [one(False) for _ in range(traffic["warmup_rounds"])]
+    trace = trace or bool(traffic.get("trace_every_run"))
+    t0, t0_wall = time.perf_counter(), time.time()
+    window: List[dict] = []
+    if traffic["window"] == "rounds":
+        while not window or time.perf_counter() - t0 < seconds:
+            window.append(one(trace))
+    elif traffic["window"] == "soak":
+        window.append(one(trace))
+    else:
+        raise ValueError(f"unknown window kind {traffic['window']!r}")
+    for r in warm + window:
+        r["capture"], r["arrays"] = read_capture(r["prefix"])
+    return {"warm": warm, "rounds": window, "t0": t0, "t0_wall": t0_wall,
+            "window_s": window[-1]["end"] - t0}
+
+
+def file_id(path: str):
+    """(device, inode) of ``path``, or None if there is no such file."""
+    try:
+        st = os.stat(path)
+    except OSError:
+        return None
+    return st.st_dev, st.st_ino
+
+
+def read_back(target: str, before) -> dict:
+    """The report file as a round left it: its text parsed (None if absent or
+    not JSON), whether it is a new file (an atomic replace makes one; a write
+    in place keeps the old), and what else of its name lies beside it."""
+    try:
+        with open(target) as f:
+            doc = json.load(f)
+    except (OSError, ValueError):
+        doc = None
+    after = file_id(target)
+    name = os.path.basename(target)
+    beside = sorted(n for n in os.listdir(os.path.dirname(target))
+                    if n.startswith(name) and n != name)
+    return {"doc": doc, "new_file": after is not None and after != before, "beside": beside}
+
+
+def read_capture(prefix: str) -> tuple:
+    """(the hook's JSON, its arrays) of one round; (None, {}) if it wrote none."""
+    try:
+        with open(f"{prefix}.json") as f:
+            meta = json.load(f)
+    except (OSError, ValueError):
+        return None, {}
+    import numpy as np
+
+    try:
+        with np.load(f"{prefix}.npz") as z:
+            arrays = {k: z[k] for k in z.files}
+    except OSError:
+        arrays = {}
+    return meta, arrays
