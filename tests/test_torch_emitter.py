@@ -358,6 +358,20 @@ class TestUsageErrors:
         argv = ["--emit-probe", "-", "--probe-level", "compute", *flag]
         assert outcome_vs_jax(argv, capsys) == message
 
+    @pytest.mark.parametrize("argv,message", [
+        (["--emit-probe", "-", "--trace", "t.json"], None),
+        (["--emit-probe", "-", "--trace", "t.json", "--debug"],
+         "--debug belongs to the one-shot round: it cannot be combined with --emit-probe"),
+    ])
+    def test_trace_beside_the_emitter(self, capsys, argv, message):
+        # The emitter writes its round's trace; the round's other flags are
+        # refused beside it as before.
+        if message is None:
+            assert port_cli.parse_args(argv).trace == "t.json"
+        else:
+            code, err = _usage_error(port_cli.parse_args, argv, capsys)
+            assert code == 2 and f"error: {message}" in err
+
     @pytest.mark.parametrize("flags", [
         ["--probe-distributed"],
         ["--probe-distributed", "--probe-coordinator", "10.0.0.1:8476",
@@ -425,6 +439,24 @@ def test_soak_on_the_cpu():
     assert doc["ok"] is True
     assert doc["soak"]["ok"] is True and doc["soak"]["tflops_median"] > 0
     assert doc["elapsed_ms"] > 1000
+
+
+def test_soak_rounds_are_spans_of_the_round():
+    # In process, on the CPU: each soak round is one soak.round span holding
+    # one soak.burn and one soak.stream, and counts one soak_rounds.
+    burn = importlib.import_module("tpu_node_checker_torch.ops.burn")
+    spans = importlib.import_module("tpu_node_checker_torch.probe.spans")
+    round_ = spans.Round()
+    with spans.active(round_):
+        soak = burn.soak_burn(0.2, n=64, iters=2, device="cpu", min_sustained_ratio=0.0,
+                              hbm_mib=1)
+    assert soak.ok and soak.rounds >= 1
+    ms = spans.summary(round_.tracer.spans)
+    assert {name: ms[name][0] for name in ("soak.round", "soak.burn", "soak.stream")} == \
+        dict.fromkeys(("soak.round", "soak.burn", "soak.stream"), soak.rounds)
+    assert ms["hbm.alloc"][0] == soak.rounds
+    assert round_.counters == {"soak_rounds": soak.rounds}
+    assert ms["soak.burn"][1] + ms["soak.stream"][1] <= ms["soak.round"][1]
 
 
 # The probe child with two gloo ranks on the CPU (a two-card host) and the

@@ -47,8 +47,9 @@ port_generations = importlib.import_module("tpu_node_checker_torch.generations")
 REPO = Path(__file__).resolve().parent.parent
 
 # Keys only the port's report carries: the launch count of each hand-written
-# kernel (all 0 on the CPU, where the plain versions run).
-PORT_ONLY_KEYS = {"kernel_launches"}
+# kernel (all 0 on the CPU, where the plain versions run), and the round's
+# spans and counters (probe/spans.py).
+PORT_ONLY_KEYS = {"kernel_launches", "spans"}
 # Keys that exist by design only where the runtime reports them: per-device
 # memory (neither JAX's CPU backend nor torch's CPU device has it).
 PLATFORM_KEYS = {"memory"}

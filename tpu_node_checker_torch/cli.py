@@ -208,7 +208,10 @@ def build_parser() -> argparse.ArgumentParser:
                    "phases to FILE (open in Perfetto / chrome://tracing); "
                    "with --watch or --federate the file is atomically "
                    "rewritten every round with that round's trace — the "
-                   "same documents GET /api/v1/debug/rounds serves")
+                   "same documents GET /api/v1/debug/rounds serves; with "
+                   "--emit-probe, the probe round's trace, the probe "
+                   "child's spans on a track of their own (rewritten "
+                   "every round under --watch)")
     p.add_argument("--event-log", metavar="FILE",
                    help="append the unified structured event stream (fleet-"
                    "API write audits, shard degraded/recovered, breaker "
@@ -1134,7 +1137,8 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
         p.error("--probe-results-max-age requires --probe-results or --report-fresh")
     if mode is not None:
         for flag, dest in _ROUND_FLAGS:
-            if given(dest):
+            # The emitter writes its round's trace (emit.py).
+            if given(dest) and not (flag == "--trace" and mode == "--emit-probe"):
                 p.error(f"{flag} belongs to the one-shot round: it cannot be "
                         f"combined with {mode}")
     elif not args.probe:
@@ -1221,7 +1225,7 @@ def _dispatch(args) -> int:
         topology=args.probe_topology, soak_s=args.probe_soak, perf_floor=args.perf_floor,
         distributed=args.probe_distributed, coordinator=args.probe_coordinator,
         num_processes=args.probe_num_processes, process_id=args.probe_process_id,
-        dist_init_timeout_s=args.probe_rendezvous_timeout,
+        dist_init_timeout_s=args.probe_rendezvous_timeout, trace_file=args.trace,
     )
     # One history tracker for the emitter's lifetime (None without --history).
     history = checker._build_history(args)

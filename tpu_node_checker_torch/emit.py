@@ -37,7 +37,9 @@ from tpu_node_checker_torch.checker import (  # noqa: F401 — re-exported API
     CheckResult,
 )
 from tpu_node_checker_torch.checker import _append_jsonl as append_jsonl
+from tpu_node_checker_torch.checker import _write_trace_file
 from tpu_node_checker_torch.metrics import MetricsServer
+from tpu_node_checker_torch.probe import spans
 from tpu_node_checker_torch.probe.liveness import run_local_probe
 from tpu_node_checker_torch.probe.schema import strict_mode, validate_report
 
@@ -57,6 +59,7 @@ def emit_probe_once(
     num_processes: Optional[int] = None,
     process_id: Optional[int] = None,
     dist_init_timeout_s: Optional[float] = None,
+    trace_file: Optional[str] = None,
 ) -> Tuple[int, dict]:
     """One probe and one atomic report write (``-`` writes to stdout).
 
@@ -64,31 +67,51 @@ def emit_probe_once(
     A report that violates the declared schema warns on stderr, or raises
     under ``TNC_SCHEMA_STRICT``.  The rendezvous arguments of a distributed
     probe pass through to :func:`run_local_probe`.
+
+    The round is one trace (:mod:`tpu_node_checker_torch.probe.spans`),
+    which the probe child joins: the report's ``spans`` carries its
+    ``trace_id``, the child's pair of clocks, each span's count, total and
+    longest milliseconds (every span closed before the write: not
+    ``emit.write`` and ``emit.round``) and the counters.  ``trace_file``
+    (``--trace``) gets the round's Chrome trace, the child's spans on their
+    own track, written atomically after the round.
     """
-    probed = run_local_probe(
-        level=level, timeout_s=timeout_s, device=device,
-        topology=topology, soak_s=soak_s, perf_floor=perf_floor,
-        distributed=distributed, coordinator=coordinator, num_processes=num_processes,
-        process_id=process_id, dist_init_timeout_s=dist_init_timeout_s,
-    )
-    doc = probed.to_dict()
-    doc["schema"] = REPORT_SCHEMA_VERSION
-    doc["written_at"] = time.time()
-    violations = validate_report(doc)
-    if violations:
-        msg = "probe report violates its declared schema: " + "; ".join(violations[:5])
-        if strict_mode():
-            raise ValueError(msg)
-        print(f"WARNING: {msg}", file=sys.stderr)
-    payload = json.dumps(doc, ensure_ascii=False, indent=2)
-    if target == "-":
-        print(payload, flush=True)
-    else:
-        tmp = f"{target}.tmp"
-        with open(tmp, "w") as f:
-            f.write(payload + "\n")
-        os.replace(tmp, target)
-        print(f"Probe report written to {target} (ok={probed.ok}).", file=sys.stderr, flush=True)
+    round_ = spans.Round(events=trace_file is not None)
+    try:
+        with spans.active(round_), spans.span("emit.round"):
+            probed = run_local_probe(
+                level=level, timeout_s=timeout_s, device=device,
+                topology=topology, soak_s=soak_s, perf_floor=perf_floor,
+                distributed=distributed, coordinator=coordinator,
+                num_processes=num_processes, process_id=process_id,
+                dist_init_timeout_s=dist_init_timeout_s,
+            )
+            with spans.span("emit.schema"):
+                doc = probed.to_dict()
+                doc["schema"] = REPORT_SCHEMA_VERSION
+                doc["written_at"] = time.time()
+                violations = validate_report(doc)
+                if violations:
+                    msg = "probe report violates its declared schema: " + "; ".join(
+                        violations[:5])
+                    if strict_mode():
+                        raise ValueError(msg)
+                    print(f"WARNING: {msg}", file=sys.stderr)
+            doc["spans"] = round_.report_block(doc.get("spans"))
+            with spans.span("emit.write"):
+                payload = json.dumps(doc, ensure_ascii=False, indent=2)
+                if target == "-":
+                    print(payload, flush=True)
+                else:
+                    tmp = f"{target}.tmp"
+                    with open(tmp, "w") as f:
+                        f.write(payload + "\n")
+                    os.replace(tmp, target)
+                    print(f"Probe report written to {target} (ok={probed.ok}).",
+                          file=sys.stderr, flush=True)
+    finally:
+        if trace_file:
+            _write_trace_file(trace_file, round_)
     return (EXIT_OK if probed.ok else EXIT_NONE_READY), doc
 
 

@@ -9,7 +9,7 @@ the histogram families it owns:
 * ``tpu_node_checker_round_phase_duration_ms{phase}``: each round phase's
   cost (``phase="total"`` is the whole round);
 * ``tpu_node_checker_federation_fetch_duration_ms{cluster}``: the
-  federation tier's fetches (empty here: the port has no federation);
+  federation tier's fetches (``--federate``);
 * ``tpu_node_checker_mesh_link_duration_us{slice,axis}``: each link leg's
   p50 from the mesh probe level, in microseconds.
 

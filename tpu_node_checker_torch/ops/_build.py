@@ -28,6 +28,8 @@ import threading
 from pathlib import Path
 from typing import Dict, Iterable, List
 
+from tpu_node_checker_torch.probe import spans
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 NVCC_FLAGS = [
@@ -87,6 +89,7 @@ def _start(name: str) -> tuple:
     tmp = lib.with_name(f"{lib.name}.{os.getpid()}.{threading.get_ident()}.tmp")
     cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    spans.count("kernels_built")
     return proc, tmp, lib
 
 
@@ -104,8 +107,13 @@ def _finish(name: str, proc, tmp: Path, lib: Path) -> Path:
 
 
 def build_all(names: Iterable[str] = KERNELS) -> List[Path]:
-    """Build every named source, all nvcc processes running at once."""
+    """Build every named source, all nvcc processes running at once.
+
+    Counts, in the probe round's counters, each nvcc process started
+    (``kernels_built``) and each library found built (``kernels_cached``).
+    """
     started = [(n, *_start(n)) for n in names]
+    spans.count("kernels_cached", sum(1 for _, proc, _, _ in started if proc is None))
     return [_finish(n, proc, tmp, lib) for n, proc, tmp, lib in started]
 
 
@@ -116,7 +124,8 @@ def kernel(name: str):
         if fn is None:
             (lib_path,) = build_all([name])
             symbol, argtypes = SIGNATURES[name]
-            fn = getattr(ctypes.CDLL(str(lib_path)), symbol)
+            with spans.span(f"kernel.load.{name}"):
+                fn = getattr(ctypes.CDLL(str(lib_path)), symbol)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
             _loaded[name] = fn

@@ -16,6 +16,8 @@ from typing import Callable, Optional, Tuple, Union
 
 import torch
 
+from tpu_node_checker_torch.probe import spans
+
 DeviceLike = Union[str, torch.device, None]
 
 
@@ -70,6 +72,7 @@ def timed_run(fn, *args) -> Tuple[torch.Tensor, float, float]:
 
 def card_graph(
     fn: Callable[[], torch.Tensor], warm: Callable[[], object], device: torch.device,
+    label: str = "graph",
 ) -> Callable[[], Tuple[torch.Tensor, float]]:
     """``fn`` captured once as a CUDA graph on ``device``; returns a function
     that replays it between two CUDA events and gives (the graph's output,
@@ -80,22 +83,32 @@ def card_graph(
     output tensor is the graph's own, rewritten by every replay.  Timed on
     the card, the figure is the chain's, not the host's: a host that stalls
     while it issues work does not read as a slow card.
+
+    The round's spans (:mod:`tpu_node_checker_torch.probe.spans`):
+    ``graph.capture.<label>`` (the warm-up and the capture) and
+    ``graph.launch.<label>`` (the host's time in ``graph.replay()``), with
+    the counters ``graph_captures`` and ``graph_replays``.
     """
-    side = torch.cuda.Stream(device)
-    side.wait_stream(torch.cuda.current_stream(device))
-    with torch.cuda.stream(side):
-        warm()
-    torch.cuda.current_stream(device).wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        out = fn()
+    launch = f"graph.launch.{label}"
+    with spans.span(f"graph.capture.{label}"):
+        side = torch.cuda.Stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(side):
+            warm()
+        torch.cuda.current_stream(device).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = fn()
+    spans.count("graph_captures")
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
 
     def replay() -> Tuple[torch.Tensor, float]:
         start.record()
-        graph.replay()
+        with spans.span(launch):
+            graph.replay()
         end.record()
+        spans.count("graph_replays")
         end.synchronize()
         return out, start.elapsed_time(end) / 1e3
     return replay

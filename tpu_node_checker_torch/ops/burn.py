@@ -28,6 +28,7 @@ from typing import Callable, Optional, Tuple
 import torch
 
 from tpu_node_checker_torch.ops._harness import DeviceLike, card_graph, resolve_device, sync
+from tpu_node_checker_torch.probe import spans
 
 
 @dataclass
@@ -81,7 +82,8 @@ def _chain_runner(a: torch.Tensor, iters: int) -> Callable[[], Tuple[float, floa
             checksum = float(_burn_chain(a, iters).item())
             return checksum, time.perf_counter() - t0
         return run_eager
-    replay = card_graph(lambda: _burn_chain(a, iters), lambda: _burn_chain(a, 1), a.device)
+    replay = card_graph(lambda: _burn_chain(a, iters), lambda: _burn_chain(a, 1), a.device,
+                        "burn")
 
     def run_graph() -> Tuple[float, float]:
         out, seconds = replay()
@@ -205,6 +207,9 @@ def soak_burn(
     median throughput.  ``hbm_mib=0`` disables the memory leg.  The chain is
     captured once for the whole soak (on the card, one CUDA graph), as the
     JAX chain is compiled once and rerun.
+
+    Each round is a ``soak.round`` span of the probe round's trace, holding
+    ``soak.burn`` and ``soak.stream``, and counts one ``soak_rounds``.
     """
     from tpu_node_checker_torch.ops.hbm import hbm_bandwidth_probe
 
@@ -234,16 +239,20 @@ def soak_burn(
             )
 
         while time.perf_counter() < deadline or rounds == 0:
-            r = _burn_round(a, run, iters, rel_tol=5e-2)
-            rounds += 1
-            if not r.ok:
-                return _stats(False, 0.0, f"round {rounds} burn failed: {r.error}")
-            tflops.append(r.tflops)
-            if hbm_mib > 0:
-                h = hbm_bandwidth_probe(mib=hbm_mib, iters=2, device=device)
-                if not h.ok:
-                    return _stats(False, 0.0, f"round {rounds} hbm stream failed: {h.error}")
-                hbm_gbps.append(h.gbps)
+            with spans.span("soak.round"):
+                with spans.span("soak.burn"):
+                    r = _burn_round(a, run, iters, rel_tol=5e-2)
+                rounds += 1
+                spans.count("soak_rounds")
+                if not r.ok:
+                    return _stats(False, 0.0, f"round {rounds} burn failed: {r.error}")
+                tflops.append(r.tflops)
+                if hbm_mib > 0:
+                    with spans.span("soak.stream"):
+                        h = hbm_bandwidth_probe(mib=hbm_mib, iters=2, device=device)
+                    if not h.ok:
+                        return _stats(False, 0.0, f"round {rounds} hbm stream failed: {h.error}")
+                    hbm_gbps.append(h.gbps)
 
         median = statistics.median(tflops)
         ratio = min(tflops) / median if median > 0 else 0.0

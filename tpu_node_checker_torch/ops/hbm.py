@@ -19,6 +19,7 @@ from typing import Optional
 import torch
 
 from tpu_node_checker_torch.ops._harness import DeviceLike, card_graph, resolve_device, sync
+from tpu_node_checker_torch.probe import spans
 
 
 @dataclass
@@ -54,9 +55,10 @@ def hbm_bandwidth_probe(
             )
         dev = resolve_device(device)
         n = (mib * 1024 * 1024) // 4
-        x = torch.zeros((n,), dtype=torch.float32, device=dev)
+        with spans.span("hbm.alloc"):
+            x = torch.zeros((n,), dtype=torch.float32, device=dev)
         if dev.type == "cuda":
-            replay = card_graph(lambda: _stream_n(x, iters), lambda: _stream_n(x, 1), dev)
+            replay = card_graph(lambda: _stream_n(x, iters), lambda: _stream_n(x, 1), dev, "hbm")
             replay()  # warm
             y, elapsed = replay()
             final = float(y[0].item())

@@ -77,7 +77,7 @@ def int8_matmul_probe(
 
         if dev.type == "cuda":
             replay = card_graph(lambda: _int8_chain(a, b, iters),
-                                lambda: _int8_chain(a, b, 1), dev)
+                                lambda: _int8_chain(a, b, 1), dev, "int8")
             replay()  # warm-up
             out, seconds = replay()
             elapsed_ms = seconds * 1e3

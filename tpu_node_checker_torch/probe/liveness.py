@@ -60,6 +60,7 @@ import time
 from dataclasses import dataclass, field
 from typing import TYPE_CHECKING, List, Mapping, Optional
 
+from tpu_node_checker_torch.probe import spans
 from tpu_node_checker_torch.probe.levels import (  # noqa: F401 — re-exported API
     DEFAULT_TIMEOUT_S,
     LEVEL_TIMEOUTS_S,
@@ -81,6 +82,10 @@ if TYPE_CHECKING:  # the parent imports no torch; the child reaches it lazily
 # initialises CUDA and a wedged card cannot leak into it.
 _CHILD_SCRIPT = r"""
 import json, os, sys, time
+# The first statement: the pair of clocks the child's spans are placed by.
+_first = {"unix_ns": time.time_ns(), "monotonic_ns": time.monotonic_ns()}
+from tpu_node_checker_torch.probe import spans as _spans
+_round = _spans.child_round(_first, os.environ)
 level = sys.argv[1]
 device = sys.argv[2]
 out = {"ok": False, "level": level}
@@ -95,172 +100,189 @@ def _append_error(msg):
     out["error"] = f"{out['error']}; {msg}" if out.get("error") else msg
 
 
-t0 = time.perf_counter()
 # The parent's kill-timer, less room to exit: the farewell after the report
 # waits no longer than this.
 deadline = time.monotonic() + float(sys.argv[3]) - 10.0
 hbm_capacity_error = None
 group = None
 meeting = None
+_alloc0 = None
 try:
     if level not in PORTED_LEVELS:
         raise NotImplementedError(
             f"probe level {level!r} is not yet ported to the PyTorch/CUDA "
             f"probe (ported: {', '.join(PORTED_LEVELS)})"
         )
-    import torch
-    from tpu_node_checker_torch.ops._harness import resolve_device
+    with _spans.span("child.import_torch"):
+        import torch
+    with _spans.span("child.import_port"):
+        from tpu_node_checker_torch.ops._harness import resolve_device
+        from tpu_node_checker_torch.probe.levels import LEVEL_TIMEOUTS_S
     # cuda:0 unless the caller asked for the CPU; an absent card raises here.
-    dev = resolve_device(device)
-    on_card = dev.type == "cuda"
-    n_dev = torch.cuda.device_count() if on_card else 1
-    n_global, process_index, process_count = n_dev, 0, 1
-    from tpu_node_checker_torch.probe.levels import LEVEL_TIMEOUTS_S
-    if os.environ.get("TNC_PROBE_DISTRIBUTED") == "1":
-        # One probe process per host: meet the others before enumerating, so
-        # device_count holds every host's cards.  Failing to meet is itself
-        # a health failure.  The rank group over the meeting forms at the
-        # collective level, as the group of one host does.
-        from tpu_node_checker_torch.parallel import Meeting
-        from tpu_node_checker_torch.probe.liveness import rendezvous_from_env
-        rdv = rendezvous_from_env(os.environ)
-        meeting = Meeting(rdv, n_dev)
-        # The meeting alone: the connection and every process's card count,
-        # what the rendezvous timeout bounds.
-        out["rendezvous_ms"] = round(meeting.meet_s * 1e3, 1)
-        out["distributed"] = True
-        n_global, process_index, process_count = (
-            meeting.world_size, rdv.process_id, rdv.num_processes)
-    if on_card:
-        out["platform"] = "gpu"
-        out["device_kinds"] = sorted({torch.cuda.get_device_name(i) for i in range(n_dev)})
-    else:
-        out["platform"] = "cpu"
-        out["device_kinds"] = ["cpu"]
-    out["local_device_count"] = n_dev
-    out["device_count"] = n_global
-    out["process_index"] = process_index
-    out["process_count"] = process_count
-    out["ok"] = n_dev > 0
-    mem = []         # report surface: devices exposing at least one stat
-    mem_graded = []  # grading surface: EVERY local device, so a card whose
-                     # memory query raises is graded as a None-limit entry
-    for i in range(n_dev if on_card else 0):
+    # On the card this starts the driver; each card's context is created at
+    # its first memory query below.
+    with _spans.span("child.cuda_init"):
+        dev = resolve_device(device)
+    with _spans.span("child.enumerate"):
+        on_card = dev.type == "cuda"
+        n_dev = torch.cuda.device_count() if on_card else 1
+        n_global, process_index, process_count = n_dev, 0, 1
+        if os.environ.get("TNC_PROBE_DISTRIBUTED") == "1":
+            # One probe process per host: meet the others before enumerating, so
+            # device_count holds every host's cards.  Failing to meet is itself
+            # a health failure.  The rank group over the meeting forms at the
+            # collective level, as the group of one host does.
+            from tpu_node_checker_torch.parallel import Meeting
+            from tpu_node_checker_torch.probe.liveness import rendezvous_from_env
+            rdv = rendezvous_from_env(os.environ)
+            meeting = Meeting(rdv, n_dev)
+            # The meeting alone: the connection and every process's card count,
+            # what the rendezvous timeout bounds.
+            out["rendezvous_ms"] = round(meeting.meet_s * 1e3, 1)
+            out["distributed"] = True
+            n_global, process_index, process_count = (
+                meeting.world_size, rdv.process_id, rdv.num_processes)
+        if on_card:
+            out["platform"] = "gpu"
+            out["device_kinds"] = sorted({torch.cuda.get_device_name(i) for i in range(n_dev)})
+        else:
+            out["platform"] = "cpu"
+            out["device_kinds"] = ["cpu"]
+        out["local_device_count"] = n_dev
+        out["device_count"] = n_global
+        out["process_index"] = process_index
+        out["process_count"] = process_count
+        out["ok"] = n_dev > 0
+        mem = []         # report surface: devices exposing at least one stat
+        mem_graded = []  # grading surface: EVERY local device, so a card whose
+                         # memory query raises is graded as a None-limit entry
+        for i in range(n_dev if on_card else 0):
+            try:
+                with _spans.span("child.cuda_init"):
+                    free, total = torch.cuda.mem_get_info(i)
+                in_use, limit = total - free, torch.cuda.get_device_properties(i).total_memory
+            except RuntimeError:
+                in_use, limit = None, None
+            entry = {"id": i,
+                     "bytes_in_use": int(in_use) if in_use is not None else None,
+                     "bytes_limit": int(limit) if limit is not None else None}
+            mem_graded.append(entry)
+            if in_use is not None or limit is not None:
+                mem.append(entry)
+        if mem:
+            out["memory"] = mem
+        # bytes_in_use is the card's whole use (every process on it, per
+        # mem_get_info); bytes_limit grades capacity where a table exists (the
+        # built-in one knows TPUs only, so on a card it is stamped skipped).
+        from tpu_node_checker_torch.probe.floors import grade_hbm_capacity
+        _hcf = os.environ.get("TNC_HBM_CAPACITY_FLOOR")
         try:
-            free, total = torch.cuda.mem_get_info(i)
-            in_use, limit = total - free, torch.cuda.get_device_properties(i).total_memory
-        except RuntimeError:
-            in_use, limit = None, None
-        entry = {"id": i,
-                 "bytes_in_use": int(in_use) if in_use is not None else None,
-                 "bytes_limit": int(limit) if limit is not None else None}
-        mem_graded.append(entry)
-        if in_use is not None or limit is not None:
-            mem.append(entry)
-    if mem:
-        out["memory"] = mem
-    # bytes_in_use is the card's whole use (every process on it, per
-    # mem_get_info); bytes_limit grades capacity where a table exists (the
-    # built-in one knows TPUs only, so on a card it is stamped skipped).
-    from tpu_node_checker_torch.probe.floors import grade_hbm_capacity
-    _hcf = os.environ.get("TNC_HBM_CAPACITY_FLOOR")
-    try:
-        _kw = {"fraction": float(_hcf)} if _hcf else {}
-    except ValueError:
-        raise ValueError(f"TNC_HBM_CAPACITY_FLOOR {_hcf!r} is not a number")
-    cap = grade_hbm_capacity(out.get("device_kinds"), out.get("platform"), mem_graded, **_kw)
-    out["hbm_capacity"] = cap
-    if "skipped" not in cap and not cap["ok"]:
-        bad = ", ".join(f"device {f['id']}: {f['gb']} GB" for f in cap["failed_devices"])
-        hbm_capacity_error = (
-            f"hbm_capacity: {bad} < "
-            f"{round(cap['fraction'] * cap['expected_gb'], 1)} GB "
-            f"({cap['fraction']:.0%} of {cap['generation']} nominal "
-            f"{cap['expected_gb']} GB)"
-        )
-    if meeting is not None and meeting.slice_indices:
-        # A distributed group of equal hosts: each process is one slice,
-        # and the DCN axis of the fault-domain block is the host boundary.
-        out["num_slices"] = len(meeting.slice_indices)
-        out["slice_indices"] = meeting.slice_indices
-    if out.get("distributed") and out["ok"] and out["process_count"] > 1:
-        # Prove the rendezvous carries data: one all_reduce over one rank per
-        # process, each passing its card count x (its index + 1), so that the
-        # sum needs every process.  Half the level's budget bounds it.
-        from tpu_node_checker_torch.parallel import distributed_psum
-        try:
-            with meeting.process_group(dev.type, timeout_s=LEVEL_TIMEOUTS_S[level] / 2):
-                _sum = distributed_psum(float(n_dev * (process_index + 1)))
-        except Exception as exc:
-            raise RuntimeError(f"distributed psum: {type(exc).__name__}: {exc}") from exc
-        _expected = float(sum(c * (p + 1) for p, c in enumerate(meeting.counts)))
-        out["distributed_psum"] = _sum
-        out["distributed_psum_ok"] = abs(_sum - _expected) < 1e-6
-        out["ok"] = out["ok"] and out["distributed_psum_ok"]
-    # Full-stack chaos hooks, read UNCONDITIONALLY whatever the level: a
-    # chaos var set with a level that never runs the injected surface fails
-    # loudly, or the rehearsal "passes" while testing nothing.  Stamped
-    # before validating, so a malformed injection shows in the report.
-    _CHAOS_VARS = {
-        "collective_leg": ("TNC_CHAOS_COLLECTIVE_LEG", ("collective", "mesh", "workload")),
-        "ring_link": ("TNC_CHAOS_RING_LINK", ("collective", "mesh", "workload")),
-        "axis": ("TNC_CHAOS_AXIS", ("collective", "mesh", "workload")),
-        "slices": ("TNC_CHAOS_SLICES", ("collective", "mesh", "workload")),
-        "slow_link": ("TNC_CHAOS_SLOW_LINK", ("mesh", "workload")),
-        "throttle": ("TNC_CHAOS_THROTTLE", ("compute", "collective", "mesh", "workload")),
-    }
-    chaos = {}
-    for key, (var, _lv) in _CHAOS_VARS.items():
-        if os.environ.get(var):
-            chaos[key] = os.environ[var]
-    if chaos:
-        # A copy: the ring link is parsed to an int below, and the report
-        # keeps the variable as it was set (a string, per the schema).
-        out["chaos_injected"] = dict(chaos)
-        bad = sorted(_CHAOS_VARS[k][0] for k in chaos if level not in _CHAOS_VARS[k][1])
-        if bad:
-            raise ValueError(
-                f"{', '.join(bad)} set but probe level {level!r} never runs "
-                "the injected surface (collective legs need --probe-level "
-                "collective+, the mesh link sweep needs mesh+, the throttle "
-                "needs compute+) — the injection would silently test "
-                "nothing; raise the level or unset the chaos vars"
+            _kw = {"fraction": float(_hcf)} if _hcf else {}
+        except ValueError:
+            raise ValueError(f"TNC_HBM_CAPACITY_FLOOR {_hcf!r} is not a number")
+        cap = grade_hbm_capacity(out.get("device_kinds"), out.get("platform"), mem_graded, **_kw)
+        out["hbm_capacity"] = cap
+        if "skipped" not in cap and not cap["ok"]:
+            bad = ", ".join(f"device {f['id']}: {f['gb']} GB" for f in cap["failed_devices"])
+            hbm_capacity_error = (
+                f"hbm_capacity: {bad} < "
+                f"{round(cap['fraction'] * cap['expected_gb'], 1)} GB "
+                f"({cap['fraction']:.0%} of {cap['generation']} nominal "
+                f"{cap['expected_gb']} GB)"
             )
+        if meeting is not None and meeting.slice_indices:
+            # A distributed group of equal hosts: each process is one slice,
+            # and the DCN axis of the fault-domain block is the host boundary.
+            out["num_slices"] = len(meeting.slice_indices)
+            out["slice_indices"] = meeting.slice_indices
+        if out.get("distributed") and out["ok"] and out["process_count"] > 1:
+            # Prove the rendezvous carries data: one all_reduce over one rank per
+            # process, each passing its card count x (its index + 1), so that the
+            # sum needs every process.  Half the level's budget bounds it.
+            from tpu_node_checker_torch.parallel import distributed_psum
+            try:
+                with meeting.process_group(dev.type, timeout_s=LEVEL_TIMEOUTS_S[level] / 2):
+                    _sum = distributed_psum(float(n_dev * (process_index + 1)))
+            except Exception as exc:
+                raise RuntimeError(f"distributed psum: {type(exc).__name__}: {exc}") from exc
+            _expected = float(sum(c * (p + 1) for p, c in enumerate(meeting.counts)))
+            out["distributed_psum"] = _sum
+            out["distributed_psum_ok"] = abs(_sum - _expected) < 1e-6
+            out["ok"] = out["ok"] and out["distributed_psum_ok"]
+        # Full-stack chaos hooks, read UNCONDITIONALLY whatever the level: a
+        # chaos var set with a level that never runs the injected surface fails
+        # loudly, or the rehearsal "passes" while testing nothing.  Stamped
+        # before validating, so a malformed injection shows in the report.
+        _CHAOS_VARS = {
+            "collective_leg": ("TNC_CHAOS_COLLECTIVE_LEG", ("collective", "mesh", "workload")),
+            "ring_link": ("TNC_CHAOS_RING_LINK", ("collective", "mesh", "workload")),
+            "axis": ("TNC_CHAOS_AXIS", ("collective", "mesh", "workload")),
+            "slices": ("TNC_CHAOS_SLICES", ("collective", "mesh", "workload")),
+            "slow_link": ("TNC_CHAOS_SLOW_LINK", ("mesh", "workload")),
+            "throttle": ("TNC_CHAOS_THROTTLE", ("compute", "collective", "mesh", "workload")),
+        }
+        chaos = {}
+        for key, (var, _lv) in _CHAOS_VARS.items():
+            if os.environ.get(var):
+                chaos[key] = os.environ[var]
+        if chaos:
+            # A copy: the ring link is parsed to an int below, and the report
+            # keeps the variable as it was set (a string, per the schema).
+            out["chaos_injected"] = dict(chaos)
+            bad = sorted(_CHAOS_VARS[k][0] for k in chaos if level not in _CHAOS_VARS[k][1])
+            if bad:
+                raise ValueError(
+                    f"{', '.join(bad)} set but probe level {level!r} never runs "
+                    "the injected surface (collective legs need --probe-level "
+                    "collective+, the mesh link sweep needs mesh+, the throttle "
+                    "needs compute+) — the injection would silently test "
+                    "nothing; raise the level or unset the chaos vars"
+                )
     if level in ("compute", "collective", "mesh", "workload") and out["ok"]:
-        from tpu_node_checker_torch import ops
+        with _spans.span("child.import_port"):
+            from tpu_node_checker_torch import ops
         if on_card:
             # Build the three kernels at once, one nvcc each, before timing.
-            from tpu_node_checker_torch.ops import _build
-            _build.build_all()
+            with _spans.span("child.kernel_build"):
+                from tpu_node_checker_torch.ops import _build
+                _build.build_all()
         # Round-trip overhead of one trivial launch plus its scalar fetch:
         # telemetry for triage, and the gate deciding whether wall-clock
         # figures may be floor-graded.
-        _x = torch.zeros((), device=dev)
-        float((_x + 1.0).item())
-        _t0 = time.perf_counter()
-        for _ in range(3):
+        with _spans.span("child.dispatch_check"):
+            _x = torch.zeros((), device=dev)
             float((_x + 1.0).item())
-        out["dispatch_overhead_ms"] = round((time.perf_counter() - _t0) / 3 * 1e3, 2)
+            _t0 = time.perf_counter()
+            for _ in range(3):
+                float((_x + 1.0).item())
+            out["dispatch_overhead_ms"] = round((time.perf_counter() - _t0) / 3 * 1e3, 2)
+        # The caching allocator's counts, from the first probe to the report.
+        _alloc0 = _spans.allocator_counts(dev)
         # Card sizing, as the JAX child sizes for its accelerator: on-device
         # time must dominate launch overhead.
-        burn = ops.matmul_burn(iters=64, device=dev) if on_card else ops.matmul_burn(device=dev)
+        with _spans.span("probe.matmul_burn"):
+            burn = (ops.matmul_burn(iters=64, device=dev) if on_card
+                    else ops.matmul_burn(device=dev))
         out["matmul_tflops"] = round(burn.tflops, 3)
         out["matmul_ok"] = burn.ok
-        hbm = ops.hbm_bandwidth_probe(device=dev)
+        with _spans.span("probe.hbm_bandwidth_probe"):
+            hbm = ops.hbm_bandwidth_probe(device=dev)
         out["hbm_gbps"] = round(hbm.gbps, 2)
         out["hbm_ok"] = hbm.ok
-        pallas = ops.pallas_matmul_probe(device=dev)
+        with _spans.span("probe.pallas_matmul_probe"):
+            pallas = ops.pallas_matmul_probe(device=dev)
         out["pallas_ok"] = pallas.ok
         i8_gate = True
         if os.environ.get("TNC_SKIP_INT8") == "1":
             # Operator escape hatch; skipping is visible, never silent.
             out["int8_skipped"] = True
         else:
-            i8 = (
-                ops.int8_matmul_probe(m=1024, k=1024, n=1024, iters=128, device=dev)
-                if on_card
-                else ops.int8_matmul_probe(device=dev)
-            )
+            with _spans.span("probe.int8_matmul_probe"):
+                i8 = (
+                    ops.int8_matmul_probe(m=1024, k=1024, n=1024, iters=128, device=dev)
+                    if on_card
+                    else ops.int8_matmul_probe(device=dev)
+                )
             out["int8_ok"] = i8.ok
             out["int8_tops"] = round(i8.tops, 3)
             i8_gate = i8.ok
@@ -271,16 +293,19 @@ try:
             # Operator escape hatch; skipping is visible, never silent.
             out["flash_attention_skipped"] = True
         else:
-            fa = ops.flash_attention_probe(seq=256, device=dev)
+            with _spans.span("probe.flash_attention_probe"):
+                fa = ops.flash_attention_probe(seq=256, device=dev)
             out["flash_attention_ok"] = fa.ok
             fa_gate = fa.ok
             if not fa.ok:
                 out["flash_attention_err"] = fa.error
                 out["flash_attention_max_abs_err"] = fa.max_abs_err
-        dma = ops.dma_stream_probe(device=dev)
+        with _spans.span("probe.dma_stream_probe"):
+            dma = ops.dma_stream_probe(device=dev)
         out["dma_ok"] = dma.ok
         out["dma_gbps"] = round(dma.gbps, 2)
-        mt = ops.hbm_pattern_probe(device=dev)
+        with _spans.span("probe.hbm_pattern_probe"):
+            mt = ops.hbm_pattern_probe(device=dev)
         out["memtest_ok"] = mt.ok
         if not mt.ok:
             out["memtest_err"] = mt.error
@@ -295,13 +320,14 @@ try:
             # busy for under a millisecond, and the host's work between
             # rounds leaves the card mostly idle; 1024 take about 40 ms, so
             # the card stays loaded for the soak's budget.
-            soak = ops.soak_burn(
-                soak_s,
-                iters=1024 if on_card else 16,
-                device=dev,
-                min_sustained_ratio=float(os.environ.get("TNC_SOAK_MIN_RATIO") or 0.5),
-                hbm_mib=int(os.environ.get("TNC_SOAK_HBM_MIB") or 128),
-            )
+            with _spans.span("probe.soak_burn"):
+                soak = ops.soak_burn(
+                    soak_s,
+                    iters=1024 if on_card else 16,
+                    device=dev,
+                    min_sustained_ratio=float(os.environ.get("TNC_SOAK_MIN_RATIO") or 0.5),
+                    hbm_mib=int(os.environ.get("TNC_SOAK_HBM_MIB") or 128),
+                )
             out["soak"] = soak.to_dict()
             out["ok"] = out["ok"] and soak.ok
     if level in ("collective", "mesh", "workload") and out["ok"]:
@@ -549,11 +575,16 @@ except Exception as exc:  # tnc: allow-broad-except(the whole point is to catch 
 finally:
     if group is not None:
         group.close()
-if level != "enumerate" and "tpu_node_checker_torch.ops" in sys.modules:
-    # Which hand-written kernels ran, the training step's included (all 0 on
-    # the CPU, where the plain versions stand in for them).
-    out["kernel_launches"] = sys.modules["tpu_node_checker_torch.ops"].launch_counts()
-out["elapsed_ms"] = round((time.perf_counter() - t0) * 1e3, 1)
+with _spans.span("child.report"):
+    if level != "enumerate" and "tpu_node_checker_torch.ops" in sys.modules:
+        # Which hand-written kernels ran, the training step's included (all 0
+        # on the CPU, where the plain versions stand in for them).
+        out["kernel_launches"] = sys.modules["tpu_node_checker_torch.ops"].launch_counts()
+    if _alloc0 is not None:
+        _spans.count_allocator(_alloc0, dev)
+# Closes the child's own span, probe.child: serialising and printing the
+# report fall in the parent's probe.child_exit.
+out["spans"] = _round.child_block()
 print(json.dumps(out, default=lambda o: o.item() if hasattr(o, "item") else str(o)), flush=True)
 if meeting is not None:
     # After the report: process 0 keeps the store up for its peers, but
@@ -637,6 +668,12 @@ def run_local_probe(
 
     On a timeout the child's whole session is killed, the ranks it spawned
     with it (:func:`_run_child`).
+
+    The child's report carries its spans and counters under ``spans``
+    (:mod:`tpu_node_checker_torch.probe.spans`).  Inside a current round
+    (the emitter's), the child joins the round's trace, and this side
+    places ``probe.spawn``, ``probe.child`` and ``probe.child_exit`` on the
+    monotonic clock the two processes share, and times ``emit.parse``.
     """
     if level not in LEVELS:
         raise ValueError(f"unknown probe level {level!r}; expected one of {LEVELS}")
@@ -654,8 +691,9 @@ def run_local_probe(
         if dist_init_timeout_s is not None:
             timeout_s += dist_init_timeout_s
     hostname = os.environ.get("NODE_NAME") or os.uname().nodename
+    round_ = spans.current()
     t0 = time.perf_counter()
-    child_env = {**os.environ, "PYTHONPATH": _pythonpath()}
+    child_env = {**os.environ, "PYTHONPATH": _pythonpath(), **spans.child_env(round_)}
     if distributed:
         child_env["TNC_PROBE_DISTRIBUTED"] = "1"
         if coordinator:
@@ -674,6 +712,7 @@ def run_local_probe(
         # Floor fraction override (0 disables); the child defaults to
         # DEFAULT_FLOOR_FRACTION when unset.
         child_env["TNC_PERF_FLOOR"] = str(perf_floor)
+    spawn_ns = time.monotonic_ns()
     try:
         proc = _run_child(
             [sys.executable, "-c", _CHILD_SCRIPT, level, str(device), str(timeout_s)],
@@ -688,33 +727,37 @@ def run_local_probe(
             elapsed_ms=round((time.perf_counter() - t0) * 1e3, 1),
             error=f"probe timed out after {timeout_s}s (CUDA init or kernel hang?)",
         )
+    reaped_ns = time.monotonic_ns()
     elapsed_ms = round((time.perf_counter() - t0) * 1e3, 1)
-    line = proc.stdout.strip().splitlines()[-1] if proc.stdout.strip() else ""
-    try:
-        data = json.loads(line)
-    except (json.JSONDecodeError, ValueError):
-        return ProbeResult(
-            ok=False,
+    with spans.span("emit.parse"):
+        line = proc.stdout.strip().splitlines()[-1] if proc.stdout.strip() else ""
+        try:
+            data = json.loads(line)
+        except (json.JSONDecodeError, ValueError):
+            return ProbeResult(
+                ok=False,
+                level=level,
+                hostname=hostname,
+                elapsed_ms=elapsed_ms,
+                error=(
+                    f"probe subprocess exited {proc.returncode} without a report: "
+                    f"{(proc.stderr or '').strip()[-500:]}"
+                ),
+            )
+        if round_ is not None:
+            round_.adopt_child(data.get("spans"), spawn_ns, reaped_ns)
+        known = {"ok", "level", "platform", "device_count", "device_kinds", "error"}
+        result = ProbeResult(
+            ok=bool(data.get("ok")),
             level=level,
             hostname=hostname,
             elapsed_ms=elapsed_ms,
-            error=(
-                f"probe subprocess exited {proc.returncode} without a report: "
-                f"{(proc.stderr or '').strip()[-500:]}"
-            ),
+            device_count=int(data.get("device_count") or 0),
+            platform=data.get("platform"),
+            device_kinds=list(data.get("device_kinds") or []),
+            error=data.get("error"),
+            details={k: v for k, v in data.items() if k not in known},
         )
-    known = {"ok", "level", "platform", "device_count", "device_kinds", "error", "elapsed_ms"}
-    result = ProbeResult(
-        ok=bool(data.get("ok")),
-        level=level,
-        hostname=hostname,
-        elapsed_ms=elapsed_ms,
-        device_count=int(data.get("device_count") or 0),
-        platform=data.get("platform"),
-        device_kinds=list(data.get("device_kinds") or []),
-        error=data.get("error"),
-        details={k: v for k, v in data.items() if k not in known},
-    )
     if result.ok and expected_devices is not None and result.device_count < expected_devices:
         result.ok = False
         result.error = (
