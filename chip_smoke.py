@@ -13,7 +13,11 @@ Phases, one line each (any failure exits non-zero and prints no result):
 3. kernels: each kernel at the shapes the compute probe gives it, held against
    its plain PyTorch version on the card, and timed beside its plain version,
    one PyTorch library call computing the same function, and the card's bound,
-   with the device time of the kernel and of the library call side by side;
+   with the device time of the kernel and of the library call side by side
+   (the int8 chain at the probe's 1024^3 x 128 products, bit-equal to its
+   plain chain of rolls, ``torch._int_mm`` products and adds; its library
+   form is that chain with the right operand column-major, the layout
+   cuBLAS runs fastest, with its share of the bound);
    then the tiled matmul at 4096^3 (each tile it is built for) and flash
    attention at (1, 16, 4096, 128) (each query row held to its own size,
    the limit shown to catch a dropped K/V tile), each held against its plain
@@ -21,9 +25,8 @@ Phases, one line each (any failure exits non-zero and prints no result):
 4. main path: the compute-level probe through its entry point
    (``python -m tpu_node_checker_torch --emit-probe - --probe-level compute``),
    which must report healthy, validate against the report schema and show
-   every kernel launched; then the three kernel probes in this process, with
-   their launch counts; then the int8 chain's device time by kernel, and its
-   product alone with the right operand row-major and column-major;
+   every kernel launched; then the compute probes in this process, with
+   every kernel's launch count;
 5. workload path: in this process, at the full ``BurninConfig()``, the flash
    kernel against its plain version at the training step's shape
    (8, 4, 128, 32) bf16, one training step with ``attention="flash"``
@@ -49,7 +52,7 @@ Phases, one line each (any failure exits non-zero and prints no result):
    DaemonSet's ``--emit-probe DIR/$NODE_NAME.json --probe-level compute
    --watch 5 --metrics-port 0 --log-jsonl L``, sent SIGTERM 2 s after its
    second report, in its third round (every round healthy, logged and
-   launching all three kernels; each round's time, the gap between round
+   launching all four kernels; each round's time, the gap between round
    starts and the seconds from SIGTERM to exit printed), its ``/metrics``
    scraped on the port its stderr line names after the first and the
    second report (the probe gauges equal to that round's report, the exit
@@ -266,7 +269,7 @@ Phases, one line each (any failure exits non-zero and prints no result):
    the result line.
 
 Bounds use the H100 SXM data sheet: 3.35 TB/s of device memory, 989 TFLOP/s
-bf16 on the tensor cores.  Times are steady-state CUDA-event times over many
+bf16 and 1,979 TOPS int8 (dense) on the tensor cores.  Times are steady-state CUDA-event times over many
 back-to-back launches, inputs warm in L2.
 """
 
@@ -296,6 +299,7 @@ from typing import Optional
 
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
+INT8_OPS = 1979e12
 F32_FLOPS = 67e12
 REPS = 200
 STARTUP_SCRIPT = """
@@ -434,25 +438,6 @@ def device_ms(torch, fn, kernel_symbol=None, reps: int = 20, sessions: int = 3):
         if total_us and calls:
             return total_us / calls / 1e3
     return None
-
-
-def device_breakdown(torch, fn, reps: int = 5, top: int = 6) -> dict:
-    """Device ms per call of ``fn`` by kernel name, from one torch.profiler
-    trace: the ``top`` kernels by total time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    events = sorted((e for e in prof.key_averages()
-                     if e.device_type == DeviceType.CUDA and not e.is_user_annotation),
-                    key=lambda e: -e.self_device_time_total)
-    return {e.key[:80]: {"ms_per_call": e.self_device_time_total / reps / 1e3,
-                         "launches_per_call": e.count / reps} for e in events[:top]}
 
 
 def bound(bytes_moved: float, flops: float, peak_flops: float) -> tuple:
@@ -2036,7 +2021,7 @@ def phase12_watch_loop(torch, root, rows, validate_report) -> None:
             entry.update(probe_ok=p.get("ok"), probe_error=p.get("error"),
                          kernel_launches=p.get("kernel_launches"),
                          kernels_match_plain={k: p.get(k) for k in (
-                             "pallas_ok", "dma_ok", "flash_attention_ok")},
+                             "pallas_ok", "dma_ok", "flash_attention_ok", "int8_ok")},
                          schema_violations=validate_report(p),
                          timings_ms=r.get("timings_ms"))
         per_round.append(entry)
@@ -2053,7 +2038,7 @@ def phase12_watch_loop(torch, root, rows, validate_report) -> None:
         r["probe"].get("ok") is not True or validate_report(r["probe"])
         or [r["probe"].get("kernel_launches", {}).get(k["name"]) for k in rows] != want
         or not all(r["probe"].get(k) is True for k in ("pallas_ok", "dma_ok",
-                                                         "flash_attention_ok")))]
+                                                         "flash_attention_ok", "int8_ok")))]
     if len(probed) != 5 or bad:
         fail(f"the probed loop: {len(probed)} rounds probed, rounds {bad} unlike the "
              f"workload path's {want}: {run['stderr'][-20:]}")
@@ -2286,7 +2271,7 @@ def phase13_quarantine(torch, root, rows, validate_report) -> dict:
             hostname=doc.get("hostname"), error=doc.get("error"),
             kernel_launches=doc.get("kernel_launches"),
             kernels_match_plain={k: doc.get(k) for k in ("pallas_ok", "dma_ok",
-                                                         "flash_attention_ok")},
+                                                         "flash_attention_ok", "int8_ok")},
             schema_violations=validate_report(doc))
     phase(13, "the reports, written by the port's emitter, four at once", reports=per_emit,
           seconds=time.perf_counter() - t0)
@@ -3369,7 +3354,7 @@ def phase15_federation(torch, root, rows, validate_report) -> None:
             hostname=doc.get("hostname"), error=doc.get("error"),
             kernel_launches=doc.get("kernel_launches"),
             kernels_match_plain={k: doc.get(k) for k in ("pallas_ok", "dma_ok",
-                                                         "flash_attention_ok")},
+                                                         "flash_attention_ok", "int8_ok")},
             schema_violations=validate_report(doc))
     phase(15, "this host's reports, written by the port's emitter at once", reports=per_emit,
           seconds=emit_seconds)
@@ -3876,6 +3861,7 @@ def main() -> int:
         from tpu_node_checker_torch.ops import _build, pallas_probe
         from tpu_node_checker_torch.ops.dma_probe import dma_stream_reference
         from tpu_node_checker_torch.ops.flash_attention import causal_attention_reference
+        from tpu_node_checker_torch.ops.int8_probe import int8_chain_reference
         from tpu_node_checker_torch.ops.pallas_probe import tiled_matmul_reference
         from tpu_node_checker_torch.probe.schema import validate_report
     except ImportError as exc:
@@ -4005,10 +3991,44 @@ def main() -> int:
         ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=lib_ms,
         device_ms=dev_ms, library_device_ms=lib_dev_ms, shape=list(shape),
     ))
+
+    # The int8 chain at the probe's chain: 128 products of 1024^3.  Its
+    # library form is the plain chain with the right operand column-major.
+    m = k = n = 1024
+    iters = 128
+    a8, b8 = (torch.randint(-8, 8, (1024, 1024), generator=gen, device=dev).to(torch.int8)
+              for _ in range(2))
+    b8_cols = b8.t().contiguous().t()
+    out = ops.int8_chain(a8, b8, iters)
+    torch.cuda.synchronize()
+    ref = int8_chain_reference(a8, b8, iters)
+    exact = bool(torch.equal(out, ref)) and bool(
+        torch.equal(int8_chain_reference(a8, b8_cols, iters), ref))
+    ms, plain_ms, lib_ms = timed_turns(
+        torch,
+        lambda: ops.int8_chain(a8, b8, iters),
+        lambda: int8_chain_reference(a8, b8, iters),
+        lambda: int8_chain_reference(a8, b8_cols, iters),
+    )
+    dev_ms = device_ms(torch, lambda: ops.int8_chain(a8, b8, iters), "int8_chain_kernel")
+    lib_dev_ms = device_ms(torch, lambda: int8_chain_reference(a8, b8_cols, iters))
+    # int8 a and b read once, the int32 sums written once; 2mkn operations a
+    # product at the card's int8 rate.
+    bms, by = bound(m * k + k * n + 4 * m * n, 2.0 * m * k * n * iters, INT8_OPS)
+    rows.append(dict(
+        name="int8_chain", route="cuda",
+        source="tpu_node_checker_torch/ops/csrc/int8_chain.cu",
+        replaces="tpu_node_checker/ops/int8_probe.py:38",
+        max_abs_err=float((out - ref).abs().max().item()), check="torch.equal (exact)",
+        ok=exact, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=lib_ms,
+        device_ms=dev_ms, library_device_ms=lib_dev_ms, shape=[m, k, n, iters],
+        share_of_bound=bms / dev_ms if dev_ms else None,
+    ))
+    del a8, b8, b8_cols, out, ref
     for r in rows:
         phase(3, f"kernel {r['name']}", **{k2: r[k2] for k2 in (
             "ok", "check", "max_abs_err", "ms", "device_ms", "plain_ms", "library_ms",
-            "library_device_ms", "bound_ms", "bound_by")})
+            "library_device_ms", "bound_ms", "bound_by", "share_of_bound") if k2 in r})
     bad = [r["name"] for r in rows if not r["ok"]]
     if bad:
         fail(f"kernels disagree with their plain versions: {bad}")
@@ -4106,14 +4126,14 @@ def main() -> int:
           child_elapsed_ms=report.get("elapsed_ms"),
           dispatch_overhead_ms=report.get("dispatch_overhead_ms"),
           pallas_ok=report.get("pallas_ok"), dma_ok=report.get("dma_ok"),
-          flash_attention_ok=report.get("flash_attention_ok"),
+          flash_attention_ok=report.get("flash_attention_ok"), int8_ok=report.get("int8_ok"),
           matmul_tflops=report.get("matmul_tflops"), int8_tops=report.get("int8_tops"),
           hbm_gbps=report.get("hbm_gbps"), dma_gbps=report.get("dma_gbps"),
           kernel_launches=launches, schema_violations=violations,
           perf_floor=report.get("perf_floor"))
     if proc.returncode != 0 or not report.get("ok"):
         fail(f"compute-level probe not healthy: {report.get('error')}")
-    for key in ("pallas_ok", "dma_ok", "flash_attention_ok"):
+    for key in ("pallas_ok", "dma_ok", "flash_attention_ok", "int8_ok"):
         if report.get(key) is not True:
             fail(f"{key} is {report.get(key)!r}")
     if violations:
@@ -4157,28 +4177,6 @@ def main() -> int:
     bad += [name for name in ops.KERNEL_WRAPPERS if not in_process.get(name)]
     if bad:
         fail(f"in-process probes failed or never launched their kernel: {bad}")
-
-    # Where the int8 chain's device time goes: the probe's 1024^3 products
-    # with their rolls and adds, by kernel, and the product alone with its
-    # right operand row-major (as the probe passes it) and column-major.
-    from tpu_node_checker_torch.ops.int8_probe import _int8_chain
-    a8, b8 = (torch.randint(-8, 8, (1024, 1024), generator=gen, device=dev).to(torch.int8)
-              for _ in range(2))
-    b8_cols = b8.t().contiguous().t()
-    mm_ms, columns_equal = {}, None
-    for layout, rhs in (("row_major", b8), ("column_major", b8_cols)):
-        try:  # the library may refuse a layout; that is a reading, not a failure
-            mm_ms[layout] = cuda_ms(torch, lambda rhs=rhs: torch._int_mm(a8, rhs), reps=50)
-        except RuntimeError as exc:
-            mm_ms[layout] = f"{type(exc).__name__}: {exc}"[:300]
-    if all(isinstance(v, float) for v in mm_ms.values()):
-        columns_equal = bool(torch.equal(torch._int_mm(a8, b8), torch._int_mm(a8, b8_cols)))
-    phase(4, "int8 chain by kernel (8 products of 1024^3)",
-          kernels=device_breakdown(torch, lambda: _int8_chain(a8, b8, 8)),
-          int_mm_ms=mm_ms, int_mm_tops={k: 2 * 1024 ** 3 / (v * 1e-3) / 1e12
-                                        for k, v in mm_ms.items() if isinstance(v, float)},
-          columns_equal=columns_equal)
-    del a8, b8, b8_cols
 
     # -- 5. the workload path: the training step in this process, then the
     # workload-level probe through its entry point.
@@ -4419,7 +4417,7 @@ def main() -> int:
             "distributed_launches", "oneshot_launches", "live_round_launches", "watch_launches",
             "quarantine_launches", "deployment_launches", "federation_launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "device_ms",
-            "library_device_ms", "ok", "check", "training_step")
+            "library_device_ms", "share_of_bound", "ok", "check", "training_step")
     print(json.dumps({"kernels": [{k2: r[k2] for k2 in keys if k2 in r} for r in rows]}),
           flush=True)
     print(smi, flush=True)

@@ -159,15 +159,93 @@ def test_int8_graph_replays_the_eager_chain(cuda_device):
     gen = torch.Generator(device=cuda_device).manual_seed(0)
     a, b = (torch.randint(-8, 8, shape, generator=gen, device=cuda_device).to(torch.int8)
             for shape in ((256, 512), (512, 384)))
+    port_int8.int8_chain.launches = 0
     replay = port_harness.card_graph(lambda: port_int8._int8_chain(a, b, 8),
                                      lambda: port_int8._int8_chain(a, b, 1), cuda_device)
     first, seconds = replay()
     first = first.clone()
-    again, _ = replay()
+    replays = [replay()[0].clone() for _ in range(3)]
     eager = port_int8._int8_chain(a, b, 8)
+    # The warm-up, the capture and the eager chain each went through the kernel.
+    assert port_int8.int8_chain.launches == 3
     assert seconds > 0
-    # Integer arithmetic: every replay equals the eager chain exactly.
-    assert torch.equal(first, eager) and torch.equal(again, eager)
+    # Integer arithmetic: every replay equals the first and the eager chain,
+    # and both equal the plain chain of library products, exactly.
+    assert all(torch.equal(again, first) for again in replays)
+    assert torch.equal(first, eager)
+    assert torch.equal(eager, port_int8.int8_chain_reference(a, b, 8))
+
+
+@pytest.mark.cuda
+class TestInt8ChainOnCard:
+    """The int8 chain kernel against the plain chain (rolls, ``torch._int_mm``,
+    adds) on the card: integer sums, so bit-equal."""
+
+    @pytest.mark.parametrize("m,k,n,iters", [
+        (1024, 1024, 1024, 128),  # the probe's chain: the 128 x 256 tile, 4 groups
+        (256, 512, 384, 8),  # the 128 x 128 tile, a group an iteration
+        (128, 128, 256, 130),  # iterations past a whole turn of the roll
+        (384, 256, 512, 1),  # one product
+    ])
+    def test_equals_plain_chain(self, cuda_device, m, k, n, iters):
+        gen = torch.Generator(device=cuda_device).manual_seed(m + n + iters)
+        a = torch.randint(-8, 8, (m, k), generator=gen, device=cuda_device).to(torch.int8)
+        b = torch.randint(-8, 8, (k, n), generator=gen, device=cuda_device).to(torch.int8)
+        before = port_int8.int8_chain.launches
+        out = port_int8.int8_chain(a, b, iters)
+        torch.cuda.synchronize()
+        assert port_int8.int8_chain.launches == before + 1
+        assert out.dtype == torch.int32 and out.shape == (m, n)
+        assert torch.equal(out, port_int8.int8_chain_reference(a, b, iters))
+
+    @pytest.mark.parametrize("tile", port_int8.KERNEL_TILES)
+    @pytest.mark.parametrize("groups", [1, 3])
+    def test_every_tile_and_split(self, cuda_device, tile, groups):
+        # Each tile the kernel is built for, through its C entry, at the
+        # probe's width with an uneven split of the iterations.
+        build = importlib.import_module("tpu_node_checker_torch.ops._build")
+        m = k = n = 512
+        iters = 10
+        gen = torch.Generator(device=cuda_device).manual_seed(groups)
+        a = torch.randint(-8, 8, (m, k), generator=gen, device=cuda_device).to(torch.int8)
+        b = torch.randint(-8, 8, (k, n), generator=gen, device=cuda_device).to(torch.int8)
+        a2, bt = torch.cat([a, a]), b.t().contiguous()
+        acc = torch.zeros((m, n), dtype=torch.int32, device=cuda_device)
+        code = build.kernel("int8_chain")(
+            a2.data_ptr(), bt.data_ptr(), acc.data_ptr(), m, n, k, iters, *tile, groups,
+            torch.cuda.current_stream(cuda_device).cuda_stream)
+        build.check("int8_chain", code)
+        torch.cuda.synchronize()
+        assert torch.equal(acc, port_int8.int8_chain_reference(a, b, iters))
+
+    def test_refuses_shape_off_the_rule(self, cuda_device):
+        a = torch.zeros((128, 96), dtype=torch.int8, device=cuda_device)
+        b = torch.zeros((96, 128), dtype=torch.int8, device=cuda_device)
+        with pytest.raises(ValueError, match="multiples of 128"):
+            port_int8.int8_chain(a, b, 2)
+
+    def test_takes_any_input_layout(self, cuda_device):
+        # The wrapper hands the kernel fresh copies ([a; a] and b^T), so a
+        # transposed a and a b at an odd address give the plain chain's sums.
+        gen = torch.Generator(device=cuda_device).manual_seed(7)
+        a = torch.randint(-8, 8, (256, 384), generator=gen, device=cuda_device).to(torch.int8).t()
+        flat = torch.randint(-8, 8, (256 * 128 + 1,), generator=gen,
+                             device=cuda_device).to(torch.int8)
+        b = flat[1:].view(256, 128)
+        assert not a.is_contiguous() and b.data_ptr() % 16
+        out = port_int8.int8_chain(a, b, 5)
+        # The library's products want aligned operands: fresh copies for them.
+        assert torch.equal(out, port_int8.int8_chain_reference(a.contiguous(), b.clone(), 5))
+
+    def test_probe_refuses_shape_off_the_rule(self, cuda_device):
+        # A limit of the kernel, reported as such, not as a mismatch; the
+        # kernel never runs.
+        before = port_int8.int8_chain.launches
+        res = port_int8.int8_matmul_probe(m=100, k=128, n=128, iters=4, device=cuda_device)
+        assert not res.ok and res.tops == 0.0
+        assert "not supported by the int8 chain kernel" in res.error
+        assert "WRONG" not in res.error
+        assert port_int8.int8_chain.launches == before
 
 
 @pytest.mark.cuda

@@ -390,8 +390,10 @@ class TestKernelWrappersOnCpu:
                                  torch.zeros(128, 128, dtype=torch.bfloat16), 0.5)
         port_dma.dma_stream(torch.zeros(8, 8), 4)
         port_flash.flash_forward(*(torch.zeros(1, 1, 128, 32) for _ in range(3)))
+        port_int8.int8_chain(torch.zeros(128, 128, dtype=torch.int8),
+                             torch.zeros(128, 128, dtype=torch.int8), 2)
         assert port_ops.launch_counts() == {
-            "tiled_matmul": 0, "dma_stream": 0, "flash_attention": 0,
+            "tiled_matmul": 0, "dma_stream": 0, "flash_attention": 0, "int8_chain": 0,
         }
 
     @pytest.mark.parametrize("call", [
@@ -400,6 +402,8 @@ class TestKernelWrappersOnCpu:
             torch.zeros(128, 128, dtype=torch.bfloat16, device=m), 0.5),
         lambda m: port_dma.dma_stream(torch.zeros(8, 8, device=m), 4),
         lambda m: port_flash.flash_forward(*(torch.zeros(1, 1, 128, 32, device=m) for _ in range(3))),
+        lambda m: port_int8.int8_chain(torch.zeros(128, 128, dtype=torch.int8, device=m),
+                                       torch.zeros(128, 128, dtype=torch.int8, device=m), 2),
     ])
     def test_non_cpu_tensors_never_take_the_plain_version(self, call):
         # Only a CPU tensor selects the plain version; any other device either

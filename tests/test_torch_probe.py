@@ -114,7 +114,7 @@ class TestWorkloadSlice:
         for key in ("collective_busbw_gbps", "ring_link_gbps"):
             assert port[key] is None and ref[key] is None, key
         assert port["kernel_launches"] == {
-            "tiled_matmul": 0, "dma_stream": 0, "flash_attention": 0,
+            "tiled_matmul": 0, "dma_stream": 0, "flash_attention": 0, "int8_chain": 0,
         }
 
 
@@ -142,7 +142,7 @@ class TestComputeSlice:
         assert d["platform"] == "cpu" and d["device_kinds"] == ["cpu"]
         assert "skipped" in d["hbm_capacity"] and "skipped" in d["perf_floor"]
         assert d["kernel_launches"] == {
-            "tiled_matmul": 0, "dma_stream": 0, "flash_attention": 0,
+            "tiled_matmul": 0, "dma_stream": 0, "flash_attention": 0, "int8_chain": 0,
         }
 
 

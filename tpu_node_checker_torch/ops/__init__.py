@@ -1,7 +1,9 @@
 """Single-card compute probes: real work as a health signal.
 
 * :func:`matmul_burn` and :func:`int8_matmul_probe`: bf16 and int8 products
-  on the tensor cores, checked by an invariant and exactly;
+  on the tensor cores, checked by an invariant and exactly (the int8 chain is
+  one kernel written by hand for Hopper, :func:`int8_chain`,
+  ``ops/csrc/int8_chain.cu``);
 * :func:`hbm_bandwidth_probe` and :func:`hbm_pattern_probe`: device-memory
   bandwidth and data integrity;
 * :func:`pallas_matmul_probe`, :func:`dma_stream_probe` and
@@ -22,7 +24,7 @@ from tpu_node_checker_torch.ops.flash_attention import (
     flash_forward,
 )
 from tpu_node_checker_torch.ops.hbm import HbmResult, hbm_bandwidth_probe
-from tpu_node_checker_torch.ops.int8_probe import Int8Result, int8_matmul_probe
+from tpu_node_checker_torch.ops.int8_probe import Int8Result, int8_chain, int8_matmul_probe
 from tpu_node_checker_torch.ops.memtest import MemtestResult, hbm_pattern_probe
 from tpu_node_checker_torch.ops.pallas_probe import (
     PallasProbeResult,
@@ -35,6 +37,7 @@ KERNEL_WRAPPERS = {
     "tiled_matmul": tiled_matmul,
     "dma_stream": dma_stream,
     "flash_attention": flash_forward,
+    "int8_chain": int8_chain,
 }
 
 
@@ -63,6 +66,7 @@ __all__ = [
     "HbmResult",
     "hbm_bandwidth_probe",
     "Int8Result",
+    "int8_chain",
     "int8_matmul_probe",
     "MemtestResult",
     "hbm_pattern_probe",
