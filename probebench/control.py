@@ -4,10 +4,12 @@ Runs a cell's real rounds (a short window), then judges two sets of
 outputs with the cell's limits: the program's, and the control's, which is
 the plain reference put in the program's place and computed one precision
 below the configuration's: fp8 operands for the bf16 products (the burn
-chain, its invariant, the tiled matmul, flash attention), bf16 for the
-float32 DMA stream.  The exact answers (int8, whose inputs in [-8, 8) int4
-holds exactly; the HBM stream's small integers; the memtest's bit patterns)
-are their own control.  The control has to come out not correct.
+chain and its invariant here; each other kind's ``control`` in
+``reference/<kind>.py``: the tiled matmul, flash attention, the burn-in
+training step), bf16 for the float32 DMA stream.  A kind whose reference
+gives no ``control`` is exact (int8, whose inputs in [-8, 8) int4 holds
+exactly; the HBM stream's small integers; the memtest's bit patterns) and
+is its own control.  The control has to come out not correct.
 
     python3 probebench/control.py --workload emitter-compute --seconds 2 --seed 11 12 13
 
@@ -29,40 +31,47 @@ from probebench import judge  # noqa: E402
 from probebench.core import run_cell  # noqa: E402
 from probebench.reference import probes as ref  # noqa: E402
 
-LOWER = {"tiled": "fp8", "flash": "fp8", "burn": "fp8", "dma": "bf16"}
+LOWER = "fp8"  # the burn chain's and its invariant's
+
+
+def _controlled(capture, arrays: dict, device, chains: dict, invariants: dict) -> tuple:
+    """A copy of one capture with every answer replaced by the control's."""
+    if capture is None:
+        return capture, arrays
+    meta, arrays = copy.deepcopy(capture), dict(arrays)
+    for c in meta["chain"]:
+        key = (c["n"], c["iters"])
+        if key not in chains:
+            chains[key] = ref.burn_chain(c["n"], c["iters"], device, LOWER)[0]
+        c["checksum"] = chains[key]
+    for c in meta["invariant"]:
+        if c["n"] not in invariants:
+            invariants[c["n"]] = ref.burn_invariant(c["n"], device, LOWER)
+        c["trace"] = c["sumsq"] = invariants[c["n"]]
+    for o in meta["outputs"]:
+        lower = getattr(judge.reference_of(o["kind"]), "control", None)
+        if lower is not None:
+            key = f"{o['key']}_val"
+            arrays[key] = lower(o["args"], arrays[o["idx"]], arrays[key], device)
+    return meta, arrays
 
 
 def control_rounds(rounds: list, device) -> list:
-    """``rounds`` with every captured answer replaced by the control's."""
+    """``rounds`` with every captured answer, the spawned ranks' included,
+    replaced by the control's."""
     out = []
     chains, invariants = {}, {}
     for r in rounds:
         r = dict(r)
-        meta, arrays = copy.deepcopy(r["capture"]), dict(r["arrays"])
-        if meta is None:
-            out.append(r)
-            continue
-        for c in meta["chain"]:
-            key = (c["n"], c["iters"])
-            if key not in chains:
-                chains[key] = ref.burn_chain(c["n"], c["iters"], device, LOWER["burn"])[0]
-            c["checksum"] = chains[key]
-        for c in meta["invariant"]:
-            if c["n"] not in invariants:
-                invariants[c["n"]] = ref.burn_invariant(c["n"], device, LOWER["burn"])
-            c["trace"] = c["sumsq"] = invariants[c["n"]]
-        for o in meta["outputs"]:
-            idx, a = arrays[o["idx"]], o["args"]
-            if o["kind"] == "tiled":
-                arrays[f"{o['key']}_val"] = ref.tiled_entries(a["m"], a["k"], a["n"], idx, device,
-                                                              LOWER["tiled"])
-            elif o["kind"] == "flash":
-                arrays[f"{o['key']}_val"] = ref.causal_attention(
-                    a["batch"], a["heads"], a["seq"], a["head_dim"], device, LOWER["flash"])[idx]
-            elif o["kind"] == "dma":
-                arrays[f"{o['key']}_val"] = ref.dma_expected(a["rows"], a["cols"], idx, device,
-                                                             LOWER["dma"])
-        r["capture"], r["arrays"] = meta, arrays
+        r["capture"], r["arrays"] = _controlled(r["capture"], r["arrays"], device, chains,
+                                                invariants)
+        ranks = []
+        for k in r.get("ranks") or []:
+            k = dict(k)
+            k["capture"], k["arrays"] = _controlled(k["capture"], k["arrays"], device, chains,
+                                                    invariants)
+            ranks.append(k)
+        r["ranks"] = ranks
         out.append(r)
     return out
 

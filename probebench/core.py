@@ -57,18 +57,30 @@ class Run:
         return soak if soak.get("rounds") and "start_s" in soak else None
 
     def events(self, r: dict) -> Optional[List[dict]]:
-        """The device trace of one traced round, or None."""
+        """The device trace of one traced round's probe child (or of one
+        spawned rank, given its entry of ``r["ranks"]``), or None."""
         if r["prefix"] not in self._traces:
             path = f"{r['prefix']}.trace.json"
             self._traces[r["prefix"]] = tr.load(path) if os.path.exists(path) else None
         return self._traces[r["prefix"]]
 
-    def overhead_s(self, r: dict) -> float:
-        """The hook's own seconds inside a round: starting the profiler,
-        sampling outputs, and everything it does at the child's exit."""
-        cap = r["capture"] or {}
+    def processes(self, r: dict) -> List[dict]:
+        """The round's probe child, then each rank it spawned, in rank order."""
+        return [r] + list(r.get("ranks") or [])
+
+    @staticmethod
+    def hook_s(cap: Optional[dict]) -> float:
+        """The hook's own seconds in one process: starting the profiler,
+        sampling outputs, and everything it does at the process's exit."""
+        cap = cap or {}
         return (cap.get("trace_start_cost_s") or 0.0) + (cap.get("hook_s") or 0.0) \
             + (cap.get("write_s") or 0.0)
+
+    def overhead_s(self, r: dict) -> float:
+        """The hook's own seconds inside a round: the probe child's, and the
+        most that one spawned rank spent (the ranks run side by side)."""
+        ranks = [self.hook_s(k["capture"]) for k in r.get("ranks") or []]
+        return self.hook_s(r["capture"]) + max(ranks, default=0.0)
 
     def child_startup_s(self, r: dict) -> Optional[float]:
         """From the child's process start to its first probe, by the hook."""
@@ -94,26 +106,39 @@ class Run:
         return r["wall_s"] - cap["hook_age_s"] - cap["exit_s"] - (cap.get("write_s") or 0.0)
 
     def busy_s(self, r: dict) -> Optional[float]:
-        """Device-busy seconds of one traced round, or None untraced."""
+        """Device-busy seconds of one traced round's probe child (or of one
+        rank, given its entry), or None untraced."""
         events = self.events(r)
         return None if events is None else tr.busy_us(events) / 1e6
+
+    def card_busy_s(self, r: dict) -> Optional[List[float]]:
+        """Each card's device-busy seconds in one round, one process a card
+        (the probe child on its card, each spawned rank on its own), in
+        rank order; None unless the round traced as many processes as the
+        cell's cards."""
+        procs = self.processes(r)
+        if len(procs) != self.cell.get("chips", 1):
+            return None
+        busy = [self.busy_s(p) for p in procs]
+        return None if None in busy else busy
 
     def device_window(self) -> Optional[tuple]:
         """(busy seconds, window seconds) of the traced window.
 
-        Rounds: every traced round's device busy time over the rounds' walls
-        less the hook's own seconds.  Soak: the traced soak rounds, from the
-        first round's start to the last stream's end.
+        Rounds: every traced round's device busy time, the mean over its
+        cards, over the rounds' walls less the hook's own seconds.  Soak: the
+        traced soak rounds, from the first round's start to the last
+        stream's end.
         """
         if not self.trace:
             return None
         if self.traffic["window"] == "rounds":
             busy = wall = 0.0
             for r in self.rounds:
-                round_busy = self.busy_s(r)
-                if round_busy is None:
+                cards = self.card_busy_s(r)
+                if cards is None:
                     return None
-                busy += round_busy
+                busy += sum(cards) / len(cards)
                 wall += r["wall_s"] - self.overhead_s(r)
             return busy, wall
         events = self.events(self.rounds[0])
@@ -132,9 +157,10 @@ class Run:
         ops, idle = {}, {}
         traced = [r for r in self.rounds if self.events(r) is not None]
         for r in traced:
+            for p in self.processes(r):
+                for name, s in tr.op_seconds(self.events(p) or []).items():
+                    ops[name] = ops.get(name, 0.0) + s
             events = self.events(r)
-            for name, s in tr.op_seconds(events).items():
-                ops[name] = ops.get(name, 0.0) + s
             probes = [(e["name"].split(":", 1)[1], (e["ts"], e["ts"] + e["dur"]))
                       for e in events if e.get("ph") == "X" and e.get("cat") == "user_annotation"
                       and str(e.get("name", "")).startswith("probebench:")]
@@ -156,6 +182,10 @@ class Run:
                 self.child_startup_s(r) for r in traced) - torch_s
             idle["probe parent: spawn, pipe, parse, schema check, report write"] = sum(
                 self.parent_s(r) for r in traced)
+            starts = [s for r in traced for s in (r["capture"] or {}).get("group_starts", [])]
+            if starts:
+                idle["rank group start: spawn the ranks, import torch there, join NCCL"] = sum(
+                    e - s for s, e in starts)
         top = lambda d: [[k, v] for k, v in sorted(d.items(), key=lambda kv: -kv[1])[:10]]
         return {"device_ops": top(ops), "idle_gaps": top(idle)}
 
@@ -196,12 +226,12 @@ def load_cell(name: str, bench: dict) -> tuple:
 
 
 def card_state() -> str:
-    """The card's name, power limit, clock and temperature, from nvidia-smi."""
+    """Each card's name, power limit, clock and temperature, from nvidia-smi."""
     try:
         out = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit,clocks.sm,temperature.gpu",
              "--format=csv,noheader"], capture_output=True, text=True, timeout=30)
-        return out.stdout.strip().splitlines()[0] if out.stdout.strip() else "unread"
+        return " | ".join(out.stdout.strip().splitlines()) if out.stdout.strip() else "unread"
     except (OSError, subprocess.SubprocessError):
         return "unread"
 
@@ -260,8 +290,7 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
         # process; torch's own look follows the window.
         if card_count() < cell["chips"]:
             return no_card(workload, cell["chips"])
-        device = "cuda:0"
-    on_card = device.startswith("cuda")
+    on_card = look or device.startswith("cuda")
     saved_env = dict(os.environ)
     scratch = Path(tempfile.mkdtemp(prefix="probebench-", dir=os.environ.get("TMPDIR")))
     try:
@@ -278,6 +307,9 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
             "PYTHONPYCACHEPREFIX": str(CACHE_DIR / "pycache"),
             "USE_FLAX": "0",
         })
+        if look and "CUDA_VISIBLE_DEVICES" not in os.environ:
+            # The cell's cards: the program takes every card it sees.
+            os.environ["CUDA_VISIBLE_DEVICES"] = ",".join(map(str, range(cell["chips"])))
         os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
         driven = driver.drive(emit_probe_once, config, traffic, seconds, trace, device, scratch)
         import torch
@@ -289,10 +321,12 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
         # Read only now: the name query opens a context on the card, and the
         # window's probe child is the one process that uses it.
         kind = torch.cuda.get_device_name(0) if on_card else "cpu"
+        ref_device = "cuda:0" if on_card else device
         run = Run(cell, traffic, trace, process_start_wall, driven, kind)
         card = card_state() if on_card else "cpu"
-        peaks = [r["capture"].get("memory_peak_bytes") for r in run.warm + run.rounds
-                 if r["capture"]]
+        # The fullest card's peak: one process a card.
+        peaks = [p["capture"].get("memory_peak_bytes") for r in run.warm + run.rounds
+                 for p in run.processes(r) if p["capture"]]
         device_doc = {"platform": "gpu" if on_card else "cpu", "kind": kind,
                       "count": cell["chips"],
                       "memory_peak_bytes": max((p for p in peaks if p), default=0)}
@@ -307,13 +341,13 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
             if window is not None:
                 device_doc["busy_s"], device_doc["window_s"] = window
             breakdown = run.breakdown()
-        checks = judge.judge(run.warm + run.rounds, traffic, cell["limits"], device)
+        checks = judge.judge(run.warm + run.rounds, traffic, cell["limits"], ref_device)
     finally:
         os.environ.clear()
         os.environ.update(saved_env)
         shutil.rmtree(scratch, ignore_errors=True)
     return {"run": run, "metrics": metrics, "device": device_doc, "breakdown": breakdown,
-            "checks": checks, "card": card, "device_name": device}
+            "checks": checks, "card": card, "device_name": ref_device}
 
 
 def forbidden_modules() -> List[str]:

@@ -6,17 +6,23 @@ soak's seconds, ``"window"`` for the run's ``--seconds``, or 0).  A traffic
 file (``traffic/<name>.json``) gives how the rounds are sent:
 
 * ``warmup_rounds``: rounds run before the window, counted as set-up;
+* ``warmup_level``: the probe level of those rounds, where it is not the
+  configuration's: a lower level that builds and loads all the window needs
+  (the kernels, the bytecode) without what each round does anew;
 * ``window``: ``"rounds"``, one client sending round after round until the
   window closes (a round that starts inside it runs to its end), or
   ``"soak"``, one round whose soak is the window;
 * ``samples``, ``soak_stream_samples``: how many elements of each output the
   hook keeps for the reference;
 * ``judged``, ``soak_judged``: the least of each output a round (a soak
-  round) must yield;
+  round) must yield; ``warmup_judged``, a warm-up round's, where it differs;
 * ``trace``: what the hook traces in a ``--trace 1`` run's window rounds,
   ``"rounds"`` or ``"soak:<from>:<count>"``;
 * ``trace_every_run``: trace the window's rounds in every run, not only with
   ``--trace 1``, for an end-to-end metric read from the device trace.
+
+A round's capture is the probe child's, and one more for each rank the
+child spawned (``<prefix>.rank<k>``), gathered in rank order.
 
 Each round is one ``emit_probe_once`` call, the emitter's round as deployed:
 the probe child, the schema check, the atomic write of the report.  After
@@ -40,34 +46,40 @@ def drive(emit: Callable, config: dict, traffic: dict, seconds: float, trace: bo
     target = str(scratch / "report.json")
     counter = iter(range(10 ** 6))
 
-    def one(traced: bool) -> dict:
+    def one(traced: bool, level: str) -> dict:
         prefix = str(scratch / f"round-{next(counter):03d}")
         os.environ["PROBEBENCH_CAPTURE"] = prefix
         os.environ["PROBEBENCH_TRACE"] = traffic["trace"] if traced else ""
         before = file_id(target)
         start_wall, start = time.time(), time.perf_counter()
         try:
-            rc, report = emit(target, level=config["probe_level"], device=device,
-                              soak_s=soak_s, perf_floor=config["perf_floor"])
+            rc, report = emit(target, level=level, soak_s=soak_s,
+                              perf_floor=config["perf_floor"],
+                              **({} if device is None else {"device": device}))
         finally:
             end = time.perf_counter()
             del os.environ["PROBEBENCH_CAPTURE"], os.environ["PROBEBENCH_TRACE"]
         return {"prefix": prefix, "end": end, "wall_s": end - start, "rc": rc, "report": report,
                 "start_wall": start_wall, "written": read_back(target, before)}
 
-    warm = [one(False) for _ in range(traffic["warmup_rounds"])]
+    warm_level = traffic.get("warmup_level", config["probe_level"])
+    warm = [dict(one(False, warm_level), warm=True) for _ in range(traffic["warmup_rounds"])]
     trace = trace or bool(traffic.get("trace_every_run"))
     t0, t0_wall = time.perf_counter(), time.time()
     window: List[dict] = []
     if traffic["window"] == "rounds":
         while not window or time.perf_counter() - t0 < seconds:
-            window.append(one(trace))
+            window.append(one(trace, config["probe_level"]))
     elif traffic["window"] == "soak":
-        window.append(one(trace))
+        window.append(one(trace, config["probe_level"]))
     else:
         raise ValueError(f"unknown window kind {traffic['window']!r}")
     for r in warm + window:
         r["capture"], r["arrays"] = read_capture(r["prefix"])
+        r["ranks"] = []
+        for k, prefix in rank_prefixes(r["prefix"]):
+            meta, arrays = read_capture(prefix)
+            r["ranks"].append({"rank": k, "prefix": prefix, "capture": meta, "arrays": arrays})
     return {"warm": warm, "rounds": window, "t0": t0, "t0_wall": t0_wall,
             "window_s": window[-1]["end"] - t0}
 
@@ -95,6 +107,17 @@ def read_back(target: str, before) -> dict:
     beside = sorted(n for n in os.listdir(os.path.dirname(target))
                     if n.startswith(name) and n != name)
     return {"doc": doc, "new_file": after is not None and after != before, "beside": beside}
+
+
+def rank_prefixes(prefix: str) -> list:
+    """(k, prefix) of every spawned rank that wrote a capture, in rank order."""
+    folder, name = os.path.split(prefix)
+    found = []
+    for n in os.listdir(folder or "."):
+        head, dot, tail = n.partition(".rank")
+        if head == name and dot and tail.endswith(".json") and tail[:-5].isdigit():
+            found.append((int(tail[:-5]), os.path.join(folder, n[:-5])))
+    return sorted(found)
 
 
 def read_capture(prefix: str) -> tuple:

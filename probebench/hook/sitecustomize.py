@@ -1,34 +1,45 @@
-"""The benchmark's start-up hook in the probe child.
+"""The benchmark's start-up hook in the probe child and the ranks it spawns.
 
 ``probebench/run.py`` puts this directory on the probe child's ``PYTHONPATH``
 (the child keeps what its parent had and prepends the package root), so
-Python loads this file as ``sitecustomize`` when the child starts.  It edits
-no file of the program.  Without ``PROBEBENCH_CAPTURE`` in the environment it
-does nothing but hand over to the next ``sitecustomize`` on the path.
+Python loads this file as ``sitecustomize`` when the child starts, and
+again in each rank the child spawns, which inherits its environment.  It
+edits no file of the program.  Without ``PROBEBENCH_CAPTURE`` (the probe
+child) or ``PROBEBENCH_RANK_CAPTURE`` (a process the child started) in the
+environment it does nothing but hand over to the next ``sitecustomize`` on
+the path.
 
-With it, once the child imports ``tpu_node_checker_torch.ops``, the hook
-wraps the probes the child calls and the internal functions whose results
-the probes check, and records:
+With either, it loads every tap in ``taps/``: a file that names the module
+it patches (``MODULE``) and gives ``install(cap, module)``, which runs once
+that module is first imported (at once if it already is).  The taps wrap
+the functions whose results the reference judges, and record:
 
 * what the timed path produced: every burn-chain checksum, every
-  tensor-core invariant, and a sample (indices drawn from
-  ``PROBEBENCH_SEED``) of each probe's output tensor, for the reference to
-  judge once the window has closed;
+  tensor-core invariant, a sample (indices drawn from ``PROBEBENCH_SEED``)
+  of each probe's output tensor, and each tap's own outputs with the inputs
+  their reference starts from, for the reference to judge once the window
+  has closed;
 * host times: the child's start-up up to its first probe (from the
   process's start, read from ``/proc``), its ``import torch`` within that,
-  and the soak's rounds and window;
+  the soak's rounds and window, the rank group's start and each process's
+  first command;
 * the card's peak memory at exit (``torch.cuda.max_memory_allocated``);
 * with ``PROBEBENCH_TRACE`` a ``torch.profiler`` device trace: ``rounds``
-  from the first probe to exit, or ``soak:<from>:<count>`` over that many
-  soak rounds.
+  from the first probe (in a spawned rank, from its start) to exit, or
+  ``soak:<from>:<count>`` over that many soak rounds.
 
 Everything goes to ``$PROBEBENCH_CAPTURE.json``, ``.npz`` and
-``.trace.json`` at the child's exit.  The next ``sitecustomize`` on the path
-runs first, so whatever it patches lies underneath the hook's wrappers.
+``.trace.json`` at the child's exit, and to ``<that>.rank<k>.json``,
+``.npz`` and ``.trace.json`` at the exit of the spawned rank ``k`` (the
+child hands its prefix on as ``PROBEBENCH_RANK_CAPTURE``; a rank takes its
+number where the rank's entry is called).  The next ``sitecustomize`` on
+the path runs first, so whatever it patches lies underneath the hook's
+wrappers.
 """
 
 import atexit
 import contextlib
+import functools
 import importlib.abc
 import importlib.machinery
 import importlib.util
@@ -38,7 +49,7 @@ import os
 import sys
 import time
 
-OPS = "tpu_node_checker_torch.ops"
+TAPS_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "taps")
 
 
 def _chain_next_sitecustomize() -> None:
@@ -78,12 +89,19 @@ class _Tap:
 
 
 class Capture:
-    """What one probe child's round produced, and when."""
+    """What one probe child's round, or one rank it spawned, produced, and when.
 
-    def __init__(self, prefix: str, seed: int, samples: int, soak_samples: int, trace: str):
+    A spawned rank's capture starts without a prefix (``rank_base`` holds
+    the child's): :meth:`open_rank` gives it one, and a capture that never
+    gets one writes nothing.
+    """
+
+    def __init__(self, prefix, seed: int, samples: int, soak_samples: int, trace: str,
+                 rank_base=None):
         from probebench.clock import process_age_s
 
         self.prefix = prefix
+        self.rank_base = rank_base
         self.seed = seed
         self.samples = samples
         self.soak_samples = soak_samples
@@ -106,10 +124,33 @@ class Capture:
         self.in_soak = False
         self.soak_round = 0
         self.profiler = None
-        self.torch = None
+
+    @property
+    def torch(self):
+        return sys.modules.get("torch")
 
     def now(self) -> float:
         return time.perf_counter() - self.t0
+
+    def open_rank(self, local_rank: int) -> None:
+        """Give a spawned rank's capture its prefix, ``<child's>.rank<k>``."""
+        self.prefix = f"{self.rank_base}.rank{local_rank}"
+        self.meta.update(rank=local_rank, rank_main_wall=time.time())
+
+    # -- helpers for the taps ------------------------------------------
+    @staticmethod
+    def tap(fn, after):
+        """``fn`` with ``after(result, args, kwargs)`` called on each result
+        (its return, where not None, replacing the result)."""
+        return _Tap(fn, after)
+
+    @staticmethod
+    def bound(fn, args, kwargs) -> dict:
+        """The call's scalar arguments by name, defaults filled in, less the device."""
+        bound = inspect.signature(fn).bind(*args, **kwargs)
+        bound.apply_defaults()
+        return {k: v for k, v in bound.arguments.items()
+                if k != "device" and isinstance(v, (int, float, str))}
 
     # -- profiler ------------------------------------------------------
     def start_profiler(self) -> None:
@@ -175,11 +216,33 @@ class Capture:
         })
         self.meta["hook_s"] += time.perf_counter() - t
 
+    def record(self, kind: str, inputs, values, args: dict, idx=None) -> str:
+        """Record an output whole (``values``) with the inputs its reference
+        starts from (``inputs``, stored as the entry's ``idx``; or ``idx``,
+        the name another output's inputs are stored under); returns the
+        name of the inputs."""
+        t = time.perf_counter()
+        import numpy as np
+
+        key = f"o{len(self.meta['outputs'])}"
+        if idx is None:
+            idx = f"{key}_in"
+            self.arrays[idx] = np.asarray(inputs)
+        self.arrays[f"{key}_val"] = np.asarray(values)
+        self.meta["outputs"].append({
+            "kind": kind, "key": key, "idx": idx, "args": args, "soak": self.in_soak,
+            "round": self.soak_round,
+        })
+        self.meta["hook_s"] += time.perf_counter() - t
+        return idx
+
     def take(self, name: str):
         return self.stash.pop(name, None)
 
     # -- exit ----------------------------------------------------------
     def write(self) -> None:
+        if self.prefix is None:
+            return
         t = time.perf_counter()
         self.meta["exit_s"] = self.now()
         torch = sys.modules.get("torch")
@@ -197,151 +260,6 @@ class Capture:
         with open(tmp, "w") as f:
             json.dump(self.meta, f)
         os.replace(tmp, f"{self.prefix}.json")
-
-
-def _bound(fn, args, kwargs) -> dict:
-    """The call's arguments by name, defaults filled in, less the device."""
-    bound = inspect.signature(fn).bind(*args, **kwargs)
-    bound.apply_defaults()
-    return {k: v for k, v in bound.arguments.items()
-            if k != "device" and isinstance(v, (int, float, str))}
-
-
-def install(cap: Capture, ops) -> None:
-    """Wrap the probes of the imported ``ops`` package."""
-    import torch
-
-    cap.torch = torch
-    burn = sys.modules[f"{OPS}.burn"]
-    hbm = sys.modules[f"{OPS}.hbm"]
-    int8 = sys.modules[f"{OPS}.int8_probe"]
-    tiled = sys.modules[f"{OPS}.pallas_probe"]
-    flash = sys.modules[f"{OPS}.flash_attention"]
-    dma = sys.modules[f"{OPS}.dma_probe"]
-    memtest = sys.modules[f"{OPS}.memtest"]
-
-    # The outputs, stashed where they are produced (graph outputs are the
-    # graph's own tensors: the last replay's values stay readable).
-    def stash_as(name):
-        def after(out, args, kwargs):
-            cap.stash[name] = out[0] if isinstance(out, tuple) else out
-        return after
-
-    hbm._stream_n = _Tap(hbm._stream_n, stash_as("stream"))
-    int8._int8_chain = _Tap(int8._int8_chain, stash_as("int8"))
-    tiled.timed_run = _Tap(tiled.timed_run, stash_as("tiled"))
-    flash.timed_run = _Tap(flash.timed_run, stash_as("flash"))
-    dma.dma_stream = _Tap(dma.dma_stream, stash_as("dma"))
-
-    def verify_tap(orig):
-        def verify(name, x):
-            cap.sample("memtest", x, {"pattern": name, **cap.stash.get("memtest_args", {})})
-            return orig(name, x)
-        return verify
-
-    memtest._verify = verify_tap(memtest._verify)
-
-    def chain_runner_tap(orig):
-        def chain_runner(a, iters):
-            run = orig(a, iters)
-            n = int(a.shape[0])
-
-            def timed():
-                checksum, seconds = run()
-                cap.meta["chain"].append({
-                    "n": n, "iters": int(iters), "checksum": checksum, "seconds": seconds,
-                    "soak": cap.in_soak, "round": cap.soak_round,
-                })
-                return checksum, seconds
-            return timed
-        return chain_runner
-
-    burn._chain_runner = chain_runner_tap(burn._chain_runner)
-
-    def invariant_tap(orig):
-        def invariant(a):
-            tc, elementwise = orig(a)
-            cap.meta["invariant"].append({
-                "n": int(a.shape[0]), "trace": float(tc.item()),
-                "sumsq": float(elementwise.item()), "soak": cap.in_soak,
-                "round": cap.soak_round,
-            })
-            return tc, elementwise
-        return invariant
-
-    burn._invariant = invariant_tap(burn._invariant)
-
-    def burn_round_tap(orig):
-        def burn_round(a, run, iters, rel_tol):
-            if not cap.in_soak:
-                return orig(a, run, iters, rel_tol)
-            cap.soak_round += 1
-            soak = cap.meta["soak"]
-            if cap.soak_round == 1:
-                soak.update(start_s=cap.now(), start_wall=time.time(),
-                            n=int(a.shape[0]), iters=int(iters), round_starts_s=[])
-            soak["round_starts_s"].append(cap.now())
-            spec = cap.trace.split(":")
-            if spec[0] == "soak":
-                first, count = int(spec[1]), int(spec[2])
-                if cap.soak_round == first:
-                    cap.start_profiler()
-                elif cap.soak_round == first + count:
-                    cap.stop_profiler()
-            with cap.annotate("soak_burn_round"):
-                return orig(a, run, iters, rel_tol)
-        return burn_round
-
-    burn._burn_round = burn_round_tap(burn._burn_round)
-
-    # The probes the child calls (``ops.<name>``), and the same names in
-    # their modules, where the soak finds the stream.
-    sampled = {"hbm_bandwidth_probe": "stream", "int8_matmul_probe": "int8",
-               "pallas_matmul_probe": "tiled", "flash_attention_probe": "flash",
-               "dma_stream_probe": "dma"}
-
-    def after_probe(name, args):
-        out = cap.take(sampled[name]) if name in sampled else None
-        if out is not None:
-            cap.sample(sampled[name], out, args)
-        cap.stash.pop("memtest_args", None)
-
-    def probe_wrapper(name, orig):
-        def probe(*args, **kwargs):
-            if cap.meta["first_probe_s"] is None:
-                cap.meta["first_probe_s"] = cap.now()
-                if cap.trace == "rounds":
-                    cap.start_profiler()
-                elif cap.trace.startswith("soak:"):
-                    cap.prime_profiler()
-            bound = _bound(orig, args, kwargs)
-            if name == "hbm_pattern_probe":
-                cap.stash["memtest_args"] = bound
-            if name == "soak_burn":
-                cap.in_soak = True
-                cap.meta["soak"] = {"args": bound}
-            try:
-                with cap.annotate("soak_stream" if cap.in_soak and name != "soak_burn" else name):
-                    result = orig(*args, **kwargs)
-            finally:
-                if name == "soak_burn":
-                    cap.in_soak = False
-                    cap.stop_profiler()
-                    cap.meta["soak"].update(end_s=cap.now(), rounds=cap.soak_round)
-            after_probe(name, bound)
-            return result
-        return probe
-
-    homes = {
-        "matmul_burn": burn, "soak_burn": burn, "hbm_bandwidth_probe": hbm,
-        "pallas_matmul_probe": tiled, "int8_matmul_probe": int8,
-        "flash_attention_probe": flash, "dma_stream_probe": dma,
-        "hbm_pattern_probe": memtest,
-    }
-    for name, module in homes.items():
-        wrapped = probe_wrapper(name, getattr(ops, name))
-        setattr(ops, name, wrapped)
-        setattr(module, name, wrapped)
 
 
 class _OnImport(importlib.abc.MetaPathFinder):
@@ -369,17 +287,36 @@ class _OnImport(importlib.abc.MetaPathFinder):
         return spec
 
 
+def _load_taps() -> list:
+    """Every ``taps/<name>.py``, in name order."""
+    taps = []
+    for name in sorted(os.listdir(TAPS_DIR)):
+        if not name.endswith(".py"):
+            continue
+        spec = importlib.util.spec_from_file_location(
+            f"_probebench_tap_{name[:-3].replace('.', '_')}", os.path.join(TAPS_DIR, name))
+        module = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(module)
+        taps.append(module)
+    return taps
+
+
 def _activate() -> None:
     prefix = os.environ.pop("PROBEBENCH_CAPTURE", None)
+    rank_base = os.environ.pop("PROBEBENCH_RANK_CAPTURE", None)
     _chain_next_sitecustomize()
-    if not prefix:
+    if prefix:
+        # The processes this child starts, its ranks among them, capture under it.
+        os.environ["PROBEBENCH_RANK_CAPTURE"] = prefix
+    elif not rank_base:
         return
     cap = Capture(
-        prefix,
+        prefix or None,
         seed=int(os.environ.get("PROBEBENCH_SEED") or 0) % 2**64,
         samples=int(os.environ.get("PROBEBENCH_SAMPLES") or 16384),
         soak_samples=int(os.environ.get("PROBEBENCH_SOAK_SAMPLES") or 4096),
         trace=os.environ.get("PROBEBENCH_TRACE") or "",
+        rank_base=None if prefix else rank_base,
     )
     atexit.register(cap.write)
     if "torch" not in sys.modules:
@@ -388,10 +325,12 @@ def _activate() -> None:
         sys.meta_path.insert(0, _OnImport(
             "torch", lambda: span.append(cap.meta["hook_age_s"] + cap.now()),
             lambda _: cap.meta.update(torch_import_s=span + [cap.meta["hook_age_s"] + cap.now()])))
-    if OPS in sys.modules:
-        install(cap, sys.modules[OPS])
-    else:
-        sys.meta_path.insert(0, _OnImport(OPS, lambda: None, lambda module: install(cap, module)))
+    for tap in _load_taps():
+        if tap.MODULE in sys.modules:
+            tap.install(cap, sys.modules[tap.MODULE])
+        else:
+            sys.meta_path.insert(0, _OnImport(
+                tap.MODULE, lambda: None, functools.partial(tap.install, cap)))
 
 
 _activate()

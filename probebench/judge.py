@@ -1,15 +1,17 @@
 """The comparison that decides ``correct``.
 
-Every round's capture (what the probe child's timed path produced, recorded
-by ``hook/sitecustomize.py``) is held against ``reference/probes.py``, worked
-out again on the same device once the window has closed.  Each compared
-number is the worst over every round of the run and has its own limit,
-from the cell's ``limits``:
+Every round's captures (what the probe child's timed path produced, and
+each rank it spawned, recorded by ``hook/sitecustomize.py`` and its taps)
+are held against the plain reference, worked out again on the same device
+once the window has closed.  Each compared number is the worst over every
+round of the run and has its own limit, from the cell's ``limits``; a run
+reports its cell's ``limits`` keys, in their order:
 
 * ``rounds_failed``: rounds whose exit code is not 0 or whose report is not ok;
 * ``outputs_missing``: outputs the traffic's ``judged`` counts expect and no
-  capture holds (a child that died, hung or skipped a probe), counted for
-  each probe round, and for each round of a soak;
+  capture of the round holds (a child or rank that died, hung or skipped a
+  probe), counted for each probe round (a warm-up round by ``warmup_judged``
+  where the traffic gives it), and for each round of a soak;
 * ``report_mismatches``: rounds whose report file breaks the configuration's
   guarantee, that each round's report is schema-valid and written
   atomically: the file is missing or unreadable, differs from the report the
@@ -21,18 +23,22 @@ from the cell's ``limits``:
 * ``soak_checksum_gap``: the same over every soak round's chain runs;
 * ``burn_invariant_gap``: the tensor-core trace(A A^T) and the elementwise
   ||A||_F^2, each against float64, relative;
-* ``tiled_gap``: max |out - ref| / max(|ref|, 1) over the sampled entries;
-* ``flash_gap``: max |out - ref| over the output;
-* ``int8_mismatches``, ``stream_mismatches``, ``dma_mismatches``,
-  ``memtest_mismatches``: sampled words that differ from the exact answer.
+* one number for each other output kind: ``reference/<kind>.py`` names it
+  (``CHECK``), says whether it is a gap, the largest over the outputs
+  (``REDUCE = "max"``), or a count, summed (``"sum"``), and gives
+  ``compare(args, idx, got, device) -> (check, value)``.  ``idx`` is the
+  array the capture names beside the output: the sampled indices, or the
+  inputs the reference starts from.
 
 A cell compares the numbers of the outputs its traffic judges.
 """
 
 from __future__ import annotations
 
+import importlib.util
 import json
 from collections import Counter
+from pathlib import Path
 from typing import Dict, List
 
 import numpy as np
@@ -40,21 +46,46 @@ import numpy as np
 from probebench.reference import probes as ref
 from probebench.reference import report_schema
 
-# Each compared number, and the output kind it needs the traffic to judge
-# (None: every cell); "soak:" names a kind of the soak rounds.
-CHECKS = {
-    "rounds_failed": None, "outputs_missing": None, "report_mismatches": None,
-    "burn_checksum_gap": "burn_chain", "soak_checksum_gap": "soak:burn_chain",
-    "burn_invariant_gap": "burn_invariant", "tiled_gap": "tiled", "flash_gap": "flash",
-    "int8_mismatches": "int8", "stream_mismatches": "stream", "dma_mismatches": "dma",
-    "memtest_mismatches": "memtest",
-}
+REFERENCE_DIR = Path(__file__).resolve().parent / "reference"
+# The compared numbers of every cell, and those of the burn chain and its
+# invariant, whose captures are the hook's own records; "soak:" names a
+# kind of the soak rounds.
+BASE_CHECKS = ("rounds_failed", "outputs_missing", "report_mismatches")
+CHAIN_CHECKS = {"burn_chain": "burn_checksum_gap", "soak:burn_chain": "soak_checksum_gap",
+                "burn_invariant": "burn_invariant_gap", "soak:burn_invariant": "burn_invariant_gap"}
+_references: dict = {}
+
+
+def reference_of(kind: str):
+    """``reference/<kind>.py``, loaded once."""
+    if kind not in _references:
+        path = REFERENCE_DIR / f"{kind}.py"
+        if not path.is_file():
+            raise ValueError(f"no reference for output kind {kind!r}")
+        spec = importlib.util.spec_from_file_location(
+            f"probebench_reference_{kind.replace('.', '_').replace('-', '_')}", path)
+        module = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(module)
+        _references[kind] = module
+    return _references[kind]
 
 
 def checks_of(traffic: dict) -> list:
     """The numbers a cell with this traffic compares."""
-    kinds = set(traffic["judged"]) | {f"soak:{k}" for k in traffic.get("soak_judged", {})}
-    return [name for name, kind in CHECKS.items() if kind is None or kind in kinds]
+    kinds = list(traffic["judged"]) + [f"soak:{k}" for k in traffic.get("soak_judged", {})]
+    names = list(BASE_CHECKS)
+    for kind in kinds:
+        name = CHAIN_CHECKS.get(kind) or reference_of(kind.split(":", 1)[-1]).CHECK
+        if name not in names:
+            names.append(name)
+    return names
+
+
+def captures(r: dict) -> list:
+    """(capture, arrays) of every process of a round: the probe child's,
+    then each spawned rank's in rank order; a capture may be None."""
+    return [(r.get("capture"), r.get("arrays") or {})] + [
+        (k.get("capture"), k.get("arrays") or {}) for k in r.get("ranks") or []]
 
 
 def _kinds(meta: dict, soak: bool, round_: int = 0) -> Counter:
@@ -74,15 +105,20 @@ def _kinds(meta: dict, soak: bool, round_: int = 0) -> Counter:
 
 def missing_outputs(rounds: List[dict], traffic: dict) -> int:
     """Expected outputs that no capture holds: ``judged`` gives the least
-    of each kind a probe round yields, ``soak_judged`` each soak round."""
+    of each kind a probe round yields (``warmup_judged``, where given, a
+    warm-up round's), ``soak_judged`` each soak round."""
     missing = 0
     for r in rounds:
         meta = r.get("capture")
-        expect = traffic["judged"]
+        expect = traffic.get("warmup_judged", traffic["judged"]) if r.get("warm") \
+            else traffic["judged"]
         if meta is None:
             missing += sum(expect.values())
             continue
-        got = _kinds(meta, soak=False)
+        got = Counter()
+        for rank_meta, _ in captures(r):
+            if rank_meta is not None:
+                got.update(_kinds(rank_meta, soak=False))
         missing += sum(max(0, n - got[k]) for k, n in expect.items())
         soak_expect = traffic.get("soak_judged")
         if soak_expect:
@@ -128,7 +164,12 @@ def judge(rounds: List[dict], traffic: dict, limits: Dict[str, float], device) -
     document), ``capture`` (the hook's JSON, or None) and ``arrays`` (its
     npz contents).
     """
-    values = {name: 0.0 for name in CHECKS}
+    names = list(limits)
+    expected = checks_of(traffic)
+    if set(names) != set(expected):
+        raise ValueError(f"the cell's limits {sorted(names)} are not the numbers its traffic "
+                         f"compares {sorted(expected)}")
+    values = {name: 0.0 for name in names}
     values["rounds_failed"] = sum(
         1 for r in rounds if r["rc"] != 0 or not (r.get("report") or {}).get("ok"))
     values["outputs_missing"] = missing_outputs(rounds, traffic)
@@ -137,58 +178,37 @@ def judge(rounds: List[dict], traffic: dict, limits: Dict[str, float], device) -
     chains: Dict[tuple, tuple] = {}
     invariants: Dict[int, float] = {}
     for r in rounds:
-        meta, arrays = r.get("capture"), r.get("arrays") or {}
-        if meta is None:
-            continue
-        for c in meta["chain"]:
-            key = (c["n"], c["iters"])
-            if key not in chains:
-                chains[key] = ref.burn_chain(c["n"], c["iters"], device)
-            checksum, frob = chains[key]
-            gap = abs(c["checksum"] - checksum) / frob if np.isfinite(c["checksum"]) else np.inf
-            name = "soak_checksum_gap" if c["soak"] else "burn_checksum_gap"
-            values[name] = max(values[name], gap)
-        for c in meta["invariant"]:
-            if c["n"] not in invariants:
-                invariants[c["n"]] = ref.burn_invariant(c["n"], device)
-            want = invariants[c["n"]]
-            gap = max(abs(c["trace"] - want), abs(c["sumsq"] - want)) / want
-            values["burn_invariant_gap"] = max(values["burn_invariant_gap"],
-                                               gap if np.isfinite(gap) else np.inf)
-        for o in meta["outputs"]:
-            idx, got = arrays[o["idx"]], arrays[f"{o['key']}_val"]
-            name, gap = compare(o["kind"], o["args"], idx, got, device)
-            values[name] = max(values[name], gap) if name.endswith("_gap") else values[name] + gap
+        for meta, arrays in captures(r):
+            if meta is None:
+                continue
+            for c in meta["chain"]:
+                key = (c["n"], c["iters"])
+                if key not in chains:
+                    chains[key] = ref.burn_chain(c["n"], c["iters"], device)
+                checksum, frob = chains[key]
+                gap = abs(c["checksum"] - checksum) / frob if np.isfinite(c["checksum"]) else np.inf
+                name = "soak_checksum_gap" if c["soak"] else "burn_checksum_gap"
+                values[name] = max(values.get(name, 0.0), gap)
+            for c in meta["invariant"]:
+                if c["n"] not in invariants:
+                    invariants[c["n"]] = ref.burn_invariant(c["n"], device)
+                want = invariants[c["n"]]
+                gap = max(abs(c["trace"] - want), abs(c["sumsq"] - want)) / want
+                values["burn_invariant_gap"] = max(values.get("burn_invariant_gap", 0.0),
+                                                   gap if np.isfinite(gap) else np.inf)
+            for o in meta["outputs"]:
+                idx, got = arrays[o["idx"]], arrays[f"{o['key']}_val"]
+                name, value = compare(o["kind"], o["args"], idx, got, device)
+                if reference_of(o["kind"]).REDUCE == "max":
+                    values[name] = max(values.get(name, 0.0), value)
+                else:
+                    values[name] = values.get(name, 0.0) + value
     return [{"name": name, "value": float(values[name]), "limit": float(limits[name]),
              "ok": bool(values[name] <= limits[name]),
              **({"faults": faults} if name == "report_mismatches" and faults else {})}
-            for name in checks_of(traffic)]
+            for name in names]
 
 
 def compare(kind: str, args: dict, idx: np.ndarray, got: np.ndarray, device) -> tuple:
-    """(check name, gap or mismatch count) of one sampled output."""
-    if kind == "tiled":
-        want = ref.tiled_entries(args["m"], args["k"], args["n"], idx, device)
-        gap = np.abs(got.astype(np.float64) - want) / np.maximum(np.abs(want), 1.0)
-        return "tiled_gap", _worst(gap)
-    if kind == "flash":
-        want = ref.causal_attention(args["batch"], args["heads"], args["seq"],
-                                    args["head_dim"], device)[idx]
-        return "flash_gap", _worst(np.abs(got.astype(np.float64) - want))
-    if kind == "int8":
-        want = ref.int8_entries(args["m"], args["k"], args["n"], args["iters"], idx)
-        return "int8_mismatches", int(np.count_nonzero(got.astype(np.int64) != want))
-    if kind == "stream":
-        return "stream_mismatches", int(np.count_nonzero(got != ref.stream_expected(args["iters"])))
-    if kind == "dma":
-        want = ref.dma_expected(args["rows"], args["cols"], idx, device)
-        return "dma_mismatches", int(np.count_nonzero(got != want))
-    if kind == "memtest":
-        want = ref.memtest_expected(args["pattern"], idx)
-        return "memtest_mismatches", int(np.count_nonzero(got.astype(np.int32) != want))
-    raise ValueError(f"no reference for output kind {kind!r}")
-
-
-def _worst(gap: np.ndarray) -> float:
-    """The largest gap; a non-finite one (NaN included) reads as infinite."""
-    return float(np.max(gap)) if np.all(np.isfinite(gap)) else float("inf")
+    """(check name, gap or mismatch count) of one output, by its kind's reference."""
+    return reference_of(kind).compare(args, idx, got, device)

@@ -169,3 +169,8 @@ def memtest_expected(pattern: str, flat_idx: np.ndarray) -> np.ndarray:
     else:
         raise ValueError(f"unknown memtest pattern {pattern!r}")
     return words.astype(np.uint32).view(np.int32)
+
+
+def worst(gap: np.ndarray) -> float:
+    """The largest gap; a non-finite one (NaN included) reads as infinite."""
+    return float(np.max(gap)) if np.all(np.isfinite(gap)) else float("inf")

@@ -1,4 +1,4 @@
-"""Benchmark of the PyTorch/CUDA probe (``tpu_node_checker_torch``) on one card.
+"""Benchmark of the PyTorch/CUDA probe (``tpu_node_checker_torch``) on the cards a cell names.
 
 Run from the root of a checkout::
 

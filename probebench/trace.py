@@ -27,6 +27,17 @@ def device_events(events: Iterable[dict]) -> List[dict]:
     return [e for e in events if e.get("ph") == "X" and e.get("cat") in DEVICE_CATS]
 
 
+def is_nccl(e: dict) -> bool:
+    """An NCCL kernel: a collective, a send or a receive, which holds its
+    card from its launch until every peer has joined."""
+    return e.get("cat") == "kernel" and "nccl" in str(e.get("name", "")).lower()
+
+
+def busy_of(events: Iterable[dict]) -> float:
+    """Microseconds covered by the union of ``events``' intervals."""
+    return sum(e - s for s, e in union((e["ts"], e["ts"] + e["dur"]) for e in events))
+
+
 def annotations(events: Iterable[dict], name: str) -> List[Interval]:
     """Host intervals of the benchmark's ``probebench:<name>`` annotations."""
     want = f"probebench:{name}"
@@ -93,6 +104,19 @@ def launched_by_graphs(events: List[dict], within: List[Interval]) -> Tuple[int,
     ids.discard(None)
     launched = [e for e in device_events(events) if (e.get("args") or {}).get("correlation") in ids]
     return len({e["args"]["correlation"] for e in launched}), launched
+
+
+def launched_within(events: List[dict], within: List[Interval]) -> List[dict]:
+    """The device events of every launch (a CUDA runtime or driver call:
+    kernels, copies, fills, graphs) made in one of the host intervals
+    ``within``, matched by correlation id."""
+    ids = set()
+    for e in events:
+        if e.get("ph") == "X" and e.get("cat") in ("cuda_runtime", "cuda_driver"):
+            if any(s <= e["ts"] <= t for s, t in within):
+                ids.add((e.get("args") or {}).get("correlation"))
+    ids.discard(None)
+    return [e for e in device_events(events) if (e.get("args") or {}).get("correlation") in ids]
 
 
 def label_of(t: float, labelled: List[Tuple[str, Interval]], default: str) -> str:
