@@ -2,8 +2,17 @@
 
 The configuration (``configs/<name>.json``, the deployment) gives the
 emitter's arguments: ``probe_level``, ``perf_floor`` and ``soak_s`` (the
-soak's seconds, ``"window"`` for the run's ``--seconds``, or 0).  A traffic
-file (``traffic/<name>.json``) gives how the rounds are sent:
+soak's seconds, ``"window"`` for the run's ``--seconds``, or 0), and
+``emit``, where it has one: an object of further keyword arguments of
+``emit_probe_once``, under the function's own parameter names, passed on
+every round, warm-up and window alike.  The configuration's ``args`` holds
+the deployed flag of each ``emit`` entry.  Before the first round each
+``emit`` name is held against the function's signature: a name it lacks,
+or one that :func:`drive` sets itself (``ROUND_ARGS``), ends the run at once,
+naming the key.  A configuration without ``emit`` calls the function with
+the arguments of :func:`drive` alone.
+
+A traffic file (``traffic/<name>.json``) gives how the rounds are sent:
 
 * ``warmup_rounds``: rounds run before the window, counted as set-up;
 * ``warmup_level``: the probe level of those rounds, where it is not the
@@ -32,16 +41,41 @@ hold against what the round returned.
 
 from __future__ import annotations
 
+import inspect
 import json
 import os
 import time
 from pathlib import Path
 from typing import Callable, List
 
+# The arguments of ``emit_probe_once`` that :func:`drive` gives each round.
+ROUND_ARGS = ("target", "level", "soak_s", "perf_floor", "device")
+
+
+def emit_kwargs(emit: Callable, config: dict) -> dict:
+    """The configuration's ``emit`` arguments, each name checked against
+    ``emit``'s signature; exits naming the first that it lacks or that
+    :func:`drive` sets itself."""
+    given = config.get("emit", {})
+    where = f"probebench: configuration {config.get('name')!r}"
+    if not isinstance(given, dict):
+        raise SystemExit(f"{where}: emit is {type(given).__name__}, not an object of "
+                         "keyword arguments")
+    params = inspect.signature(emit).parameters
+    for key in given:
+        if key in ROUND_ARGS:
+            raise SystemExit(f"{where}: emit key {key!r} is an argument each round "
+                             "sets itself")
+        if key not in params:
+            raise SystemExit(f"{where}: emit key {key!r} is no parameter of "
+                             f"{getattr(emit, '__qualname__', 'the emitter')}")
+    return dict(given)
+
 
 def drive(emit: Callable, config: dict, traffic: dict, seconds: float, trace: bool,
           device: str, scratch: Path) -> dict:
     """Run the warm-up rounds and the window; returns their rounds and clocks."""
+    extra = emit_kwargs(emit, config)
     soak_s = seconds if config["soak_s"] == "window" else float(config["soak_s"])
     target = str(scratch / "report.json")
     counter = iter(range(10 ** 6))
@@ -55,7 +89,7 @@ def drive(emit: Callable, config: dict, traffic: dict, seconds: float, trace: bo
         try:
             rc, report = emit(target, level=level, soak_s=soak_s,
                               perf_floor=config["perf_floor"],
-                              **({} if device is None else {"device": device}))
+                              **({} if device is None else {"device": device}), **extra)
         finally:
             end = time.perf_counter()
             del os.environ["PROBEBENCH_CAPTURE"], os.environ["PROBEBENCH_TRACE"]

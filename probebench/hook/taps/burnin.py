@@ -13,13 +13,17 @@ rows), as the inputs of three outputs:
 * ``burnin_update``: the norm of each of this rank's parameters' change
   over the steps, read after the last.
 
-Each step is a ``probebench:workload_step`` range in the trace.
+Each step is a ``probebench:workload_step`` range in the trace, and each
+run that took steps adds to the capture's ``train`` list which model ran
+(``MODEL``, the name of its ``probebench/work/<model>.py``), its
+configuration as a dict, and its count of steps.
 """
 
 import dataclasses
 import time
 
 MODULE = "tpu_node_checker_torch.models.burnin"
+MODEL = "burnin"
 
 
 def _norms(tensors):
@@ -72,6 +76,9 @@ def install(cap, burnin) -> None:
     burnin.make_train_step = make_train_step_tap
 
     def flush(session) -> None:
+        if session["losses"]:
+            cap.meta.setdefault("train", []).append(
+                {"model": MODEL, "cfg": session["cfg"], "steps": len(session["losses"])})
         if session["tokens"] is None or session["state"] is None:
             return
         import numpy as np
