@@ -17,7 +17,10 @@ Phases, one line each (any failure exits non-zero and prints no result):
    (the int8 chain at the probe's 1024^3 x 128 products, bit-equal to its
    plain chain of rolls, ``torch._int_mm`` products and adds; its library
    form is that chain with the right operand column-major, the layout
-   cuBLAS runs fastest, with its share of the bound);
+   cuBLAS runs fastest, with its share of the bound; the burn chain's
+   product at n = 2048, each of the kernel, its plain three-kernel version
+   and one ``torch.addmm`` into bf16 timed as a graph of 1,024 products,
+   with its share of the bound and the card's SM clock and power);
    then the tiled matmul at 4096^3 (each tile it is built for) and flash
    attention at (1, 16, 4096, 128) (each query row held to its own size,
    the limit shown to catch a dropped K/V tile), each held against its plain
@@ -52,7 +55,7 @@ Phases, one line each (any failure exits non-zero and prints no result):
    DaemonSet's ``--emit-probe DIR/$NODE_NAME.json --probe-level compute
    --watch 5 --metrics-port 0 --log-jsonl L``, sent SIGTERM 2 s after its
    second report, in its third round (every round healthy, logged and
-   launching all four kernels; each round's time, the gap between round
+   launching every kernel; each round's time, the gap between round
    starts and the seconds from SIGTERM to exit printed), its ``/metrics``
    scraped on the port its stderr line names after the first and the
    second report (the probe gauges equal to that round's report, the exit
@@ -658,6 +661,79 @@ def eager_chain_rounds(torch, seconds: float, iters: int, n: int = 2048) -> dict
     med = statistics.median(rates)
     return {"rounds": len(rates), "tflops_min": min(rates), "tflops_median": med,
             "tflops_max": max(rates), "min_over_median": min(rates) / med}
+
+
+def bf16_ulps_apart(torch, x, y):
+    """|x - y| in bf16 steps, elementwise: their bit patterns on one ordered
+    integer line."""
+    def ordered(t):
+        bits = t.contiguous().view(torch.int16).to(torch.int32)
+        return torch.where(bits < 0, -32768 - bits, bits)
+    return (ordered(x) - ordered(y)).abs()
+
+
+def burn_product_row(torch, ops, dev, gen) -> dict:
+    """The burn chain's product at the chain's n = 2048
+    (``ops/csrc/burn_chain.cu``), held against its plain version (the
+    library's f32 product, x scale, the cast: three kernels), then the
+    kernel, the plain version and one library call computing the same
+    function (``torch.addmm`` with beta 0 and alpha the scale into bf16, a
+    yardstick the port never calls) each captured as a CUDA graph of 1,024
+    products alternating between two buffers, as the chain runs, and
+    replayed in turns (plain, kernel, library, library, kernel, plain) by
+    CUDA events; device times by torch.profiler over replays; the card's SM
+    clock and power sampled over both."""
+    from tpu_node_checker_torch.ops._harness import card_graph
+    from tpu_node_checker_torch.ops.burn import burn_product_reference
+
+    n, count = 2048, 1024
+    a = torch.randn((n, n), generator=gen, device=dev).to(torch.bfloat16)
+    scale = torch.tensor(float(n)).sqrt().reciprocal().item()
+    out = ops.burn_product(a, a, scale)
+    torch.cuda.synchronize()
+    ref = burn_product_reference(a, a, scale)
+    rel = float((out.float() - ref.float()).abs().max() / ref.float().abs().max())
+    close = float((bf16_ulps_apart(torch, out, ref) <= 1).float().mean())
+    zero = torch.zeros_like(a)
+    steps = {
+        "kernel": lambda x, o: ops.burn_product(x, a, scale, out=o),
+        "plain": lambda x, o: burn_product_reference(x, a, scale),
+        "library": lambda x, o: torch.addmm(zero, x, a, beta=0, alpha=scale, out=o),
+    }
+    replays = {}
+    for name, step in steps.items():
+        bufs = [torch.empty_like(a) for _ in range(2)]
+
+        def chain(step=step, bufs=bufs):
+            x = a
+            for i in range(count):
+                x = step(x, bufs[i % 2])
+            return x
+        replays[name] = card_graph(chain, lambda step=step, bufs=bufs: step(a, bufs[0]), dev,
+                                   f"smoke.{name}")
+        replays[name]()
+    order = ["plain", "kernel", "library", "library", "kernel", "plain"]
+    with card_samples() as card:
+        times = [replays[name]()[1] for name in order]
+        dev_ms = device_ms(torch, lambda: replays["kernel"](), "burn_product_kernel", reps=2)
+        lib_dev_ms = device_ms(torch, lambda: replays["library"](), reps=2)
+    ms = {name: 1e3 * min(t for o, t in zip(order, times) if o == name) / count
+          for name in steps}
+    bms, by = bound(2 * 2 * n * n + 2 * n * n, 2.0 * n ** 3, BF16_FLOPS)
+    tol = 2.0 ** -8
+    return dict(
+        name="burn_chain", route="cuda",
+        source="tpu_node_checker_torch/ops/csrc/burn_chain.cu",
+        replaces="tpu_node_checker/ops/burn.py:52",
+        max_abs_err=float((out.float() - ref.float()).abs().max().item()),
+        check=(f"max|d|/max|ref| = {rel:.3e} <= {tol:.3e}; "
+               f"{close:.6f} of entries within one bf16 step >= 0.99"),
+        ok=rel <= tol and close >= 0.99,
+        ms=ms["kernel"], plain_ms=ms["plain"], library_ms=ms["library"],
+        device_ms=dev_ms, library_device_ms=lib_dev_ms / count if lib_dev_ms else None,
+        bound_ms=bms, bound_by=by, share_of_bound=bms / dev_ms if dev_ms else None,
+        shape=[n, n, n, count], card=card,
+    )
 
 
 @contextlib.contextmanager
@@ -4025,10 +4101,12 @@ def main() -> int:
         share_of_bound=bms / dev_ms if dev_ms else None,
     ))
     del a8, b8, b8_cols, out, ref
+    rows.append(burn_product_row(torch, ops, dev, gen))
+    torch.cuda.empty_cache()
     for r in rows:
         phase(3, f"kernel {r['name']}", **{k2: r[k2] for k2 in (
             "ok", "check", "max_abs_err", "ms", "device_ms", "plain_ms", "library_ms",
-            "library_device_ms", "bound_ms", "bound_by", "share_of_bound") if k2 in r})
+            "library_device_ms", "bound_ms", "bound_by", "share_of_bound", "card") if k2 in r})
     bad = [r["name"] for r in rows if not r["ok"]]
     if bad:
         fail(f"kernels disagree with their plain versions: {bad}")
@@ -4417,7 +4495,7 @@ def main() -> int:
             "distributed_launches", "oneshot_launches", "live_round_launches", "watch_launches",
             "quarantine_launches", "deployment_launches", "federation_launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "device_ms",
-            "library_device_ms", "share_of_bound", "ok", "check", "training_step")
+            "library_device_ms", "share_of_bound", "ok", "check", "training_step", "card")
     print(json.dumps({"kernels": [{k2: r[k2] for k2 in keys if k2 in r} for r in rows]}),
           flush=True)
     print(smi, flush=True)

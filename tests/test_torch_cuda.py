@@ -26,6 +26,7 @@ port_int8 = importlib.import_module("tpu_node_checker_torch.ops.int8_probe")
 port_burnin = importlib.import_module("tpu_node_checker_torch.models.burnin")
 port_parallel = importlib.import_module("tpu_node_checker_torch.parallel")
 port_sweep = importlib.import_module("tpu_node_checker_torch.meshprobe.sweep")
+port_spans = importlib.import_module("tpu_node_checker_torch.probe.spans")
 
 
 @pytest.fixture()
@@ -144,14 +145,89 @@ def test_compute_probe_on_card(cuda_device):
 def test_burn_graph_replays_the_eager_chain(cuda_device):
     n, iters = 512, 8
     a = port_burn._burn_input(n, cuda_device)
+    before = port_burn.burn_product.launches
     run = port_burn._chain_runner(a, iters)
+    # The warm-up product and the captured chain, one launch a product.
+    assert port_burn.burn_product.launches == before + 1 + iters
     first, seconds = run()
-    again, _ = run()
+    again = [run()[0] for _ in range(2)]
     eager = float(port_burn._burn_chain(a, iters).item())
+    assert port_burn.burn_product.launches == before + 1 + 2 * iters
     assert seconds > 0
-    assert first == again
-    # The same products; the library may pick another algorithm under capture.
-    assert abs(first - eager) <= 0.01 * n, (first, eager)
+    # The same kernel in the same order: bit for bit.
+    assert again == [first] * 2 and eager == first
+
+
+def _bf16_ulps_apart(x, y):
+    """|x - y| in bf16 steps, elementwise (both finite bf16): the distance of
+    their bit patterns mapped onto one ordered integer line."""
+    def ordered(t):
+        bits = t.contiguous().view(torch.int16).to(torch.int32)
+        return torch.where(bits < 0, -32768 - bits, bits)
+    return (ordered(x) - ordered(y)).abs()
+
+
+@pytest.mark.cuda
+class TestBurnProductOnCard:
+    """The burn chain's product kernel against its plain version (the
+    library's f32 product, x scale, the cast) on the card: the two differ
+    only in the order of the f32 sums."""
+
+    @pytest.mark.parametrize("n", [2048, 512, 1000])  # the chain; the narrow tile; ragged
+    def test_equals_plain_product(self, cuda_device, n):
+        x = port_burn._burn_input(n, cuda_device)
+        gen = torch.Generator(device=cuda_device).manual_seed(n)
+        a = torch.randn((n, n), generator=gen, device=cuda_device).to(torch.bfloat16)
+        scale = torch.tensor(float(n)).sqrt().reciprocal().item()
+        before = port_burn.burn_product.launches
+        out = port_burn.burn_product(x, a, scale)
+        torch.cuda.synchronize()
+        assert port_burn.burn_product.launches == before + 1
+        assert out.dtype == torch.bfloat16 and out.shape == (n, n)
+        ref = port_burn.burn_product_reference(x, a, scale)
+        # A different f32 summation order moves a sum by far less than one
+        # bf16 step, so the two round alike or one step apart.
+        err = float((out.float() - ref.float()).abs().max() / ref.float().abs().max())
+        assert err <= 2.0 ** -8, err
+        close = float((_bf16_ulps_apart(out, ref) <= 1).float().mean())
+        assert close >= 0.99, close
+
+    def test_chain_gap_to_float64_within_twice_the_plain_chain(self, cuda_device):
+        n, iters = 2048, 64
+        a = port_burn._burn_input(n, cuda_device)
+        scale = torch.tensor(float(n)).sqrt().reciprocal().item()
+        a64, x64, plain = a.double(), a.double(), a
+        for _ in range(iters):
+            x64 = x64 @ a64 * scale
+            plain = port_burn.burn_product_reference(plain, a, scale)
+        exact, norm = float(x64.sum()), float(x64.norm())
+        kernel = float(port_burn._burn_chain(a, iters).item())
+        gap_kernel = abs(kernel - exact) / norm
+        gap_plain = abs(float(plain.double().sum()) - exact) / norm
+        assert gap_kernel <= 2 * gap_plain, (gap_kernel, gap_plain)
+
+    def test_chain_counts_its_products(self, cuda_device):
+        round_ = port_spans.Round()
+        with port_spans.active(round_):
+            port_burn._burn_chain(port_burn._burn_input(256, cuda_device), 5)
+        assert round_.counters["burn_kernel_products"] == 5
+
+    @pytest.mark.parametrize("make,error,match", [
+        (lambda d: (torch.zeros((100, 96), dtype=torch.bfloat16, device=d),
+                    torch.zeros((96, 100), dtype=torch.bfloat16, device=d)),
+         ValueError, "multiples of 8"),
+        (lambda d: (torch.zeros((128, 128), device=d), torch.zeros((128, 128), device=d)),
+         TypeError, "bf16"),
+        (lambda d: (torch.zeros((128, 128), dtype=torch.bfloat16, device=d).t()[:, :64],
+                    torch.zeros((64, 128), dtype=torch.bfloat16, device=d)),
+         ValueError, "contiguous"),
+    ])
+    def test_refuses_what_the_kernel_does_not_take(self, cuda_device, make, error, match):
+        x, a = make(cuda_device)
+        before = port_burn.burn_product.launches
+        with pytest.raises(error, match=match):
+            port_burn.burn_product(x, a, 0.5)
+        assert port_burn.burn_product.launches == before
 
 
 @pytest.mark.cuda

@@ -236,7 +236,8 @@ class TestProbe:
         assert node["probe"] == doc["local_probe"]
         assert node["probe"]["ok"] is True and node["probe"]["platform"] == "cpu"
         assert node["probe"]["kernel_launches"] == {
-            "tiled_matmul": 0, "dma_stream": 0, "flash_attention": 0, "int8_chain": 0}
+            "tiled_matmul": 0, "dma_stream": 0, "flash_attention": 0, "int8_chain": 0,
+            "burn_chain": 0}
         assert {"config", "list", "detect", "probe", "render"} <= set(doc["timings_ms"])
         assert doc["api_transport"]["requests_sent"] == 1
 

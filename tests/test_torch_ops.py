@@ -41,6 +41,7 @@ port_hbm = importlib.import_module("tpu_node_checker_torch.ops.hbm")
 port_int8 = importlib.import_module("tpu_node_checker_torch.ops.int8_probe")
 port_memtest = importlib.import_module("tpu_node_checker_torch.ops.memtest")
 port_matmul = importlib.import_module("tpu_node_checker_torch.ops.pallas_probe")
+port_spans = importlib.import_module("tpu_node_checker_torch.probe.spans")
 
 
 def _normal(seed, shape):
@@ -310,6 +311,62 @@ class TestBurn:
         assert r.ok, r.error
         assert r.rounds > 1 and built == [2]
 
+    def test_cpu_chain_is_the_plain_three_step_chain(self):
+        # The CPU chain is the plain product, x scale and cast, step by step:
+        # the same bits as the chain written out.
+        a = port_burn._burn_input(64, torch.device("cpu"))
+        scale = torch.tensor(64.0).sqrt().reciprocal().item()
+        x = a
+        for _ in range(5):
+            x = (torch.mm(x.float(), a.float()) * scale).to(torch.bfloat16)
+        assert port_burn._burn_chain(a, 5).item() == x.float().sum().item()
+
+    def test_cpu_chain_counts_no_kernel_products(self):
+        round_ = port_spans.Round()
+        before = port_burn.burn_product.launches
+        with port_spans.active(round_):
+            port_burn._burn_chain(port_burn._burn_input(32, torch.device("cpu")), 3)
+        assert "burn_kernel_products" not in round_.counters
+        assert port_burn.burn_product.launches == before
+
+    def test_kernel_is_built_with_the_others(self):
+        assert "burn_chain" in port_build.KERNELS
+        symbol, argtypes = port_build.SIGNATURES["burn_chain"]
+        assert symbol == "tnc_burn_product" and len(argtypes) == 9
+        assert port_ops.KERNEL_WRAPPERS["burn_chain"] is port_burn.burn_product
+
+    @pytest.mark.parametrize("m,n,sms,tile", [
+        (2048, 2048, 132, (128, 256)),  # the chain: 128 blocks, one wave
+        (4096, 4096, 132, (128, 256)),
+        (512, 512, 132, (128, 128)),  # 8 wide tiles would leave most SMs idle
+        (1000, 1000, 132, (128, 128)),  # ragged: the edge tiles count
+        (1024, 1024, 64, (128, 256)),  # a smaller card: 32 wide tiles fill half
+        (8, 8, 132, (128, 128)),
+    ])
+    def test_tile(self, m, n, sms, tile):
+        assert port_burn.burn_tile(m, n, sms) == tile
+
+    def test_cpu_product_is_the_plain_product(self):
+        x, a = (torch.from_numpy(_normal(seed, (48, 48))).to(torch.bfloat16) for seed in (62, 63))
+        ref = port_burn.burn_product_reference(x, a, 0.125)
+        assert ref.dtype == torch.bfloat16
+        assert torch.equal(ref, (torch.mm(x.float(), a.float()) * 0.125).to(torch.bfloat16))
+        assert torch.equal(port_burn.burn_product(x, a, 0.125), ref)
+        out = torch.empty_like(ref)
+        assert port_burn.burn_product(x, a, 0.125, out=out) is out
+        assert torch.equal(out, ref)
+
+    @pytest.mark.parametrize("x,a,error", [
+        (torch.zeros(16, 16), torch.zeros(16, 16), TypeError),
+        (torch.zeros(16, 16, dtype=torch.bfloat16), torch.zeros(8, 16, dtype=torch.bfloat16),
+         ValueError),
+        (torch.zeros(2, 16, 16, dtype=torch.bfloat16), torch.zeros(16, 16, dtype=torch.bfloat16),
+         ValueError),
+    ])
+    def test_product_refuses_what_no_path_takes(self, x, a, error):
+        with pytest.raises(error):
+            port_burn.burn_product(x, a, 0.5)
+
     def test_soak_names_the_round_whose_check_failed(self, monkeypatch):
         monkeypatch.setattr(port_burn, "_invariant",
                             lambda a: (torch.tensor(2.0), torch.tensor(1.0)))
@@ -392,8 +449,11 @@ class TestKernelWrappersOnCpu:
         port_flash.flash_forward(*(torch.zeros(1, 1, 128, 32) for _ in range(3)))
         port_int8.int8_chain(torch.zeros(128, 128, dtype=torch.int8),
                              torch.zeros(128, 128, dtype=torch.int8), 2)
+        port_burn.burn_product(torch.zeros(128, 128, dtype=torch.bfloat16),
+                               torch.zeros(128, 128, dtype=torch.bfloat16), 0.5)
         assert port_ops.launch_counts() == {
             "tiled_matmul": 0, "dma_stream": 0, "flash_attention": 0, "int8_chain": 0,
+            "burn_chain": 0,
         }
 
     @pytest.mark.parametrize("call", [
@@ -404,6 +464,9 @@ class TestKernelWrappersOnCpu:
         lambda m: port_flash.flash_forward(*(torch.zeros(1, 1, 128, 32, device=m) for _ in range(3))),
         lambda m: port_int8.int8_chain(torch.zeros(128, 128, dtype=torch.int8, device=m),
                                        torch.zeros(128, 128, dtype=torch.int8, device=m), 2),
+        lambda m: port_burn.burn_product(torch.zeros(128, 128, dtype=torch.bfloat16, device=m),
+                                         torch.zeros(128, 128, dtype=torch.bfloat16, device=m),
+                                         0.5),
     ])
     def test_non_cpu_tensors_never_take_the_plain_version(self, call):
         # Only a CPU tensor selects the plain version; any other device either

@@ -115,6 +115,7 @@ class TestWorkloadSlice:
             assert port[key] is None and ref[key] is None, key
         assert port["kernel_launches"] == {
             "tiled_matmul": 0, "dma_stream": 0, "flash_attention": 0, "int8_chain": 0,
+            "burn_chain": 0,
         }
 
 
@@ -143,6 +144,7 @@ class TestComputeSlice:
         assert "skipped" in d["hbm_capacity"] and "skipped" in d["perf_floor"]
         assert d["kernel_launches"] == {
             "tiled_matmul": 0, "dma_stream": 0, "flash_attention": 0, "int8_chain": 0,
+            "burn_chain": 0,
         }
 
 

@@ -377,7 +377,8 @@ def test_the_real_cpu_probe_in_two_loop_rounds(api, tmp_path, capsys, monkeypatc
         assert node["probe"] == doc["local_probe"]
         assert doc["local_probe"]["ok"] is True and doc["local_probe"]["platform"] == "cpu"
         assert doc["local_probe"]["kernel_launches"] == {
-            "tiled_matmul": 0, "dma_stream": 0, "flash_attention": 0, "int8_chain": 0}
+            "tiled_matmul": 0, "dma_stream": 0, "flash_attention": 0, "int8_chain": 0,
+            "burn_chain": 0}
     assert docs[0]["trace_id"] != docs[1]["trace_id"]
     for status, body in rec["scrapes"]:
         assert status == 200 and 'tpu_node_checker_probe_ok{level="compute"} 1.0' in body

@@ -1,8 +1,9 @@
 """Single-card compute probes: real work as a health signal.
 
 * :func:`matmul_burn` and :func:`int8_matmul_probe`: bf16 and int8 products
-  on the tensor cores, checked by an invariant and exactly (the int8 chain is
-  one kernel written by hand for Hopper, :func:`int8_chain`,
+  on the tensor cores, checked by an invariant and exactly (each bf16 chain
+  product and the whole int8 chain are kernels written by hand for Hopper,
+  :func:`burn_product`, ``ops/csrc/burn_chain.cu``, and :func:`int8_chain`,
   ``ops/csrc/int8_chain.cu``);
 * :func:`hbm_bandwidth_probe` and :func:`hbm_pattern_probe`: device-memory
   bandwidth and data integrity;
@@ -15,7 +16,13 @@ can show that its path went through the kernels: :func:`launch_counts` reads
 the counts and :func:`reset_launches` sets them to 0.
 """
 
-from tpu_node_checker_torch.ops.burn import BurnResult, SoakResult, matmul_burn, soak_burn
+from tpu_node_checker_torch.ops.burn import (
+    BurnResult,
+    SoakResult,
+    burn_product,
+    matmul_burn,
+    soak_burn,
+)
 from tpu_node_checker_torch.ops.dma_probe import DmaProbeResult, dma_stream, dma_stream_probe
 from tpu_node_checker_torch.ops.flash_attention import (
     FlashAttentionProbeResult,
@@ -38,6 +45,7 @@ KERNEL_WRAPPERS = {
     "dma_stream": dma_stream,
     "flash_attention": flash_forward,
     "int8_chain": int8_chain,
+    "burn_chain": burn_product,
 }
 
 
@@ -54,6 +62,7 @@ def reset_launches() -> None:
 __all__ = [
     "BurnResult",
     "SoakResult",
+    "burn_product",
     "matmul_burn",
     "soak_burn",
     "DmaProbeResult",

@@ -36,7 +36,7 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 ]
-KERNELS = ("tiled_matmul", "dma_stream", "flash_attention", "int8_chain")
+KERNELS = ("tiled_matmul", "dma_stream", "flash_attention", "int8_chain", "burn_chain")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -49,6 +49,7 @@ SIGNATURES = {
     "dma_stream": ("tnc_dma_stream", [_P, _P, _LL, _LL, _LL, _I, _P]),
     "flash_attention": ("tnc_flash_forward", [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P]),
     "int8_chain": ("tnc_int8_chain", [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
+    "burn_chain": ("tnc_burn_product", [_P, _P, _P, _I, _I, _I, _I, _F, _P]),
 }
 
 _lock = threading.Lock()

@@ -3,8 +3,13 @@
 * bf16 inputs with f32 accumulation; ``n`` defaults to 2048.
 * The timed chain is ``iters`` chained products, each rescaled by 1/sqrt(n)
   and cast back to bf16 so the values stay finite: f32 accumulation, then
-  x 1/sqrt(n), then the cast, exactly as the JAX chain steps.  The product is
-  a library call (``torch.mm``), as the JAX package leaves it to XLA.
+  x 1/sqrt(n), then the cast, exactly as the JAX chain steps.  On the card
+  each product is one kernel written by hand for Hopper
+  (:func:`burn_product`, ``csrc/burn_chain.cu``: wgmma bf16, the rescale and
+  the cast in its epilogue), the chain ping-ponging between two bf16
+  buffers; the CPU runs the plain product, rescale and cast
+  (:func:`burn_product_reference`), as the JAX package leaves the chain to
+  XLA.
 * On the card the chain is captured once as a CUDA graph and replayed: one
   launch for the whole chain, as the JAX chain is one compiled program.
   CUDA events time the replay on the device, so a host that stalls while it
@@ -12,9 +17,10 @@
   round, and per-product launches from an eager loop let a busy host set
   that round's time).
 * Correctness is checked with an invariant a second unit verifies cheaply:
-  ``trace(A @ A^T) == ||A||_F^2``.  The left side runs on the tensor cores,
-  the right side is an elementwise square-reduce.  Disagreement beyond bf16
-  tolerance marks the card sick (the gpu-burn pattern).
+  ``trace(A @ A^T) == ||A||_F^2``.  The left side is one library product on
+  the tensor cores, the right side an elementwise square-reduce.
+  Disagreement beyond bf16 tolerance marks the card sick (the gpu-burn
+  pattern).
 """
 
 from __future__ import annotations
@@ -27,6 +33,7 @@ from typing import Callable, Optional, Tuple
 
 import torch
 
+from tpu_node_checker_torch.ops import _build
 from tpu_node_checker_torch.ops._harness import DeviceLike, card_graph, resolve_device, sync
 from tpu_node_checker_torch.probe import spans
 
@@ -54,17 +61,99 @@ def _mm_f32(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     return torch.mm(x.float(), y.float())
 
 
+# Output tiles the kernel is built for, widest first: (rows, cols).
+KERNEL_TILES = ((128, 256), (128, 128))
+ALIGN = 8  # the kernel takes M, N and K in multiples of 8 (16-byte rows for TMA)
+
+
+def burn_tile(m: int, n: int, sms: int) -> tuple:
+    """The kernel's output tile for an (m, n) result on a card with ``sms``
+    SMs: the widest of :data:`KERNEL_TILES` whose blocks fill at least half
+    the SMs, else the narrowest.  Each tile sums over K in the same order."""
+    for bm, bn in KERNEL_TILES:
+        if -(-m // bm) * -(-n // bn) >= sms // 2:
+            return bm, bn
+    return KERNEL_TILES[-1]
+
+
+def burn_product_reference(x: torch.Tensor, a: torch.Tensor, scale: float) -> torch.Tensor:
+    """Plain version of one chain product: ``x @ a`` in f32, x ``scale``,
+    cast to ``x``'s dtype."""
+    return (_mm_f32(x, a) * scale).to(x.dtype)
+
+
+def burn_product(
+    x: torch.Tensor, a: torch.Tensor, scale: float, out: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """``bf16(scale * (x @ a))`` for bf16 ``x`` (M, K) and ``a`` (K, N):
+    f32 sums over the whole K in one order, x ``scale`` in f32, one
+    round-to-nearest-even to bf16.
+
+    CUDA tensors launch the kernel into ``out`` (a new tensor when None):
+    M, N and K positive multiples of 8, both inputs contiguous and 16-byte
+    aligned, ``out`` (M, N) bf16, contiguous and apart from both; anything
+    else raises.  CPU tensors take the plain version.  Nothing falls back.
+    """
+    if x.dim() != 2 or a.dim() != 2 or x.shape[1] != a.shape[0]:
+        raise ValueError(f"burn_product needs (M,K) @ (K,N), got {tuple(x.shape)} @ "
+                         f"{tuple(a.shape)}")
+    if x.device != a.device:
+        raise ValueError(f"burn_product inputs on {x.device} and {a.device}")
+    if x.dtype != torch.bfloat16 or a.dtype != torch.bfloat16:
+        raise TypeError(f"burn_product takes bf16, got {x.dtype} and {a.dtype}")
+    if x.device.type == "cpu":
+        ref = burn_product_reference(x, a, scale)
+        return ref if out is None else out.copy_(ref)
+    if x.device.type != "cuda":
+        raise ValueError(f"burn_product runs on cuda (kernel) or cpu (plain), not {x.device}")
+    (M, K), N = x.shape, a.shape[1]
+    if min(M, K, N) <= 0 or M % ALIGN or K % ALIGN or N % ALIGN:
+        raise ValueError(f"shape ({M},{K},{N}) not supported by the burn product kernel: "
+                         f"M, N and K must be positive multiples of {ALIGN}")
+    if not (x.is_contiguous() and a.is_contiguous()) or x.data_ptr() % 16 or a.data_ptr() % 16:
+        raise ValueError("burn_product kernel takes contiguous, 16-byte aligned inputs")
+    if out is None:
+        out = torch.empty((M, N), dtype=torch.bfloat16, device=x.device)
+    elif (out.shape != (M, N) or out.dtype != torch.bfloat16 or out.device != x.device
+          or not out.is_contiguous() or out.data_ptr() % 16):
+        raise ValueError(f"burn_product out must be a contiguous, 16-byte aligned ({M},{N}) "
+                         f"bf16 tensor on {x.device}, got {tuple(out.shape)} {out.dtype}")
+    if out.untyped_storage().data_ptr() in (x.untyped_storage().data_ptr(),
+                                            a.untyped_storage().data_ptr()):
+        raise ValueError("burn_product out must not share memory with its inputs")
+    _, bn = burn_tile(M, N, torch.cuda.get_device_properties(x.device).multi_processor_count)
+    fn = _build.kernel("burn_chain")
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    code = fn(x.data_ptr(), a.data_ptr(), out.data_ptr(), M, N, K, bn, scale, stream)
+    _build.check("burn_chain", code)
+    burn_product.launches += 1
+    return out
+
+
+burn_product.launches = 0
+
+
 def _burn_chain(a: torch.Tensor, iters: int) -> torch.Tensor:
     """``iters`` chained bf16 products, rescaled each step to stay finite.
 
     Returns the f32 scalar checksum of the final product; fetching it is the
     completion barrier.  The scale is the f32 value JAX computes, held as a
-    host scalar: no copy to the card, so the chain can be captured.
+    host scalar: no copy to the card, so the chain can be captured.  On the
+    card every product is one launch of :func:`burn_product`, alternating
+    between two buffers made once for the chain, and the chain adds
+    ``iters`` to the round's ``burn_kernel_products``; the CPU chains the
+    plain products.
     """
     scale = torch.tensor(float(a.shape[0]), dtype=torch.float32).sqrt().reciprocal().item()
     x = a
-    for _ in range(iters):
-        x = (_mm_f32(x, a) * scale).to(a.dtype)
+    if a.device.type != "cuda":
+        for _ in range(iters):
+            x = burn_product_reference(x, a, scale)
+        return x.float().sum()
+    bufs = [torch.empty(a.shape, dtype=a.dtype, device=a.device) for _ in range(2)]
+    for i in range(iters):
+        x = burn_product(x, a, scale, out=bufs[i % 2])
+    spans.count("burn_kernel_products", iters)
     return x.float().sum()
 
 
@@ -72,9 +161,9 @@ def _chain_runner(a: torch.Tensor, iters: int) -> Callable[[], Tuple[float, floa
     """A function that runs the chain once and returns (checksum, seconds).
 
     On the CPU it runs the chain eagerly on the host clock.  On the card the
-    chain is captured here, once, as a CUDA graph (cuBLAS warmed first on a
-    side stream, as capture requires), and each run replays the graph
-    between two CUDA events.
+    chain is captured here, once, as a CUDA graph (one product run first on
+    a side stream, which builds and loads the kernel outside the capture),
+    and each run replays the graph between two CUDA events.
     """
     if a.device.type != "cuda":
         def run_eager() -> Tuple[float, float]:
@@ -99,7 +188,8 @@ def _burn_input(n: int, dev: torch.device) -> torch.Tensor:
 
 
 def _invariant(a: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(trace(A @ A^T) on the tensor cores, ||A||_F^2 elementwise): must agree."""
+    """(trace(A @ A^T) by one library product on the tensor cores, ||A||_F^2
+    elementwise): must agree."""
     prod = _mm_f32(a, a.t())
     return torch.trace(prod), a.float().square().sum()
 

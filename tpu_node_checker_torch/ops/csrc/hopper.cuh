@@ -176,10 +176,17 @@ __device__ __forceinline__ void fence_regs(float (&d)[R]) {
 // descriptors, bf16 in, f32 accumulators; scale_d = 0 overwrites d.
 // TRANS_B = 1 reads B MN-major.  Each thread holds N/2 accumulators: d[4j+e]
 // is row 16*warp + lane/4 (+8 for e >= 2), column 8j + 2*(lane%4) + e%2.
+#define TNC_F8(i)                                                                       \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), \
+      "+f"(d[i + 6]), "+f"(d[i + 7])
+#define TNC_F64(i)                                                                        \
+  TNC_F8(i), TNC_F8(i + 8), TNC_F8(i + 16), TNC_F8(i + 24), TNC_F8(i + 32), TNC_F8(i + 40), \
+      TNC_F8(i + 48), TNC_F8(i + 56)
+
 template <int N, int TRANS_B>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t desc_a, uint64_t desc_b,
                                          int scale_d) {
-  static_assert(N == 64 || N == 128, "wgmma_ss: N is 64 or 128");
+  static_assert(N == 64 || N == 128 || N == 256, "wgmma_ss: N is 64, 128 or 256");
   if constexpr (N == 64) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
@@ -224,7 +231,27 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t desc_a, uin
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
         : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TRANS_B));
   }
+  if constexpr (N == 256) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
+        "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
+        "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"
+        "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110,"
+        "%111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124,"
+        "%125, %126, %127}, "
+        "%128, %129, p, 1, 1, 0, %131;\n}\n"
+        : TNC_F64(0), TNC_F64(64)
+        : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TRANS_B));
+  }
 }
+
+#undef TNC_F64
+#undef TNC_F8
 
 // d[64 x N] += A[64 x 16] . B[16 x N] with A in registers: four 32-bit
 // registers of bf16 pairs per thread, a[0] = (row r, k 2c..2c+1),
