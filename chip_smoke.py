@@ -387,6 +387,21 @@ def phase(n: int, name: str, **fields) -> None:
     print(f"phase {n} {name}: " + json.dumps(fields, default=str), flush=True)
 
 
+def check_launches(path: str, launches: Optional[dict], expected: Optional[dict] = None) -> None:
+    """Fail, naming ``path`` and the kernels, unless a report's
+    ``kernel_launches`` shows every kernel launched and, for each kernel in
+    ``expected``, launched that many times."""
+    from tpu_node_checker_torch.ops import launch_counts
+
+    launches = launches or {}
+    missed = [name for name in launch_counts() if not launches.get(name)]
+    unlike = {name: (launches.get(name), n) for name, n in (expected or {}).items()
+              if launches.get(name) != n}
+    if missed or unlike:
+        fail(f"{path}: kernels never launched {missed}, launches (reported, expected) "
+             f"unlike {unlike}")
+
+
 def cuda_ms(torch, fn, reps: int = REPS) -> float:
     """Mean device time of ``fn`` over ``reps`` back-to-back calls, by CUDA events."""
     for _ in range(10):
@@ -542,9 +557,7 @@ def phase6_paths(torch, root, dev, cfg, rows, tf32_default, validate_report) -> 
         fail(f"the 1x1 workload level is not healthy: {rep.get('error')} {violations}")
     if rep.get("ici_axis_ok") != {"t0": True, "t1": True} or rep.get("ici_topology") != "1x1":
         fail(f"the 1x1 per-axis block read {rep.get('ici_axis_ok')} on {rep.get('ici_topology')}")
-    missed = [r["name"] for r in rows if not launches.get(r["name"])]
-    if missed:
-        fail(f"the 1x1 workload path never launched: {missed}")
+    check_launches("the 1x1 workload path", launches)
 
     rc, rep, seconds = entry_point(root, "collective", TNC_TOPOLOGY="1x1", TNC_CHAOS_AXIS="t1")
     violations = validate_report(rep)
@@ -899,10 +912,10 @@ def phase7_emitter(torch, root, rows, validate_report) -> None:
              f"timestamps {stamps}")
     if any(e["exit_code"] != 0 or e["probe_level"] != "compute" for e in entries):
         fail(f"an emitter round was not healthy at the compute level: {entries}")
-    for d in per_round:
-        missed = [r["name"] for r in rows if not (d["kernel_launches"] or {}).get(r["name"])]
-        if not d["ok"] or d["schema_violations"] or missed:
-            fail(f"an emitter round is not healthy or missed kernels {missed}: {d}")
+    for i, d in enumerate(per_round):
+        if not d["ok"] or d["schema_violations"]:
+            fail(f"an emitter round is not healthy: {d}")
+        check_launches(f"emitter round {i + 1}", d["kernel_launches"])
     for r in rows:
         r["emitter_launches"] = [d["kernel_launches"][r["name"]] for d in per_round]
 
@@ -1043,7 +1056,6 @@ def phase8_operator_modes(torch, root, rows) -> None:
     t_phase = time.perf_counter()
     env = {k: v for k, v in os.environ.items() if not k.startswith("TNC_")}
     work = tempfile.mkdtemp(prefix="chip-smoke-modes-")
-    names = [r["name"] for r in rows]
 
     # The initContainer's line (deploy/daemonset-emitter.yaml).
     proc, legs, seconds = observed_cli(root, work, "selftest", "--selftest", "--json",
@@ -1064,11 +1076,12 @@ def phase8_operator_modes(torch, root, rows) -> None:
                  "matmul_tflops": leg["report"].get("matmul_tflops"),
                  "perf_floor": leg["report"].get("perf_floor"), "kernel_launches": kl}
                 for leg, kl in zip(legs, launches)])
-    missed = [(i, n) for i, kl in enumerate(launches) for n in names if not kl.get(n)]
     if (proc.returncode != 0 or behaved != {"baseline": True, "throttle": True}
-            or doc.get("skipped_legs") != SINGLE_CARD_SKIPS or len(legs) != 2 or missed):
+            or doc.get("skipped_legs") != SINGLE_CARD_SKIPS or len(legs) != 2):
         fail(f"the selftest: exit {proc.returncode}, behaved {behaved}, "
-             f"skipped {doc.get('skipped_legs')}, {len(legs)} legs, kernels missed {missed}")
+             f"skipped {doc.get('skipped_legs')}, {len(legs)} legs")
+    for i, kl in enumerate(launches):
+        check_launches(f"selftest leg {i}", kl)
     if any(leg["args"].get("device") != "cuda:0" or leg["args"].get("timeout_s") != 600.0
            for leg in legs):
         fail(f"a selftest leg did not run on cuda:0 with the 600 s timeout: "
@@ -1098,10 +1111,11 @@ def phase8_operator_modes(torch, root, rows) -> None:
           kernel_launches=cal_launches)
     wrong = [m for m in metrics
              if m not in spread or expect.get(m) != round(0.9 * spread[m]["median"], 3)]
-    missed = [(i, n) for i, kl in enumerate(cal_launches) for n in names if not kl.get(n)]
-    if proc.returncode != 0 or len(reps) != 3 or wrong or missed:
+    if proc.returncode != 0 or len(reps) != 3 or wrong:
         fail(f"the calibration: exit {proc.returncode}, {len(reps)} reps, expectations "
-             f"not 0.9 x the median: {wrong}, kernels missed {missed}")
+             f"not 0.9 x the median: {wrong}")
+    for i, kl in enumerate(cal_launches):
+        check_launches(f"calibration rep {i}", kl)
     for r in rows:
         r["calibrate_launches"] = [kl[r["name"]] for kl in cal_launches]
 
@@ -1209,13 +1223,13 @@ def phase9_distributed(root, rows, validate_report) -> None:
           process_count=doc.get("process_count"), device_count=doc.get("device_count"),
           **verdicts, workload_losses=doc.get("workload_losses"), kernel_launches=launches,
           schema_violations=validate_report(doc), left=run["left"])
-    missed = [r["name"] for r in rows if not launches.get(r["name"])]
     if (run["exit_code"] != 0 or doc.get("ok") is not True or validate_report(doc)
             or doc.get("distributed") is not True or doc.get("process_count") != 1
             or doc.get("process_index") != 0 or "distributed_psum" in doc
-            or any(v is not True for v in verdicts.values()) or missed or run["left"]):
+            or any(v is not True for v in verdicts.values()) or run["left"]):
         fail(f"the one-process distributed probe: exit {run['exit_code']}, {doc.get('error')}, "
-             f"verdicts {verdicts}, kernels missed {missed}, left {run['left']}")
+             f"verdicts {verdicts}, left {run['left']}")
+    check_launches("the one-process distributed probe", launches)
     for r in rows:
         r["distributed_launches"] = launches[r["name"]]
 
@@ -1353,13 +1367,11 @@ def phase10_oneshot(torch, root, rows, validate_report) -> None:
           attached_to_this_node=entry.get("probe") == local, ready_nodes=payload.get("ready_nodes"),
           total_nodes=payload.get("total_nodes"), kernel_launches=launches,
           schema_violations=validate_report(local), timings_ms=payload.get("timings_ms"))
-    missed = [r["name"] for r in rows if not launches.get(r["name"])]
-    unlike = {r["name"]: (launches.get(r["name"]), r["launches"]) for r in rows
-              if launches.get(r["name"]) != r["launches"]}
     if (rc != 0 or local.get("ok") is not True or entry.get("probe") != local
-            or validate_report(local) or missed or unlike or payload.get("ready_nodes") != 1):
-        fail(f"the one-shot round with --probe: exit {rc}, {local.get('error')}, kernels missed "
-             f"{missed}, launches unlike the workload path's {unlike}: {err[-2000:]}")
+            or validate_report(local) or payload.get("ready_nodes") != 1):
+        fail(f"the one-shot round with --probe: exit {rc}, {local.get('error')}: {err[-2000:]}")
+    check_launches("the one-shot round with --probe", launches,
+                   {r["name"]: r["launches"] for r in rows})
     for r in rows:
         r["oneshot_launches"] = launches[r["name"]]
 
@@ -1693,14 +1705,12 @@ def phase11_live_round(torch, root, rows, validate_report) -> None:
               nodes_with_events=len(with_events), stderr_note=note in err,
               api_transport=transport, server_requests=dict(api.requests),
               timings_ms=payload.get("timings_ms"))
-        missed = [r["name"] for r in rows if not launches.get(r["name"])]
-        unlike = {r["name"]: (launches.get(r["name"]), r["launches"]) for r in rows
-                  if launches.get(r["name"]) != r["launches"]}
         if (rc != 0 or local.get("ok") is not True or entry.get("probe") != local
-                or validate_report(local) or missed or unlike
+                or validate_report(local)
                 or payload.get("total_nodes") != 1000 or payload.get("ready_nodes") != 990):
-            fail(f"the live round with --probe: exit {rc}, {local.get('error')}, kernels missed "
-                 f"{missed}, launches unlike the workload path's {unlike}: {err[-2000:]}")
+            fail(f"the live round with --probe: exit {rc}, {local.get('error')}: {err[-2000:]}")
+        check_launches("the live round with --probe", launches,
+                       {r["name"]: r["launches"] for r in rows})
         if (len(with_events) != 8 or not set(with_events) <= sick or note not in err
                 or transport.get("requests_sent") != 3 + 8):
             fail(f"--node-events: events on {with_events}, note {note in err}, "
@@ -2109,15 +2119,16 @@ def phase12_watch_loop(torch, root, rows, validate_report) -> None:
           exit_code=run["exit_code"], rounds=per_round, waits_asked_s=[w["seconds"] for w in waits],
           gap_between_round_starts_s=gaps, after_check_ms=after_check_ms,
           sigterm_to_exit_s=run["sigterm_to_exit_s"], seconds=run["seconds"])
-    want = [r["launches"] for r in rows]
     bad = [i + 1 for i, r in enumerate(ends) if r.get("probe") and (
         r["probe"].get("ok") is not True or validate_report(r["probe"])
-        or [r["probe"].get("kernel_launches", {}).get(k["name"]) for k in rows] != want
         or not all(r["probe"].get(k) is True for k in ("pallas_ok", "dma_ok",
                                                          "flash_attention_ok", "int8_ok")))]
     if len(probed) != 5 or bad:
-        fail(f"the probed loop: {len(probed)} rounds probed, rounds {bad} unlike the "
-             f"workload path's {want}: {run['stderr'][-20:]}")
+        fail(f"the probed loop: {len(probed)} rounds probed, rounds {bad} not healthy: "
+             f"{run['stderr'][-20:]}")
+    for i, e in enumerate(probed):
+        check_launches(f"the probed loop's round {i + 1}", e["probe"].get("kernel_launches"),
+                       {r["name"]: r["launches"] for r in rows})
     for r in rows:
         r["watch_launches"] = [e["probe"]["kernel_launches"][r["name"]] for e in probed]
     if any(w["seconds"] != 0.0 for w, e in zip(waits, ends) if e.get("probe")):
@@ -2352,14 +2363,13 @@ def phase13_quarantine(torch, root, rows, validate_report) -> dict:
     phase(13, "the reports, written by the port's emitter, four at once", reports=per_emit,
           seconds=time.perf_counter() - t0)
     for key, e in per_emit.items():
-        launches = e["kernel_launches"] or {}
         if (e["exit_code"] != (0 if key == "healthy" else 3) or e["schema_violations"]
                 or e["hostname"] != emits[key][0]
-                or not all(v is True for v in e["kernels_match_plain"].values())
-                or any(not launches.get(r["name"]) for r in rows)
-                or (key == "healthy" and any(launches.get(r["name"]) != r["compute_launches"]
-                                             for r in rows))):
+                or not all(v is True for v in e["kernels_match_plain"].values())):
             fail(f"the emit {key}: {e}")
+        check_launches(f"the emit {key}", e["kernel_launches"],
+                       {r["name"]: r["compute_launches"] for r in rows} if key == "healthy"
+                       else None)
     for r in rows:
         r["quarantine_launches"] = {k: e["kernel_launches"][r["name"]]
                                     for k, e in per_emit.items()}
@@ -3435,13 +3445,12 @@ def phase15_federation(torch, root, rows, validate_report) -> None:
     phase(15, "this host's reports, written by the port's emitter at once", reports=per_emit,
           seconds=emit_seconds)
     for key, e in per_emit.items():
-        launches = e["kernel_launches"] or {}
         if (e["exit_code"] != (0 if key == "healthy" else 3) or e["schema_violations"]
                 or e["hostname"] != host
                 or (key == "drill" and "t1" not in (e["error"] or ""))
-                or not all(v is True for v in e["kernels_match_plain"].values())
-                or any(not launches.get(r["name"]) for r in rows)):
+                or not all(v is True for v in e["kernels_match_plain"].values())):
             fail(f"the emit {key}: {e}")
+        check_launches(f"the emit {key}", e["kernel_launches"])
     for r in rows:
         r["federation_launches"] = {k: e["kernel_launches"][r["name"]]
                                     for k, e in per_emit.items()}
@@ -4133,13 +4142,11 @@ def main() -> int:
     # (the wrapper picks one): the device time that the wrapper's choice
     # rests on, each tile held against the plain version.  A tree from
     # before the tile dispatch has no tiles to compare.
-    entry = _build.kernel("tiled_matmul")
-    stream = torch.cuda.current_stream(dev).cuda_stream
     tiles = {}
     for bm, bn in getattr(pallas_probe, "KERNEL_TILES", ()):
         def run_tile(bm=bm, bn=bn):
-            code = entry(a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k, bm, bn, 0.5, stream)
-            _build.check("tiled_matmul", code)
+            _build.launch("tiled_matmul", dev, a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n,
+                          k, bm, bn, 0.5)
 
         out.zero_()
         run_tile()
@@ -4216,9 +4223,7 @@ def main() -> int:
             fail(f"{key} is {report.get(key)!r}")
     if violations:
         fail(f"report violates the schema: {violations}")
-    missed = [r["name"] for r in rows if not launches.get(r["name"])]
-    if missed:
-        fail(f"the main path never launched: {missed}")
+    check_launches("the main path", launches)
     for r in rows:
         r["launches"] = launches[r["name"]]
 
@@ -4252,9 +4257,9 @@ def main() -> int:
           ok={name: p.ok for name, p in probes.items()},
           errors={name: p.error for name, p in probes.items() if p.error})
     bad = [name for name, p in probes.items() if not p.ok]
-    bad += [name for name in ops.KERNEL_WRAPPERS if not in_process.get(name)]
     if bad:
-        fail(f"in-process probes failed or never launched their kernel: {bad}")
+        fail(f"in-process probes failed: {bad}")
+    check_launches("the in-process probes", in_process)
 
     # -- 5. the workload path: the training step in this process, then the
     # workload-level probe through its entry point.
@@ -4324,12 +4329,12 @@ def main() -> int:
         train_step, init_fn = make_train_step(c, device=dev)
         model, opt = init_fn(seed=0, state=state)
         state = state or {n: t.detach().clone() for n, t in model.state_dict().items()}
-        before = ops.flash_forward.launches
+        before = ops.launch_counts()["flash_attention"]
         loss = _loss(model, tokens)
         loss.backward()
         torch.cuda.synchronize()
         step_out[att] = dict(
-            loss=float(loss.detach()), launches=ops.flash_forward.launches - before,
+            loss=float(loss.detach()), launches=ops.launch_counts()["flash_attention"] - before,
             grads={n: p.grad.detach().clone() for n, p in model.named_parameters()},
         )
         # The whole step (forward, backward, Adam) on the host clock, each
@@ -4442,9 +4447,7 @@ def main() -> int:
     if extra_flash < cfg.n_layers * steps:
         fail(f"the training step launched the flash kernel {extra_flash} times, "
              f"fewer than n_layers x steps = {cfg.n_layers * steps}")
-    missed = [r["name"] for r in rows if not wl_launches.get(r["name"])]
-    if missed:
-        fail(f"the workload path never launched: {missed}")
+    check_launches("the workload path", wl_launches)
     for r in rows:
         r["compute_launches"] = r["launches"]
         r["launches"] = wl_launches[r["name"]]

@@ -26,7 +26,12 @@ port_int8 = importlib.import_module("tpu_node_checker_torch.ops.int8_probe")
 port_burnin = importlib.import_module("tpu_node_checker_torch.models.burnin")
 port_parallel = importlib.import_module("tpu_node_checker_torch.parallel")
 port_sweep = importlib.import_module("tpu_node_checker_torch.meshprobe.sweep")
-port_spans = importlib.import_module("tpu_node_checker_torch.probe.spans")
+port_ops = importlib.import_module("tpu_node_checker_torch.ops")
+
+
+def _launched(kernel):
+    """Launches of ``kernel`` in this process since the last reset."""
+    return port_ops.launch_counts()[kernel]
 
 
 @pytest.fixture()
@@ -108,9 +113,9 @@ class TestKernelsOnCard:
     def test_flash_gradients_match_plain(self, cuda_device):
         leaves = [torch.randn((1, 2, 256, 64), device=cuda_device).requires_grad_(True)
                   for _ in range(3)]
-        before = port_flash.flash_forward.launches
+        before = _launched("flash_attention")
         torch.tanh(port_flash.flash_attention(*leaves)).sum().backward()
-        assert port_flash.flash_forward.launches == before + 1
+        assert _launched("flash_attention") == before + 1
         plain = [t.detach().clone().requires_grad_(True) for t in leaves]
         torch.tanh(port_flash.causal_attention_reference(*plain)).sum().backward()
         for a, b in zip(leaves, plain):
@@ -122,10 +127,10 @@ def _check_tiled_matmul(device, m, k, n):
     g = torch.Generator(device=device).manual_seed(0)
     a = torch.randn((m, k), generator=g, device=device).to(torch.bfloat16)
     b = torch.randn((k, n), generator=g, device=device).to(torch.bfloat16)
-    before = port_matmul.tiled_matmul.launches
+    before = _launched("tiled_matmul")
     out = port_matmul.tiled_matmul(a, b, 0.5)
     torch.cuda.synchronize()
-    assert port_matmul.tiled_matmul.launches == before + 1
+    assert _launched("tiled_matmul") == before + 1
     ref = port_matmul.tiled_matmul_reference(a, b, 0.5)
     # f32 accumulation in another order.
     assert float(((out - ref).abs() / ref.abs().clamp_min(1.0)).max()) < 1e-3
@@ -145,14 +150,14 @@ def test_compute_probe_on_card(cuda_device):
 def test_burn_graph_replays_the_eager_chain(cuda_device):
     n, iters = 512, 8
     a = port_burn._burn_input(n, cuda_device)
-    before = port_burn.burn_product.launches
+    before = _launched("burn_chain")
     run = port_burn._chain_runner(a, iters)
     # The warm-up product and the captured chain, one launch a product.
-    assert port_burn.burn_product.launches == before + 1 + iters
+    assert _launched("burn_chain") == before + 1 + iters
     first, seconds = run()
     again = [run()[0] for _ in range(2)]
     eager = float(port_burn._burn_chain(a, iters).item())
-    assert port_burn.burn_product.launches == before + 1 + 2 * iters
+    assert _launched("burn_chain") == before + 1 + 2 * iters
     assert seconds > 0
     # The same kernel in the same order: bit for bit.
     assert again == [first] * 2 and eager == first
@@ -173,16 +178,16 @@ class TestBurnProductOnCard:
     library's f32 product, x scale, the cast) on the card: the two differ
     only in the order of the f32 sums."""
 
-    @pytest.mark.parametrize("n", [2048, 512, 1000])  # the chain; the narrow tile; ragged
+    @pytest.mark.parametrize("n", [2048, 512, 1000])  # the chain; a partial tile; ragged
     def test_equals_plain_product(self, cuda_device, n):
         x = port_burn._burn_input(n, cuda_device)
         gen = torch.Generator(device=cuda_device).manual_seed(n)
         a = torch.randn((n, n), generator=gen, device=cuda_device).to(torch.bfloat16)
         scale = torch.tensor(float(n)).sqrt().reciprocal().item()
-        before = port_burn.burn_product.launches
+        before = _launched("burn_chain")
         out = port_burn.burn_product(x, a, scale)
         torch.cuda.synchronize()
-        assert port_burn.burn_product.launches == before + 1
+        assert _launched("burn_chain") == before + 1
         assert out.dtype == torch.bfloat16 and out.shape == (n, n)
         ref = port_burn.burn_product_reference(x, a, scale)
         # A different f32 summation order moves a sum by far less than one
@@ -207,10 +212,10 @@ class TestBurnProductOnCard:
         assert gap_kernel <= 2 * gap_plain, (gap_kernel, gap_plain)
 
     def test_chain_counts_its_products(self, cuda_device):
-        round_ = port_spans.Round()
-        with port_spans.active(round_):
-            port_burn._burn_chain(port_burn._burn_input(256, cuda_device), 5)
-        assert round_.counters["burn_kernel_products"] == 5
+        a = port_burn._burn_input(256, cuda_device)
+        before = _launched("burn_chain")
+        port_burn._burn_chain(a, 5)
+        assert _launched("burn_chain") == before + 5
 
     @pytest.mark.parametrize("make,error,match", [
         (lambda d: (torch.zeros((100, 96), dtype=torch.bfloat16, device=d),
@@ -224,10 +229,10 @@ class TestBurnProductOnCard:
     ])
     def test_refuses_what_the_kernel_does_not_take(self, cuda_device, make, error, match):
         x, a = make(cuda_device)
-        before = port_burn.burn_product.launches
+        before = _launched("burn_chain")
         with pytest.raises(error, match=match):
             port_burn.burn_product(x, a, 0.5)
-        assert port_burn.burn_product.launches == before
+        assert _launched("burn_chain") == before
 
 
 @pytest.mark.cuda
@@ -235,7 +240,7 @@ def test_int8_graph_replays_the_eager_chain(cuda_device):
     gen = torch.Generator(device=cuda_device).manual_seed(0)
     a, b = (torch.randint(-8, 8, shape, generator=gen, device=cuda_device).to(torch.int8)
             for shape in ((256, 512), (512, 384)))
-    port_int8.int8_chain.launches = 0
+    port_ops.reset_launches()
     replay = port_harness.card_graph(lambda: port_int8._int8_chain(a, b, 8),
                                      lambda: port_int8._int8_chain(a, b, 1), cuda_device)
     first, seconds = replay()
@@ -243,7 +248,7 @@ def test_int8_graph_replays_the_eager_chain(cuda_device):
     replays = [replay()[0].clone() for _ in range(3)]
     eager = port_int8._int8_chain(a, b, 8)
     # The warm-up, the capture and the eager chain each went through the kernel.
-    assert port_int8.int8_chain.launches == 3
+    assert _launched("int8_chain") == 3
     assert seconds > 0
     # Integer arithmetic: every replay equals the first and the eager chain,
     # and both equal the plain chain of library products, exactly.
@@ -267,10 +272,10 @@ class TestInt8ChainOnCard:
         gen = torch.Generator(device=cuda_device).manual_seed(m + n + iters)
         a = torch.randint(-8, 8, (m, k), generator=gen, device=cuda_device).to(torch.int8)
         b = torch.randint(-8, 8, (k, n), generator=gen, device=cuda_device).to(torch.int8)
-        before = port_int8.int8_chain.launches
+        before = _launched("int8_chain")
         out = port_int8.int8_chain(a, b, iters)
         torch.cuda.synchronize()
-        assert port_int8.int8_chain.launches == before + 1
+        assert _launched("int8_chain") == before + 1
         assert out.dtype == torch.int32 and out.shape == (m, n)
         assert torch.equal(out, port_int8.int8_chain_reference(a, b, iters))
 
@@ -287,10 +292,8 @@ class TestInt8ChainOnCard:
         b = torch.randint(-8, 8, (k, n), generator=gen, device=cuda_device).to(torch.int8)
         a2, bt = torch.cat([a, a]), b.t().contiguous()
         acc = torch.zeros((m, n), dtype=torch.int32, device=cuda_device)
-        code = build.kernel("int8_chain")(
-            a2.data_ptr(), bt.data_ptr(), acc.data_ptr(), m, n, k, iters, *tile, groups,
-            torch.cuda.current_stream(cuda_device).cuda_stream)
-        build.check("int8_chain", code)
+        build.launch("int8_chain", cuda_device, a2.data_ptr(), bt.data_ptr(), acc.data_ptr(),
+                     m, n, k, iters, *tile, groups)
         torch.cuda.synchronize()
         assert torch.equal(acc, port_int8.int8_chain_reference(a, b, iters))
 
@@ -316,12 +319,12 @@ class TestInt8ChainOnCard:
     def test_probe_refuses_shape_off_the_rule(self, cuda_device):
         # A limit of the kernel, reported as such, not as a mismatch; the
         # kernel never runs.
-        before = port_int8.int8_chain.launches
+        before = _launched("int8_chain")
         res = port_int8.int8_matmul_probe(m=100, k=128, n=128, iters=4, device=cuda_device)
         assert not res.ok and res.tops == 0.0
         assert "not supported by the int8 chain kernel" in res.error
         assert "WRONG" not in res.error
-        assert port_int8.int8_chain.launches == before
+        assert _launched("int8_chain") == before
 
 
 @pytest.mark.cuda
@@ -348,10 +351,12 @@ class _NoHostClock:
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ["int8", "hbm"])
 def test_graded_figure_is_timed_by_cuda_events(cuda_device, monkeypatch, name):
-    module, run = {
-        "int8": (port_int8, lambda: port_int8.int8_matmul_probe(
-            m=1024, k=1024, n=1024, iters=128, device=cuda_device)),
-        "hbm": (port_hbm, lambda: port_hbm.hbm_bandwidth_probe(device=cuda_device)),
+    # Both probes time their chain through _harness.chain_clock, whose CPU
+    # branch is the one host clock: on the card it must not be read.
+    run = {
+        "int8": lambda: port_int8.int8_matmul_probe(
+            m=1024, k=1024, n=1024, iters=128, device=cuda_device),
+        "hbm": lambda: port_hbm.hbm_bandwidth_probe(device=cuda_device),
     }[name]
     graphs = []
     real = port_harness.card_graph
@@ -360,8 +365,8 @@ def test_graded_figure_is_timed_by_cuda_events(cuda_device, monkeypatch, name):
         graphs.append(args)
         return real(*args)
 
-    monkeypatch.setattr(module, "time", _NoHostClock)
-    monkeypatch.setattr(module, "card_graph", counted)
+    monkeypatch.setattr(port_harness, "time", _NoHostClock)
+    monkeypatch.setattr(port_harness, "card_graph", counted)
     r = run()
     assert r.ok, r.error
     assert len(graphs) == 1 and r.elapsed_ms > 0
@@ -456,10 +461,10 @@ def test_full_width_step_flash_matches_plain_attention(cuda_device):
             dataclasses.replace(cfg, attention=att), device=cuda_device)
         model, _ = init_fn(seed=0, state=state)
         state = state or model.state_dict()
-        before = port_flash.flash_forward.launches
+        before = _launched("flash_attention")
         loss = port_burnin._loss(model, tokens)
         loss.backward()
-        out[att] = (float(loss.detach()), port_flash.flash_forward.launches - before,
+        out[att] = (float(loss.detach()), _launched("flash_attention") - before,
                     {n: p.grad.float() for n, p in model.named_parameters()})
     (lx, nx, gx), (lf, nf, gf) = out["xla"], out["flash"]
     assert (nx, nf) == (0, cfg.n_layers)
@@ -472,8 +477,8 @@ def test_full_width_step_flash_matches_plain_attention(cuda_device):
 def test_workload_probe_on_card(cuda_device):
     import dataclasses
 
-    before = port_flash.flash_forward.launches
+    before = _launched("flash_attention")
     r = port_burnin.workload_probe(
         dataclasses.replace(port_burnin.BurninConfig(), attention="flash"), device=cuda_device)
     assert r.ok, r.error
-    assert port_flash.flash_forward.launches - before == 2 * 3  # n_layers x steps
+    assert _launched("flash_attention") - before == 2 * 3  # n_layers x steps

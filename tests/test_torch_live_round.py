@@ -38,6 +38,7 @@ from tpu_node_checker import probe as jax_probe
 port_cli = importlib.import_module("tpu_node_checker_torch.cli")
 port_checker = importlib.import_module("tpu_node_checker_torch.checker")
 port_liveness = importlib.import_module("tpu_node_checker_torch.probe.liveness")
+port_build = importlib.import_module("tpu_node_checker_torch.ops._build")
 
 
 @pytest.fixture(scope="module")
@@ -235,9 +236,7 @@ class TestProbe:
         node = next(n for n in doc["nodes"] if n["name"] == "gke-gpu-pool-1")
         assert node["probe"] == doc["local_probe"]
         assert node["probe"]["ok"] is True and node["probe"]["platform"] == "cpu"
-        assert node["probe"]["kernel_launches"] == {
-            "tiled_matmul": 0, "dma_stream": 0, "flash_attention": 0, "int8_chain": 0,
-            "burn_chain": 0}
+        assert node["probe"]["kernel_launches"] == dict.fromkeys(port_build.KERNELS, 0)
         assert {"config", "list", "detect", "probe", "render"} <= set(doc["timings_ms"])
         assert doc["api_transport"]["requests_sent"] == 1
 

@@ -16,6 +16,7 @@ declared set, and a missing torch must fail loudly here, not skip.
 
 import importlib
 import math
+import types
 
 import jax
 import jax.numpy as jnp
@@ -323,28 +324,18 @@ class TestBurn:
 
     def test_cpu_chain_counts_no_kernel_products(self):
         round_ = port_spans.Round()
-        before = port_burn.burn_product.launches
+        before = port_ops.launch_counts()["burn_chain"]
         with port_spans.active(round_):
             port_burn._burn_chain(port_burn._burn_input(32, torch.device("cpu")), 3)
-        assert "burn_kernel_products" not in round_.counters
-        assert port_burn.burn_product.launches == before
+        assert round_.counters == {}
+        assert port_ops.launch_counts()["burn_chain"] == before
 
     def test_kernel_is_built_with_the_others(self):
         assert "burn_chain" in port_build.KERNELS
         symbol, argtypes = port_build.SIGNATURES["burn_chain"]
-        assert symbol == "tnc_burn_product" and len(argtypes) == 9
-        assert port_ops.KERNEL_WRAPPERS["burn_chain"] is port_burn.burn_product
-
-    @pytest.mark.parametrize("m,n,sms,tile", [
-        (2048, 2048, 132, (128, 256)),  # the chain: 128 blocks, one wave
-        (4096, 4096, 132, (128, 256)),
-        (512, 512, 132, (128, 128)),  # 8 wide tiles would leave most SMs idle
-        (1000, 1000, 132, (128, 128)),  # ragged: the edge tiles count
-        (1024, 1024, 64, (128, 256)),  # a smaller card: 32 wide tiles fill half
-        (8, 8, 132, (128, 128)),
-    ])
-    def test_tile(self, m, n, sms, tile):
-        assert port_burn.burn_tile(m, n, sms) == tile
+        # x, a, out, M, N, K, scale, the stream: no tile argument.
+        assert symbol == "tnc_burn_product" and len(argtypes) == 8
+        assert "burn_chain" in port_ops.launch_counts()
 
     def test_cpu_product_is_the_plain_product(self):
         x, a = (torch.from_numpy(_normal(seed, (48, 48))).to(torch.bfloat16) for seed in (62, 63))
@@ -451,10 +442,7 @@ class TestKernelWrappersOnCpu:
                              torch.zeros(128, 128, dtype=torch.int8), 2)
         port_burn.burn_product(torch.zeros(128, 128, dtype=torch.bfloat16),
                                torch.zeros(128, 128, dtype=torch.bfloat16), 0.5)
-        assert port_ops.launch_counts() == {
-            "tiled_matmul": 0, "dma_stream": 0, "flash_attention": 0, "int8_chain": 0,
-            "burn_chain": 0,
-        }
+        assert port_ops.launch_counts() == dict.fromkeys(port_build.KERNELS, 0)
 
     @pytest.mark.parametrize("call", [
         lambda m: port_matmul.tiled_matmul(
@@ -491,3 +479,73 @@ class TestKernelWrappersOnCpu:
         monkeypatch.setenv("CUDA_HOME", str(tmp_path))
         with pytest.raises(port_build.KernelBuildError, match="nvcc not found"):
             port_build.build_all(["tiled_matmul"])
+
+
+class TestLaunchSeam:
+    """``_build.launch``, the one path every wrapper launches through, and the
+    counts it keeps (a fake C entry stands in for the built library)."""
+
+    @pytest.fixture()
+    def fake_entry(self, monkeypatch):
+        calls, codes = [], [0]
+
+        def entry(*args):
+            calls.append(args)
+            return codes[0]
+
+        stream = type("Stream", (), {"cuda_stream": 4242})()
+        for name in port_build.KERNELS:
+            monkeypatch.setitem(port_build._loaded, name, entry)
+        monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: stream)
+        port_ops.reset_launches()
+        yield calls, codes
+        port_ops.reset_launches()
+
+    @pytest.mark.parametrize("name", port_build.KERNELS)
+    def test_launch_passes_the_stream_last_and_counts(self, fake_entry, name):
+        calls, _ = fake_entry
+        for _ in range(2):
+            port_build.launch(name, torch.device("cpu"), 1, 2, 3)
+        assert calls == [(1, 2, 3, 4242)] * 2
+        assert port_ops.launch_counts() == {**dict.fromkeys(port_build.KERNELS, 0), name: 2}
+
+    def test_failed_launch_raises_naming_the_kernel_and_counts_nothing(self, fake_entry,
+                                                                         monkeypatch):
+        _, codes = fake_entry
+        codes[0] = 1  # cudaErrorInvalidValue
+        # The CPU build cannot name CUDA's codes; the card's can.
+        monkeypatch.setattr(torch.cuda, "CudaError", lambda code: f"CUDA error {code}")
+        with pytest.raises(RuntimeError, match="CUDA kernel dma_stream failed to launch"):
+            port_build.launch("dma_stream", torch.device("cpu"), 1)
+        assert port_ops.launch_counts()["dma_stream"] == 0
+
+    def test_counts_follow_the_table_and_reset_to_zero(self, fake_entry):
+        port_build.launch("dma_stream", torch.device("cpu"))
+        counts = port_ops.launch_counts()
+        assert list(counts) == list(port_build.SIGNATURES) == list(port_build.KERNELS)
+        assert sum(counts.values()) == 1
+        port_ops.reset_launches()
+        assert port_ops.launch_counts() == dict.fromkeys(port_build.KERNELS, 0)
+
+
+def test_cpu_chain_clock_times_each_run_apart(monkeypatch):
+    # The CPU clock runs the chain eagerly, one window a run: the first run
+    # (the caller's warm-up) stays out of the second's time.
+    harness = importlib.import_module("tpu_node_checker_torch.ops._harness")
+    now = [100.0]
+    monkeypatch.setattr(harness, "time", types.SimpleNamespace(perf_counter=lambda: now[0]))
+    runs = []
+
+    def chain():
+        runs.append(len(runs))
+        now[0] += 5.0 if len(runs) == 1 else 0.25
+        return torch.full((3, 3), float(len(runs)))
+
+    clock = harness.chain_clock(chain, lambda: pytest.fail("no warm-up on the CPU"),
+                                torch.device("cpu"), "test")
+    out1, warm_s = clock()
+    out2, timed_s = clock()
+    assert runs == [0, 1]
+    assert torch.equal(out1, torch.full((3, 3), 1.0))
+    assert torch.equal(out2, torch.full((3, 3), 2.0))
+    assert (warm_s, timed_s) == (5.0, 0.25)

@@ -37,6 +37,7 @@ from tpu_node_checker.probe import schema as jax_schema
 
 torch = importlib.import_module("torch")
 port_liveness = importlib.import_module("tpu_node_checker_torch.probe.liveness")
+port_build = importlib.import_module("tpu_node_checker_torch.ops._build")
 port_burnin = importlib.import_module("tpu_node_checker_torch.models.burnin")
 port_mesh = importlib.import_module("tpu_node_checker_torch.parallel.mesh")
 port_schema = importlib.import_module("tpu_node_checker_torch.probe.schema")
@@ -113,10 +114,7 @@ class TestWorkloadSlice:
         port, ref = (r.to_dict() for r in workload_reports)
         for key in ("collective_busbw_gbps", "ring_link_gbps"):
             assert port[key] is None and ref[key] is None, key
-        assert port["kernel_launches"] == {
-            "tiled_matmul": 0, "dma_stream": 0, "flash_attention": 0, "int8_chain": 0,
-            "burn_chain": 0,
-        }
+        assert port["kernel_launches"] == dict.fromkeys(port_build.KERNELS, 0)
 
 
 class TestComputeSlice:
@@ -142,10 +140,7 @@ class TestComputeSlice:
         d = port_compute_report.to_dict()
         assert d["platform"] == "cpu" and d["device_kinds"] == ["cpu"]
         assert "skipped" in d["hbm_capacity"] and "skipped" in d["perf_floor"]
-        assert d["kernel_launches"] == {
-            "tiled_matmul": 0, "dma_stream": 0, "flash_attention": 0, "int8_chain": 0,
-            "burn_chain": 0,
-        }
+        assert d["kernel_launches"] == dict.fromkeys(port_build.KERNELS, 0)
 
 
 class TestCopiesOfJaxModules:

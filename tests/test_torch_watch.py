@@ -53,6 +53,7 @@ port_cli = importlib.import_module("tpu_node_checker_torch.cli")
 port_metrics = importlib.import_module("tpu_node_checker_torch.metrics")
 port_notify = importlib.import_module("tpu_node_checker_torch.notify")
 port_liveness = importlib.import_module("tpu_node_checker_torch.probe.liveness")
+port_build = importlib.import_module("tpu_node_checker_torch.ops._build")
 
 SIDES = {
     "jax": (jax_cli, jax_checker, jax_notify, jax_metrics),
@@ -376,9 +377,7 @@ def test_the_real_cpu_probe_in_two_loop_rounds(api, tmp_path, capsys, monkeypatc
         node = next(n for n in doc["nodes"] if n["name"] == HOST)
         assert node["probe"] == doc["local_probe"]
         assert doc["local_probe"]["ok"] is True and doc["local_probe"]["platform"] == "cpu"
-        assert doc["local_probe"]["kernel_launches"] == {
-            "tiled_matmul": 0, "dma_stream": 0, "flash_attention": 0, "int8_chain": 0,
-            "burn_chain": 0}
+        assert doc["local_probe"]["kernel_launches"] == dict.fromkeys(port_build.KERNELS, 0)
     assert docs[0]["trace_id"] != docs[1]["trace_id"]
     for status, body in rec["scrapes"]:
         assert status == 200 and 'tpu_node_checker_probe_ok{level="compute"} 1.0' in body

@@ -32,6 +32,7 @@ torch = importlib.import_module("torch")
 convert = importlib.import_module("tpu_node_checker_torch.convert")
 port_burnin = importlib.import_module("tpu_node_checker_torch.models.burnin")
 port_flash = importlib.import_module("tpu_node_checker_torch.ops.flash_attention")
+port_ops = importlib.import_module("tpu_node_checker_torch.ops")
 
 REPO = Path(__file__).resolve().parent.parent
 TINY_FIELDS = dict(vocab=64, d_model=32, n_heads=2, d_ff=64, n_layers=2, seq=16, batch=4)
@@ -126,10 +127,10 @@ class TestTrainStep:
         params, tokens = _jax_inputs(jcfg, seed=5)
         ref = _jax_losses(jcfg, params, tokens, 2)
         pcfg = dataclasses.replace(PORT_TINY, seq=128, attention="flash")
-        before = port_flash.flash_forward.launches
+        before = port_ops.launch_counts()["flash_attention"]
         port = _port_losses(pcfg, params, tokens, 2)
         np.testing.assert_allclose(port, ref, rtol=1e-3)
-        assert port_flash.flash_forward.launches == before  # CPU: the plain version ran
+        assert port_ops.launch_counts()["flash_attention"] == before  # CPU: the plain version ran
 
     def test_remat_matches_no_remat(self):
         params, tokens = _jax_inputs(JAX_TINY, seed=3)

@@ -11,11 +11,13 @@
   :func:`flash_attention_probe`: the three kernels written by hand for
   Hopper (``ops/csrc/``), each held against its plain PyTorch version.
 
-Each kernel's wrapper counts its launches (``<wrapper>.launches``), so a run
-can show that its path went through the kernels: :func:`launch_counts` reads
-the counts and :func:`reset_launches` sets them to 0.
+Every kernel launches through :func:`_build.launch`, which counts its
+launches, so a run can show that its path went through the kernels:
+:func:`launch_counts` reads the counts and :func:`reset_launches` sets them
+to 0.
 """
 
+from tpu_node_checker_torch.ops._build import launch_counts, reset_launches
 from tpu_node_checker_torch.ops.burn import (
     BurnResult,
     SoakResult,
@@ -38,26 +40,6 @@ from tpu_node_checker_torch.ops.pallas_probe import (
     pallas_matmul_probe,
     tiled_matmul,
 )
-
-# Kernel name (its csrc/<name>.cu) -> the wrapper that launches it.
-KERNEL_WRAPPERS = {
-    "tiled_matmul": tiled_matmul,
-    "dma_stream": dma_stream,
-    "flash_attention": flash_forward,
-    "int8_chain": int8_chain,
-    "burn_chain": burn_product,
-}
-
-
-def launch_counts() -> dict:
-    """Launches of each kernel in this process since the last reset."""
-    return {name: fn.launches for name, fn in KERNEL_WRAPPERS.items()}
-
-
-def reset_launches() -> None:
-    for fn in KERNEL_WRAPPERS.values():
-        fn.launches = 0
-
 
 __all__ = [
     "BurnResult",
@@ -82,7 +64,6 @@ __all__ = [
     "PallasProbeResult",
     "pallas_matmul_probe",
     "tiled_matmul",
-    "KERNEL_WRAPPERS",
     "launch_counts",
     "reset_launches",
 ]

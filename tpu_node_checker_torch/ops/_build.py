@@ -13,8 +13,11 @@ and concurrent processes never load a half-written file
 at its first use; :func:`build_all` builds every source at once, one ``nvcc``
 process per source, all started together.
 
-Every C entry launches on the stream it is given and returns
-``cudaGetLastError()``; :func:`check` turns a non-zero code into an error.
+:data:`SIGNATURES` is the one table of kernels.  Every C entry takes the
+stream to launch on last and returns ``cudaGetLastError()``, so one
+:func:`launch` serves them all: it passes the device's current stream, turns
+a non-zero code into an error (:func:`check`) and counts the launch
+(:func:`launch_counts`).
 """
 
 from __future__ import annotations
@@ -36,24 +39,25 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 ]
-KERNELS = ("tiled_matmul", "dma_stream", "flash_attention", "int8_chain", "burn_chain")
-
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
 _F = ctypes.c_float
-# C entry of each library: (symbol, argtypes).  Every pointer and the stream
-# are c_void_p, or ctypes would pass them as 32-bit ints and cut them.
+# Kernel name (its csrc/<name>.cu) -> its C entry: (symbol, argtypes), the
+# stream last.  Every pointer and the stream are c_void_p, or ctypes would
+# pass them as 32-bit ints and cut them.
 SIGNATURES = {
     "tiled_matmul": ("tnc_tiled_matmul", [_P, _P, _P, _I, _I, _I, _I, _I, _F, _P]),
     "dma_stream": ("tnc_dma_stream", [_P, _P, _LL, _LL, _LL, _I, _P]),
     "flash_attention": ("tnc_flash_forward", [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P]),
     "int8_chain": ("tnc_int8_chain", [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
-    "burn_chain": ("tnc_burn_product", [_P, _P, _P, _I, _I, _I, _I, _F, _P]),
+    "burn_chain": ("tnc_burn_product", [_P, _P, _P, _I, _I, _I, _F, _P]),
 }
+KERNELS = tuple(SIGNATURES)
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes._CFuncPtr] = {}
+_launches: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 
 
 class KernelBuildError(RuntimeError):
@@ -142,3 +146,27 @@ def check(name: str, code: int) -> None:
         raise RuntimeError(
             f"CUDA kernel {name} failed to launch: {torch.cuda.CudaError(code)}"
         )
+
+
+def launch(name: str, device, *args) -> None:
+    """Launch kernel ``name`` with ``args`` on ``device``'s current CUDA
+    stream (passed last), building it at first use; raise naming the kernel
+    if the launch failed, else count it."""
+    import torch
+
+    code = kernel(name)(*args, torch.cuda.current_stream(device).cuda_stream)
+    check(name, code)
+    with _lock:
+        _launches[name] += 1
+
+
+def launch_counts() -> Dict[str, int]:
+    """Launches of each kernel in this process since the last reset, in
+    :data:`SIGNATURES` order."""
+    with _lock:
+        return dict(_launches)
+
+
+def reset_launches() -> None:
+    with _lock:
+        _launches.update(dict.fromkeys(_launches, 0))

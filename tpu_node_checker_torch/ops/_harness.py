@@ -3,10 +3,11 @@
 Every kernel cross-check probe follows one shape: resolve the target device,
 then warm up once (the first launch also builds the kernel), then time a
 second run with a synchronise plus a scalar fetch as the completion barrier.
-The library probes whose figure is graded (the burn, int8, the HBM stream)
-time their chain on the card instead: one CUDA graph, replayed between two
-CUDA events (:func:`card_graph`).  Kept here so the probes cannot drift
-apart on the device or timing rules.
+The probes whose figure is graded (the burn, int8, the HBM stream) time
+their chain with :func:`chain_clock`: on the card one CUDA graph, replayed
+between two CUDA events (:func:`card_graph`), on the CPU the chain run
+eagerly on the host clock.  Kept here so the probes cannot drift apart on
+the device or timing rules.
 """
 
 from __future__ import annotations
@@ -112,3 +113,26 @@ def card_graph(
         end.synchronize()
         return out, start.elapsed_time(end) / 1e3
     return replay
+
+
+def chain_clock(
+    fn: Callable[[], torch.Tensor], warm: Callable[[], object], device: torch.device, label: str,
+) -> Callable[[], Tuple[torch.Tensor, float]]:
+    """A function that runs the chain ``fn`` once and gives (its output,
+    seconds); the caller's first run is its warm-up.
+
+    On a CUDA device it is :func:`card_graph` (``warm`` runs before the
+    capture).  On the CPU nothing is captured and ``warm`` is not needed:
+    each run calls ``fn()`` on the host clock, the window closed by a
+    synchronise and one scalar fetch of the output.
+    """
+    if device.type == "cuda":
+        return card_graph(fn, warm, device, label)
+
+    def run_eager() -> Tuple[torch.Tensor, float]:
+        t0 = time.perf_counter()
+        out = fn()
+        sync(device)
+        out.reshape(-1)[0].item()
+        return out, time.perf_counter() - t0
+    return run_eager

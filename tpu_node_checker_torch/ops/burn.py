@@ -34,7 +34,7 @@ from typing import Callable, Optional, Tuple
 import torch
 
 from tpu_node_checker_torch.ops import _build
-from tpu_node_checker_torch.ops._harness import DeviceLike, card_graph, resolve_device, sync
+from tpu_node_checker_torch.ops._harness import DeviceLike, chain_clock, resolve_device, sync
 from tpu_node_checker_torch.probe import spans
 
 
@@ -61,19 +61,7 @@ def _mm_f32(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     return torch.mm(x.float(), y.float())
 
 
-# Output tiles the kernel is built for, widest first: (rows, cols).
-KERNEL_TILES = ((128, 256), (128, 128))
 ALIGN = 8  # the kernel takes M, N and K in multiples of 8 (16-byte rows for TMA)
-
-
-def burn_tile(m: int, n: int, sms: int) -> tuple:
-    """The kernel's output tile for an (m, n) result on a card with ``sms``
-    SMs: the widest of :data:`KERNEL_TILES` whose blocks fill at least half
-    the SMs, else the narrowest.  Each tile sums over K in the same order."""
-    for bm, bn in KERNEL_TILES:
-        if -(-m // bm) * -(-n // bn) >= sms // 2:
-            return bm, bn
-    return KERNEL_TILES[-1]
 
 
 def burn_product_reference(x: torch.Tensor, a: torch.Tensor, scale: float) -> torch.Tensor:
@@ -121,16 +109,9 @@ def burn_product(
     if out.untyped_storage().data_ptr() in (x.untyped_storage().data_ptr(),
                                             a.untyped_storage().data_ptr()):
         raise ValueError("burn_product out must not share memory with its inputs")
-    _, bn = burn_tile(M, N, torch.cuda.get_device_properties(x.device).multi_processor_count)
-    fn = _build.kernel("burn_chain")
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    code = fn(x.data_ptr(), a.data_ptr(), out.data_ptr(), M, N, K, bn, scale, stream)
-    _build.check("burn_chain", code)
-    burn_product.launches += 1
+    _build.launch("burn_chain", x.device, x.data_ptr(), a.data_ptr(), out.data_ptr(), M, N, K,
+                  scale)
     return out
-
-
-burn_product.launches = 0
 
 
 def _burn_chain(a: torch.Tensor, iters: int) -> torch.Tensor:
@@ -140,9 +121,8 @@ def _burn_chain(a: torch.Tensor, iters: int) -> torch.Tensor:
     completion barrier.  The scale is the f32 value JAX computes, held as a
     host scalar: no copy to the card, so the chain can be captured.  On the
     card every product is one launch of :func:`burn_product`, alternating
-    between two buffers made once for the chain, and the chain adds
-    ``iters`` to the round's ``burn_kernel_products``; the CPU chains the
-    plain products.
+    between two buffers made once for the chain; the CPU chains the plain
+    products.
     """
     scale = torch.tensor(float(a.shape[0]), dtype=torch.float32).sqrt().reciprocal().item()
     x = a
@@ -153,31 +133,24 @@ def _burn_chain(a: torch.Tensor, iters: int) -> torch.Tensor:
     bufs = [torch.empty(a.shape, dtype=a.dtype, device=a.device) for _ in range(2)]
     for i in range(iters):
         x = burn_product(x, a, scale, out=bufs[i % 2])
-    spans.count("burn_kernel_products", iters)
     return x.float().sum()
 
 
 def _chain_runner(a: torch.Tensor, iters: int) -> Callable[[], Tuple[float, float]]:
     """A function that runs the chain once and returns (checksum, seconds).
 
-    On the CPU it runs the chain eagerly on the host clock.  On the card the
-    chain is captured here, once, as a CUDA graph (one product run first on
-    a side stream, which builds and loads the kernel outside the capture),
-    and each run replays the graph between two CUDA events.
+    The chain's clock is :func:`chain_clock`: on the card the chain is
+    captured here, once, as a CUDA graph (one product run first on a side
+    stream, which builds and loads the kernel outside the capture), and each
+    run replays the graph between two CUDA events; on the CPU it runs the
+    chain eagerly on the host clock.
     """
-    if a.device.type != "cuda":
-        def run_eager() -> Tuple[float, float]:
-            t0 = time.perf_counter()
-            checksum = float(_burn_chain(a, iters).item())
-            return checksum, time.perf_counter() - t0
-        return run_eager
-    replay = card_graph(lambda: _burn_chain(a, iters), lambda: _burn_chain(a, 1), a.device,
-                        "burn")
+    run = chain_clock(lambda: _burn_chain(a, iters), lambda: _burn_chain(a, 1), a.device, "burn")
 
-    def run_graph() -> Tuple[float, float]:
-        out, seconds = replay()
+    def checksum_run() -> Tuple[float, float]:
+        out, seconds = run()
         return float(out.item()), seconds
-    return run_graph
+    return checksum_run
 
 
 def _burn_input(n: int, dev: torch.device) -> torch.Tensor:

@@ -15,19 +15,18 @@
 // out written once: 7.5 us at 3.35 TB/s, and the chain's three buffers stay in
 // the 50 MB L2): the tensor cores.  The design:
 //
-//  * one block per 128 x BN output tile (BN = 256, or 128 for results with too
-//    few such tiles to fill half the SMs; the wrapper picks it, burn.py
-//    burn_tile): at n = 2048 that is 16 x 8 = 128 blocks, one wave on 132 SMs;
-//  * two consumer warpgroups, each owning 64 rows and running wgmma m64nBNk16
-//    (BN/2 f32 accumulators a thread), and one producer warp.  With 288
+//  * one block per 128 x 256 output tile, partial tiles at the edges: at
+//    n = 2048 that is 16 x 8 = 128 blocks, one wave on 132 SMs;
+//  * two consumer warpgroups, each owning 64 rows and running wgmma m64n256k16
+//    (128 f32 accumulators a thread), and one producer warp.  With 288
 //    threads at one block an SM each thread may hold 224 registers, room for
 //    128 accumulators, so no registers are moved between the roles;
 //  * the K loop walks slices 64 deep (128 bytes of bf16, the swizzle width),
 //    never split, so every output sums over K in one fixed order.  The
 //    producer's one thread copies each slice of x (128 x 64, K-major) and of
-//    a (64 x BN, read MN-major with the transpose flag, in column blocks of
-//    64) by TMA with a 128-byte swizzle into a 4-stage ring (48 KiB a stage at
-//    BN = 256), each stage completing on a "full" mbarrier and handed back by
+//    a (64 x 256, read MN-major with the transpose flag, in column blocks of
+//    64) by TMA with a 128-byte swizzle into a 4-stage ring (48 KiB a stage),
+//    each stage completing on a "full" mbarrier and handed back by
 //    each consumer warp on an "empty" one; one group of products stays in
 //    flight while the previous slice's stage goes back;
 //  * TMA fills zeros past the edges, so any M, N and K that are multiples of
@@ -47,18 +46,16 @@
 namespace {
 
 constexpr int BM = 128;     // two consumer warpgroups of 64 rows
+constexpr int BN = 256;
 constexpr int BK = 64;      // K slice: 64 bf16 = one 128-byte swizzled row
 constexpr int STAGES = 4;
 constexpr int CONSUMERS = 256;
 constexpr int THREADS = CONSUMERS + 32;  // and one producer warp
 constexpr unsigned FULL_MASK = 0xffffffffu;
 
-template <int BN>
-struct Ring {
-  static constexpr int A_BYTES = BM * BK * 2;  // one stage of x
-  static constexpr int B_BYTES = BK * BN * 2;  // one stage of a
-  static constexpr int SMEM_BYTES = STAGES * (A_BYTES + B_BYTES) + 1024 + 64;
-};
+constexpr int A_BYTES = BM * BK * 2;  // one stage of x
+constexpr int B_BYTES = BK * BN * 2;  // one stage of a
+constexpr int SMEM_BYTES = STAGES * (A_BYTES + B_BYTES) + 1024 + 64;
 
 // (lo, hi) as two bf16, lo in the low half, each rounded to nearest even.
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
@@ -87,16 +84,14 @@ __device__ __forceinline__ uint4 quad_transpose(uint32_t s0, uint32_t s1, uint32
   return hi ? make_uint4(f0, f1, e0, e1) : make_uint4(e0, e1, f0, f1);
 }
 
-template <int BN>
 __global__ void __launch_bounds__(THREADS, 1)
 burn_product_kernel(__grid_constant__ const CUtensorMap xmap,
                     __grid_constant__ const CUtensorMap amap, uint16_t* __restrict__ out,
                     int M, int N, int K, float scale) {
-  using R = Ring<BN>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sx = hopper::align_1024(smem_raw);  // STAGES x (BM x 64)
-  uint8_t* sa = sx + STAGES * R::A_BYTES;      // STAGES x (64 x BN)
-  uint64_t* full = reinterpret_cast<uint64_t*>(sa + STAGES * R::B_BYTES);
+  uint8_t* sa = sx + STAGES * A_BYTES;         // STAGES x (64 x BN)
+  uint64_t* full = reinterpret_cast<uint64_t*>(sa + STAGES * B_BYTES);
   uint64_t* empty = full + STAGES;
 
   const int m0 = blockIdx.y * BM;
@@ -119,11 +114,11 @@ burn_product_kernel(__grid_constant__ const CUtensorMap xmap,
         const int s = i % STAGES;
         if (i >= STAGES) hopper::mbar_wait(&empty[s], ((i / STAGES) - 1) & 1);
         // The whole boxes count, zeros past the edges included.
-        hopper::mbar_arrive_expect_tx(&full[s], R::A_BYTES + R::B_BYTES);
-        hopper::tma_load_2d(sx + s * R::A_BYTES, &xmap, &full[s], i * BK, m0);
+        hopper::mbar_arrive_expect_tx(&full[s], A_BYTES + B_BYTES);
+        hopper::tma_load_2d(sx + s * A_BYTES, &xmap, &full[s], i * BK, m0);
         // a in column blocks of 64: each k row of a block is one swizzled row.
         for (int cb = 0; cb < BN / 64; ++cb)
-          hopper::tma_load_2d(sa + s * R::B_BYTES + cb * BK * 128, &amap, &full[s],
+          hopper::tma_load_2d(sa + s * B_BYTES + cb * BK * 128, &amap, &full[s],
                               n0 + cb * 64, i * BK);
       }
     }
@@ -140,8 +135,8 @@ burn_product_kernel(__grid_constant__ const CUtensorMap xmap,
   for (int i = 0; i < slices; ++i) {
     const int s = i % STAGES;
     hopper::mbar_wait(&full[s], (i / STAGES) & 1);
-    const uint8_t* x_tile = sx + s * R::A_BYTES + wg * 64 * 128;
-    const uint8_t* a_tile = sa + s * R::B_BYTES;
+    const uint8_t* x_tile = sx + s * A_BYTES + wg * 64 * 128;
+    const uint8_t* a_tile = sa + s * B_BYTES;
     hopper::fence_regs(acc);
     hopper::wgmma_fence();
 #pragma unroll
@@ -188,10 +183,8 @@ burn_product_kernel(__grid_constant__ const CUtensorMap xmap,
   }
 }
 
-template <int BN>
 int launch(const void* x, const void* a, void* out, int M, int N, int K, float scale,
            cudaStream_t stream) {
-  using R = Ring<BN>;
   // The shared-memory size is set once a device, at the first launch (the
   // chain's warm-up, outside any graph capture).
   static bool attr_set[64] = {};
@@ -200,8 +193,8 @@ int launch(const void* x, const void* a, void* out, int M, int N, int K, float s
   if (err != cudaSuccess) return static_cast<int>(err);
   if (device < 0 || device >= 64) return static_cast<int>(cudaErrorInvalidDevice);
   if (!attr_set[device]) {
-    err = cudaFuncSetAttribute(burn_product_kernel<BN>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, R::SMEM_BYTES);
+    err = cudaFuncSetAttribute(burn_product_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
     if (err != cudaSuccess) return static_cast<int>(err);
     attr_set[device] = true;
   }
@@ -211,7 +204,7 @@ int launch(const void* x, const void* a, void* out, int M, int N, int K, float s
   err = hopper::encode_tmap_bf16_2d(&amap, a, N, K, 64, BK, CU_TENSOR_MAP_SWIZZLE_128B);
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  burn_product_kernel<BN><<<grid, THREADS, R::SMEM_BYTES, stream>>>(
+  burn_product_kernel<<<grid, THREADS, SMEM_BYTES, stream>>>(
       xmap, amap, static_cast<uint16_t*>(out), M, N, K, scale);
   return static_cast<int>(cudaGetLastError());
 }
@@ -220,13 +213,9 @@ int launch(const void* x, const void* a, void* out, int M, int N, int K, float s
 
 // C entry for ctypes.  The caller has checked: bf16 x (M,K), a (K,N) and out
 // (M,N), all contiguous on one device, 16-byte aligned, out apart from x and
-// a; M, N and K positive multiples of 8; and picked the tile width bn: 256 or
-// 128.  Launches on `stream` and returns cudaGetLastError() (or the error of
-// encoding a tensor map).
+// a; M, N and K positive multiples of 8.  Launches on `stream` and returns
+// cudaGetLastError() (or the error of encoding a tensor map).
 extern "C" int tnc_burn_product(const void* x, const void* a, void* out, int M, int N, int K,
-                                int bn, float scale, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bn == 256) return launch<256>(x, a, out, M, N, K, scale, st);
-  if (bn == 128) return launch<128>(x, a, out, M, N, K, scale, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+                                float scale, void* stream) {
+  return launch(x, a, out, M, N, K, scale, static_cast<cudaStream_t>(stream));
 }

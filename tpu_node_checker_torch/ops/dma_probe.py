@@ -20,14 +20,13 @@ On an H100 the probe's 8 MiB input fits in the 50 MB L2 cache, so
 from __future__ import annotations
 
 import math
-import time
 from dataclasses import dataclass
 from typing import Optional
 
 import torch
 
 from tpu_node_checker_torch.ops import _build
-from tpu_node_checker_torch.ops._harness import DeviceLike, is_cpu, resolve_device, sync
+from tpu_node_checker_torch.ops._harness import DeviceLike, is_cpu, resolve_device, timed_run
 
 
 @dataclass
@@ -69,15 +68,9 @@ def dma_stream(x: torch.Tensor, chunk_rows: int) -> torch.Tensor:
         x = x.clone()  # a fresh allocation is aligned; bulk copies need 16 bytes
     out = torch.empty_like(x)
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    fn = _build.kernel("dma_stream")
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    code = fn(x.data_ptr(), out.data_ptr(), rows, cols, chunk_rows, sms, stream)
-    _build.check("dma_stream", code)
-    dma_stream.launches += 1
+    _build.launch("dma_stream", x.device, x.data_ptr(), out.data_ptr(), rows, cols, chunk_rows,
+                  sms)
     return out
-
-
-dma_stream.launches = 0
 
 
 def dma_stream_probe(
@@ -100,22 +93,15 @@ def dma_stream_probe(
         dev = resolve_device(device)
         gen = torch.Generator(device=dev).manual_seed(0)
         x = torch.randn((rows, cols), generator=gen, device=dev)
-        out = dma_stream(x, chunk_rows)
-        sync(dev)
-        checksum = float(out.sum().item())  # completion barrier
-        t0 = time.perf_counter()
-        out = dma_stream(x, chunk_rows)
-        sync(dev)
-        checksum = float(out.sum().item())
-        elapsed = time.perf_counter() - t0
+        out, checksum, elapsed_ms = timed_run(lambda: dma_stream(x, chunk_rows))
 
         exact = bool(torch.equal(out, dma_stream_reference(x)))
         ok = exact and math.isfinite(checksum)
         bytes_moved = 2 * 4 * rows * cols  # one read + one write per element
         return DmaProbeResult(
             ok=ok,
-            gbps=bytes_moved / elapsed / 1e9,
-            elapsed_ms=elapsed * 1e3,
+            gbps=bytes_moved / elapsed_ms / 1e6,
+            elapsed_ms=elapsed_ms,
             interpreted=interpreted,
             error=None if ok else "bulk-copy-streamed result differs from the plain 2x+1",
         )

@@ -84,18 +84,9 @@ def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Te
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("flash attention kernel needs 16-byte aligned q/k/v")
     out = torch.empty_like(q)
-    fn = _build.kernel("flash_attention")
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    code = fn(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H, S, D,
-        int(q.dtype == torch.bfloat16), 1.0 / math.sqrt(D), stream,
-    )
-    _build.check("flash_attention", code)
-    flash_forward.launches += 1
+    _build.launch("flash_attention", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                  out.data_ptr(), B, H, S, D, int(q.dtype == torch.bfloat16), 1.0 / math.sqrt(D))
     return out
-
-
-flash_forward.launches = 0
 
 
 class _FlashAttention(torch.autograd.Function):

@@ -12,13 +12,12 @@ passes' device time, so a busy host does not read as slow memory.
 
 from __future__ import annotations
 
-import time
 from dataclasses import dataclass
 from typing import Optional
 
 import torch
 
-from tpu_node_checker_torch.ops._harness import DeviceLike, card_graph, resolve_device, sync
+from tpu_node_checker_torch.ops._harness import DeviceLike, chain_clock, resolve_device
 from tpu_node_checker_torch.probe import spans
 
 
@@ -57,20 +56,10 @@ def hbm_bandwidth_probe(
         n = (mib * 1024 * 1024) // 4
         with spans.span("hbm.alloc"):
             x = torch.zeros((n,), dtype=torch.float32, device=dev)
-        if dev.type == "cuda":
-            replay = card_graph(lambda: _stream_n(x, iters), lambda: _stream_n(x, 1), dev, "hbm")
-            replay()  # warm
-            y, elapsed = replay()
-            final = float(y[0].item())
-        else:
-            _stream_n(x, iters)  # warm
-            sync(dev)
-            t0 = time.perf_counter()
-            y = _stream_n(x, iters)
-            sync(dev)
-            # The scalar fetch is the in-window barrier.
-            final = float(y[0].item())
-            elapsed = time.perf_counter() - t0
+        run = chain_clock(lambda: _stream_n(x, iters), lambda: _stream_n(x, 1), dev, "hbm")
+        run()  # warm
+        y, elapsed = run()
+        final = float(y[0].item())
         # A correctness check: iters additions of 1.
         if final != float(iters):
             return HbmResult(

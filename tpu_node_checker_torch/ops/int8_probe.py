@@ -23,7 +23,6 @@ over its device time, as the JAX chain is one compiled program.
 
 from __future__ import annotations
 
-import time
 from dataclasses import dataclass
 from typing import Optional
 
@@ -31,7 +30,7 @@ import numpy as np
 import torch
 
 from tpu_node_checker_torch.ops import _build
-from tpu_node_checker_torch.ops._harness import DeviceLike, card_graph, resolve_device, sync
+from tpu_node_checker_torch.ops._harness import DeviceLike, chain_clock, resolve_device
 
 
 @dataclass
@@ -112,15 +111,9 @@ def int8_chain(a: torch.Tensor, b: torch.Tensor, iters: int) -> torch.Tensor:
     acc = torch.zeros((M, N), dtype=torch.int32, device=a.device)
     bm, bn, groups = int8_chain_plan(
         M, N, iters, torch.cuda.get_device_properties(a.device).multi_processor_count)
-    fn = _build.kernel("int8_chain")
-    stream = torch.cuda.current_stream(a.device).cuda_stream
-    code = fn(a2.data_ptr(), bt.data_ptr(), acc.data_ptr(), M, N, K, iters, bm, bn, groups, stream)
-    _build.check("int8_chain", code)
-    int8_chain.launches += 1
+    _build.launch("int8_chain", a.device, a2.data_ptr(), bt.data_ptr(), acc.data_ptr(), M, N, K,
+                  iters, bm, bn, groups)
     return acc
-
-
-int8_chain.launches = 0
 
 
 def _int8_chain(a: torch.Tensor, b: torch.Tensor, iters: int) -> torch.Tensor:
@@ -165,22 +158,12 @@ def int8_matmul_probe(
         a = torch.from_numpy(a_host).to(dev)
         b = torch.from_numpy(b_host).to(dev)
 
-        if dev.type == "cuda":
-            replay = card_graph(lambda: _int8_chain(a, b, iters),
-                                lambda: _int8_chain(a, b, 1), dev, "int8")
-            replay()  # warm-up
-            out, seconds = replay()
-            elapsed_ms = seconds * 1e3
-        else:
-            out = _int8_chain(a, b, iters)
-            int(out[0, 0].item())  # warm-up completion barrier
-            sync(dev)
-            t0 = time.perf_counter()
-            out = _int8_chain(a, b, iters)
-            # Scalar fetch as the in-window barrier; the full m x n fetch for
-            # the check happens after the clock stops.
-            int(out[0, 0].item())
-            elapsed_ms = (time.perf_counter() - t0) * 1e3
+        run = chain_clock(lambda: _int8_chain(a, b, iters), lambda: _int8_chain(a, b, 1), dev,
+                          "int8")
+        run()  # warm-up
+        out, seconds = run()
+        elapsed_ms = seconds * 1e3
+        # The full m x n fetch for the check happens after the clock stops.
         out_host = out.cpu().numpy()
 
         # roll(a, i) @ b == roll(a @ b, i): one product, iters cheap rolls.

@@ -82,15 +82,9 @@ def tiled_matmul(a: torch.Tensor, b: torch.Tensor, scale: float) -> torch.Tensor
         if t.data_ptr() % 16:
             raise ValueError("tiled_matmul kernel needs 16-byte aligned inputs")
     bm, bn = matmul_tile(M, N, torch.cuda.get_device_properties(a.device).multi_processor_count)
-    fn = _build.kernel("tiled_matmul")
-    stream = torch.cuda.current_stream(a.device).cuda_stream
-    code = fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), M, N, K, bm, bn, float(scale), stream)
-    _build.check("tiled_matmul", code)
-    tiled_matmul.launches += 1
+    _build.launch("tiled_matmul", a.device, a.data_ptr(), b.data_ptr(), out.data_ptr(), M, N, K,
+                  bm, bn, float(scale))
     return out
-
-
-tiled_matmul.launches = 0
 
 
 def pallas_matmul_probe(
