@@ -4261,6 +4261,28 @@ def main() -> int:
         fail(f"in-process probes failed: {bad}")
     check_launches("the in-process probes", in_process)
 
+    # A second capture of one label keeps its memory (ops/_harness.py
+    # card_graph): the soak's stream leg twice after the probes above, each
+    # capture into the label's kept pool; the second maps no memory and
+    # synchronises no stream.
+    from tpu_node_checker_torch.probe import spans as probe_spans
+
+    kept_round = probe_spans.Round()
+    with probe_spans.active(kept_round):
+        first = ops.hbm_bandwidth_probe(mib=128, iters=2, device=dev)
+        before = probe_spans.allocator_counts(dev)
+        second = ops.hbm_bandwidth_probe(mib=128, iters=2, device=dev)
+        after = probe_spans.allocator_counts(dev)
+    moved = {k: after[k] - before[k] for k in before}
+    phase(4, "a second capture of one label", ok=[first.ok, second.ok],
+          gbps=[first.gbps, second.gbps], allocator=moved, counters=kept_round.counters)
+    if not (first.ok and second.ok):
+        fail(f"the stream leg failed: {first.error or second.error}")
+    if moved["num_device_alloc"] or moved["num_sync_all_streams"]:
+        fail(f"a second capture of one label mapped memory or synchronised: {moved}")
+    if kept_round.counters.get("graph_pool_reuses") != 2:
+        fail(f"the captures did not reuse the label's kept pool: {kept_round.counters}")
+
     # -- 5. the workload path: the training step in this process, then the
     # workload-level probe through its entry point.
     import dataclasses

@@ -340,6 +340,61 @@ def test_hbm_graph_replays_the_eager_passes(cuda_device):
     assert torch.equal(first, eager) and torch.equal(again, eager)
 
 
+def _allocator(device):
+    stats = torch.cuda.memory_stats(device)
+    return {k: stats[k] for k in ("num_device_alloc", "num_device_free", "num_sync_all_streams")}
+
+
+@pytest.mark.cuda
+def test_second_stream_capture_keeps_its_memory(cuda_device):
+    # The soak's stream leg twice: the second capture of the label allocates
+    # from the first one's blocks, frees nothing and synchronises no stream.
+    first = port_hbm.hbm_bandwidth_probe(mib=128, iters=2, device=cuda_device)
+    before = _allocator(cuda_device)
+    second = port_hbm.hbm_bandwidth_probe(mib=128, iters=2, device=cuda_device)
+    assert first.ok and second.ok, (first.error, second.error)  # ok: y[0] == 2
+    assert _allocator(cuda_device) == before
+
+
+def _burn_operand(n, seed, device):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return torch.randn((n, n), generator=gen, device=device).to(torch.bfloat16)
+
+
+@pytest.mark.cuda
+def test_stream_captures_between_replays_of_a_live_burn_graph(cuda_device):
+    # The soak's pattern: the burn graph stays alive while the stream is
+    # captured anew each round; neither disturbs the other's memory.
+    n, iters = 1024, 16
+    a = _burn_operand(n, 3, cuda_device)
+    run = port_burn._chain_runner(a, iters)
+    first, _ = run()
+    x = torch.zeros(((128 << 20) // 4,), device=cuda_device)
+    sums = []
+    for _ in range(3):
+        replay = port_harness.card_graph(lambda: port_hbm._stream_n(x, 2),
+                                         lambda: port_hbm._stream_n(x, 1), cuda_device, "hbm")
+        y, _ = replay()
+        assert torch.equal(y, torch.full_like(x, 2.0))
+        del replay, y
+        sums.append(run()[0])
+    assert sums == [first] * 3
+    assert first == float(port_burn._burn_chain(a, iters).item())
+
+
+@pytest.mark.cuda
+def test_two_live_burn_graphs_keep_apart(cuda_device):
+    # The second capture of the label while the first graph lives gets a
+    # pool of its own: replayed in turns, each gives its own eager checksum.
+    n, iters = 1024, 16
+    operands = [_burn_operand(n, seed, cuda_device) for seed in (4, 5)]
+    runs = [port_burn._chain_runner(a, iters) for a in operands]
+    eager = [float(port_burn._burn_chain(a, iters).item()) for a in operands]
+    assert eager[0] != eager[1]
+    got = [[run()[0] for run in runs] for _ in range(3)]
+    assert got == [eager] * 3
+
+
 class _NoHostClock:
     """Stands in for ``time``: a figure read from the host clock fails."""
 

@@ -549,3 +549,205 @@ def test_cpu_chain_clock_times_each_run_apart(monkeypatch):
     assert torch.equal(out1, torch.full((3, 3), 1.0))
     assert torch.equal(out2, torch.full((3, 3), 2.0))
     assert (warm_s, timed_s) == (5.0, 0.25)
+
+
+class _FakeCuda:
+    """Small fakes of what ``_harness.card_graph`` calls in ``torch.cuda``,
+    logging each call in order: streams, the stream context, CUDA graphs,
+    graph pool handles and events.  ``empty_cache`` and ``synchronize``
+    fail: a capture must not flush the allocator or wait on every stream.
+    A pool counts its users as torch does: a graph from its capture's end
+    until the graph is gone, and a capture into a pool whose users have all
+    gone raises, as torch's allocators assert."""
+
+    def __init__(self):
+        self.log = []
+        self.on = None  # the stream work is issued on
+        self.made = {"streams": 0, "pools": 0}
+        self.users = {}  # pool -> graphs captured into it and not yet gone
+        self.currents = {}
+        fake = self
+
+        class Stream:
+            def __init__(self, device, name=None):
+                if name is None:
+                    fake.made["streams"] += 1
+                    name = f"side{fake.made['streams']}"
+                self.device, self.name = device, name
+
+            def wait_stream(self, other):
+                fake.log.append(("wait", self.name, other.name))
+
+        class CUDAGraph:
+            pool = None
+
+            def capture_begin(self, pool=None):
+                fake.log.append(("capture_begin", fake.on.name, pool))
+                if fake.users.get(pool, 1) == 0:
+                    raise RuntimeError("it->second->use_count > 0 INTERNAL ASSERT FAILED")
+                fake.users[pool] = fake.users.get(pool, 0) + 1
+                self.pool = pool
+
+            def capture_end(self):
+                fake.log.append(("capture_end", fake.on.name))
+
+            def __del__(self):
+                if self.pool is not None:
+                    fake.users[self.pool] -= 1
+
+            def replay(self):
+                fake.log.append(("replay",))
+
+        class Event:
+            def __init__(self, enable_timing=False):
+                pass
+
+            def record(self):
+                pass
+
+            def synchronize(self):
+                pass
+
+            def elapsed_time(self, other):
+                return 2.0
+
+        self.Stream, self.CUDAGraph, self.Event = Stream, CUDAGraph, Event
+
+    def graph_pool_handle(self):
+        self.made["pools"] += 1
+        return (0, self.made["pools"])
+
+    def current_stream(self, device):
+        if device not in self.currents:
+            self.currents[device] = self.Stream(device, f"current:{device}")
+        return self.currents[device]
+
+    def stream(self, side):
+        fake = self
+
+        class _On:
+            def __enter__(self):
+                self.was, fake.on = fake.on, side
+
+            def __exit__(self, *exc):
+                fake.on = self.was
+        return _On()
+
+    def install(self, monkeypatch, harness):
+        def never(*args, **kwargs):
+            raise AssertionError("the capture emptied the cache or synchronised every stream")
+        for name, value in (("Stream", self.Stream), ("CUDAGraph", self.CUDAGraph),
+                            ("Event", self.Event), ("graph_pool_handle", self.graph_pool_handle),
+                            ("current_stream", self.current_stream), ("stream", self.stream),
+                            ("empty_cache", never), ("synchronize", never)):
+            monkeypatch.setattr(torch.cuda, name, value, raising=False)
+        monkeypatch.setattr(harness, "_KEPT", harness._KeptMemory())
+
+
+@pytest.fixture()
+def fake_cuda(monkeypatch):
+    harness = importlib.import_module("tpu_node_checker_torch.ops._harness")
+    fake = _FakeCuda()
+    fake.install(monkeypatch, harness)
+    round_ = port_spans.Round()
+    with port_spans.active(round_):
+        yield harness, fake, round_
+
+
+def _fake_capture(harness, fake, device, label, ran=None):
+    """One card_graph capture of a chain that notes the stream it ran on."""
+    def chain():
+        fake.log.append(("chain", fake.on.name))
+        return torch.zeros(1)
+
+    def warm():
+        fake.log.append(("warm", fake.on.name))
+    return harness.card_graph(chain, warm, torch.device(device), label)
+
+
+@pytest.mark.parametrize("second,same_stream,same_pool", [
+    (("cuda:0", "hbm"), True, True),  # the label again: the kept stream and pool
+    (("cuda:0", "burn"), True, False),  # another label: the device's stream, its own pool
+    (("cuda:1", "hbm"), False, False),  # another device: its own stream and pool
+])
+def test_card_graph_keeps_one_stream_a_device_and_one_pool_a_label(fake_cuda, second,
+                                                                   same_stream, same_pool):
+    harness, fake, round_ = fake_cuda
+    replay = _fake_capture(harness, fake, "cuda:0", "hbm")
+    replay()
+    del replay  # the probe returns: its graph is gone
+    replay = _fake_capture(harness, fake, *second)
+    out, seconds = replay()
+    assert seconds == 2e-3 and torch.equal(out, torch.zeros(1))
+    begins = [e for e in fake.log if e[0] == "capture_begin"]
+    assert len(begins) == 2
+    assert (begins[0][1] == begins[1][1]) is same_stream
+    assert (begins[0][2] == begins[1][2]) is same_pool
+    assert fake.made == {"streams": 1 if same_stream else 2, "pools": 1 if same_pool else 2}
+    # One pool kept a key, each with the last graph captured into it.
+    keys = [(torch.device("cuda:0"), "hbm")] + ([] if same_pool else [
+        (torch.device(second[0]), second[1])])
+    assert list(harness._KEPT.pools) == keys
+    assert [len(kept) for kept in harness._KEPT.pools.values()] == [1] * len(keys)
+    assert set(fake.users.values()) == {1}
+    assert round_.counters == {"graph_captures": 2, "graph_replays": 2,
+                               **({"graph_pool_reuses": 1} if same_pool else {})}
+
+
+@pytest.mark.parametrize("case", ["live", "alternating", "raises", "order"])
+def test_card_graph_capture_rules(fake_cuda, case):
+    harness, fake, round_ = fake_cuda
+
+    def pools():
+        return [e[2] for e in fake.log if e[0] == "capture_begin"]
+
+    if case == "live":
+        # A graph still alive keeps its pool: the next capture of its label
+        # gets a fresh one, and the one after that, with the first gone,
+        # takes the first pool back.
+        first = _fake_capture(harness, fake, "cuda:0", "burn")
+        second = _fake_capture(harness, fake, "cuda:0", "burn")
+        assert pools() == [(0, 1), (0, 2)]
+        del first
+        third = _fake_capture(harness, fake, "cuda:0", "burn")
+        assert pools()[2] == (0, 1) and second is not third
+        assert round_.counters["graph_pool_reuses"] == 1
+    elif case == "alternating":
+        # Two live graphs and a third capture: a third pool; the pools of
+        # a label are kept, never dropped.
+        runners = [_fake_capture(harness, fake, "cuda:0", "burn") for _ in range(3)]
+        assert pools() == [(0, 1), (0, 2), (0, 3)] and len(runners) == 3
+        del runners
+        _fake_capture(harness, fake, "cuda:0", "burn")
+        assert pools()[3] == (0, 1) and len(harness._KEPT.pools[(torch.device("cuda:0"),
+                                                                  "burn")]) == 3
+        assert round_.counters["graph_pool_reuses"] == 1
+    elif case == "raises":
+        # A body that raises still ends the capture and the error
+        # propagates; the failed capture is not counted and leaves the
+        # label's kept pool, and the graph that keeps it, as they were.
+        def broken():
+            raise ValueError("launch failed inside the capture")
+        _fake_capture(harness, fake, "cuda:0", "int8")
+        with pytest.raises(ValueError, match="launch failed inside the capture"):
+            harness.card_graph(broken, lambda: None, torch.device("cuda:0"), "int8")
+        assert [e[0] for e in fake.log if e[0].startswith("capture")] == \
+            ["capture_begin", "capture_end"] * 2
+        assert round_.counters == {"graph_captures": 1}
+        _fake_capture(harness, fake, "cuda:0", "int8")
+        assert pools() == [(0, 1)] * 3 and fake.users == {(0, 1): 1}
+        assert round_.counters == {"graph_captures": 2, "graph_pool_reuses": 1}
+    else:
+        # The context manager's ordering, without its synchronise and its
+        # cache flush (either would fail here).
+        _fake_capture(harness, fake, "cuda:0", "hbm")()
+        assert fake.log == [
+            ("wait", "side1", "current:cuda:0"),  # the side stream after the caller's work
+            ("warm", "side1"),
+            ("wait", "current:cuda:0", "side1"),  # the caller after the warm-up
+            ("capture_begin", "side1", (0, 1)),
+            ("chain", "side1"),
+            ("capture_end", "side1"),
+            ("wait", "current:cuda:0", "side1"),  # the caller after the capture
+            ("replay",),
+        ]

@@ -40,8 +40,8 @@ from tpu_node_checker_torch.obs.trace import Tracer
 TRACE_ID_ENV = "TNC_TRACE_ID"
 TRACE_EVENTS_ENV = "TNC_TRACE_EVENTS"
 # Counters every probe child reports, 0 where its level never runs the work.
-CHILD_COUNTERS = ("graph_captures", "graph_replays", "kernels_built", "kernels_cached",
-                  "soak_rounds")
+CHILD_COUNTERS = ("graph_captures", "graph_pool_reuses", "graph_replays", "kernels_built",
+                  "kernels_cached", "soak_rounds")
 # The caching allocator's counts, differenced from the first probe to the report.
 ALLOCATOR_COUNTERS = ("num_device_alloc", "num_device_free", "num_alloc_retries",
                       "num_sync_all_streams")
