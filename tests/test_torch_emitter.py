@@ -177,7 +177,8 @@ class TestLoop:
         assert calls == [dict(level="collective", timeout_s=90.0, device="cpu",
                               topology="2x2", soak_s=20.0, perf_floor=0.4,
                               distributed=False, coordinator=None, num_processes=None,
-                              process_id=None, dist_init_timeout_s=None)]
+                              process_id=None, dist_init_timeout_s=None,
+                              workload_model=None)]
 
     def test_sigterm_stops_after_the_current_emission(self, monkeypatch, tmp_path, capsys):
         # The real wait and the real handler: SIGTERM lands during round 2,

@@ -623,8 +623,8 @@ class TestCliValidation:
 
         port, jax = flags(port_cli.build_parser()), flags(jax_cli.build_parser())
         assert jax <= port
-        # The port's own flag is the only difference.
-        assert port - jax == {"--device"}
+        # The port's own flags are the only difference.
+        assert port - jax == {"--device", "--probe-workload-model"}
 
 
 # ---------------------------------------------------------------------------

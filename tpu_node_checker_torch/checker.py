@@ -273,6 +273,9 @@ def _run_probe(
         process_id=getattr(args, "probe_process_id", None),
         dist_init_timeout_s=getattr(args, "probe_rendezvous_timeout", None),
         perf_floor=getattr(args, "perf_floor", None),
+        # Port-only: named, it joins the call; unnamed, the call is the JAX checker's.
+        **({"workload_model": args.probe_workload_model}
+           if getattr(args, "probe_workload_model", None) else {}),
     )
     if local is not None:
         local.probe = probed.to_dict()

@@ -13,7 +13,7 @@ and the node side (the emitter and its pod's modes).
         [--cluster-name NAME] [--log-jsonl FILE]
         [--probe [--probe-level L] [--probe-timeout S] [--device cpu]
          [--probe-soak S] [--probe-topology DIMS] [--perf-floor F]
-         [--probe-distributed ...]]
+         [--probe-workload-model M] [--probe-distributed ...]]
         [--probe-results DIR [--probe-results-required]
          [--probe-results-max-age S]]
         [--history FILE [--history-max-rounds N] [--cordon-after K]
@@ -40,7 +40,7 @@ and the node side (the emitter and its pod's modes).
     python -m tpu_node_checker_torch --emit-probe FILE|- \\
         [--probe-level {enumerate,compute,collective,mesh,workload}]
         [--probe-timeout S] [--device cpu] [--probe-soak S]
-        [--probe-topology DIMS] [--perf-floor F]
+        [--probe-topology DIMS] [--perf-floor F] [--probe-workload-model M]
         [--watch S [--metrics-port PORT]] [--log-jsonl FILE] [--history FILE ...]
         [--probe-distributed --probe-coordinator HOST:PORT
          --probe-num-processes N --probe-process-id I
@@ -98,7 +98,8 @@ prints the report's JSON Schema.  ``simulate`` runs the seeded chaos
 simulator (``sim/``) over these same fleet modules, with its own flags and
 exit codes.  The flags keep the JAX checker's names,
 defaults, meanings and usage errors, and every flag of the JAX checker is
-accepted here; ``--device`` and the port's stricter mode rules are its own.
+accepted here; ``--device``, ``--probe-workload-model`` and the port's stricter
+mode rules are its own.
 
 Exit codes of the round: 0 when at least one accelerator node is
 effectively Ready, 2 when there is none, 3 when none is Ready (or the
@@ -118,7 +119,7 @@ from typing import List, Optional
 
 from tpu_node_checker_torch import __version__
 from tpu_node_checker_torch.probe.floors import DEFAULT_CALIBRATION_MARGIN
-from tpu_node_checker_torch.probe.levels import LEVELS
+from tpu_node_checker_torch.probe.levels import LEVELS, WORKLOAD_MODELS
 
 EXIT_OK = 0
 EXIT_ERROR = 1
@@ -329,6 +330,14 @@ def build_parser() -> argparse.ArgumentParser:
                        "budget, plus --probe-soak)")
     probe.add_argument("--device", default="cuda:0",  # tnc: allow-drift-readme-flags(port-only flag; the README table lists the JAX CLI's)
                        help="device to probe: cuda:0 (default) or cpu")
+    # No default in the namespace: without the flag the parsed arguments,
+    # and the probe's call, are the JAX checker's.
+    probe.add_argument("--probe-workload-model", choices=WORKLOAD_MODELS,  # tnc: allow-drift-readme-flags(port-only flag; the README table lists the JAX CLI's)
+                       default=argparse.SUPPRESS,
+                       help="the model the workload level trains: burnin (default), or "
+                       "deepseek-v2-lite, DeepSeek-V2-Lite's training step at one card's "
+                       "share of an 8-way expert-parallel layout, on card 0 alone however "
+                       "many cards the host has")
     probe.add_argument("--emit-probe", metavar="FILE",
                        help="write the probe report to FILE atomically ('-' for stdout)")
     probe.add_argument("--probe-results", metavar="DIR",
@@ -1130,6 +1139,11 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
         ("--emit-probe", args.emit_probe), ("--selftest", args.selftest),
         ("--calibrate", args.calibrate is not None), ("--report-fresh", args.report_fresh),
         ("--probe-report-schema", args.probe_report_schema)) if on), None)
+    if "probe_workload_model" in vars(args):
+        if mode not in (None, "--emit-probe") or not (mode or args.probe):
+            p.error("--probe-workload-model requires --probe or --emit-probe")
+        if args.probe_level != "workload":
+            p.error("--probe-workload-model requires --probe-level workload")
     if args.json and mode not in (None, "--selftest"):
         p.error(f"--json requires --selftest or a one-shot round (not {mode})")
     if args.probe_results_max_age != p.get_default("probe_results_max_age") and not (
@@ -1226,6 +1240,7 @@ def _dispatch(args) -> int:
         distributed=args.probe_distributed, coordinator=args.probe_coordinator,
         num_processes=args.probe_num_processes, process_id=args.probe_process_id,
         dist_init_timeout_s=args.probe_rendezvous_timeout, trace_file=args.trace,
+        workload_model=getattr(args, "probe_workload_model", None),
     )
     # One history tracker for the emitter's lifetime (None without --history).
     history = checker._build_history(args)

@@ -60,13 +60,15 @@ def emit_probe_once(
     process_id: Optional[int] = None,
     dist_init_timeout_s: Optional[float] = None,
     trace_file: Optional[str] = None,
+    workload_model: Optional[str] = None,
 ) -> Tuple[int, dict]:
     """One probe and one atomic report write (``-`` writes to stdout).
 
     Returns ``(exit_code, report)``: 0 when the host is healthy, 3 otherwise.
     A report that violates the declared schema warns on stderr, or raises
     under ``TNC_SCHEMA_STRICT``.  The rendezvous arguments of a distributed
-    probe pass through to :func:`run_local_probe`.
+    probe, and ``workload_model`` (the model the workload level trains),
+    pass through to :func:`run_local_probe`.
 
     The round is one trace (:mod:`tpu_node_checker_torch.probe.spans`),
     which the probe child joins: the report's ``spans`` carries its
@@ -84,7 +86,7 @@ def emit_probe_once(
                 topology=topology, soak_s=soak_s, perf_floor=perf_floor,
                 distributed=distributed, coordinator=coordinator,
                 num_processes=num_processes, process_id=process_id,
-                dist_init_timeout_s=dist_init_timeout_s,
+                dist_init_timeout_s=dist_init_timeout_s, workload_model=workload_model,
             )
             with spans.span("emit.schema"):
                 doc = probed.to_dict()

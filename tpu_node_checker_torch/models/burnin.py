@@ -515,6 +515,20 @@ class WorkloadResult:
         return d
 
 
+def _verdict(losses: list, step_time_ms: float) -> WorkloadResult:
+    """The health contract of a training probe: ok ⇔ every loss finite and
+    each strictly below the one before."""
+    finite = all(math.isfinite(l) for l in losses)
+    decreasing = all(b < a for a, b in zip(losses, losses[1:]))
+    err = None
+    if not finite:
+        err = f"non-finite loss: {losses}"
+    elif not decreasing:
+        err = f"loss not decreasing: {losses}"
+    return WorkloadResult(ok=finite and decreasing, losses=tuple(losses),
+                          step_time_ms=step_time_ms, error=err)
+
+
 def workload_probe(
     cfg: Optional[BurninConfig] = None,
     mesh: Optional[MeshSpec] = None,
@@ -529,14 +543,6 @@ def workload_probe(
     try:
         cfg = cfg or BurninConfig()
         losses, elapsed_ms, _ = train_steps(cfg, mesh, steps, seed, device=device)
-        finite = all(math.isfinite(l) for l in losses)
-        decreasing = all(b < a for a, b in zip(losses, losses[1:]))
-        ok = finite and decreasing
-        err = None
-        if not finite:
-            err = f"non-finite loss: {losses}"
-        elif not decreasing:
-            err = f"loss not decreasing: {losses}"
-        return WorkloadResult(ok=ok, losses=tuple(losses), step_time_ms=elapsed_ms, error=err)
+        return _verdict(losses, elapsed_ms)
     except Exception as exc:  # tnc: allow-broad-except(probes report, never raise)
         return WorkloadResult(ok=False, error=f"{type(exc).__name__}: {exc}")

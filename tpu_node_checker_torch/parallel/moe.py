@@ -20,6 +20,19 @@ pair of cards at once.
 
 f32 throughout, products at full f32 precision (TF32 must be off on the
 card, as it is by default).
+
+Beside the probe, the expert layer of a model that trains on one card's
+share of an expert-parallel layout (:func:`expert_layer`, DeepSeek-V2's,
+``modeling_deepseek.py``'s ``DeepseekV2MoE`` and ``MoEGate``): the router
+over every routed expert, f32 logits and softmax, greedy top-k, weights
+unnormalised times a scaling factor, and the sequence-level balance loss
+over the whole router (:class:`_Route`); the held experts' part of the
+combine, dropless, the tokens grouped by expert (:class:`_HeldExperts`);
+the shared experts as one SwiGLU (:class:`SwiGLU`).  The layer is told
+which experts it holds; on one card it has no exchange, and what the
+other cards' experts would add is left out.  Each part runs under its
+span (``moe.route``, ``moe.experts``, ``moe.shared``) in the forward pass
+and in its hand-written backward, which autograd runs on its own thread.
 """
 
 from __future__ import annotations
@@ -30,9 +43,11 @@ from typing import Optional
 
 import torch
 import torch.distributed as dist
+import torch.nn.functional as F
 
 from tpu_node_checker_torch.ops._harness import sync
 from tpu_node_checker_torch.parallel.mesh import flat_mesh, local_device
+from tpu_node_checker_torch.probe import spans
 
 
 # The probe's inputs are drawn from this seed on every rank.
@@ -229,3 +244,179 @@ def moe_probe(
             latency_ms=0.0,
             error=f"{type(exc).__name__}: {exc}",
         )
+
+
+# -- the expert layer of a model, told which experts it holds --------------
+
+
+def swiglu(x, wg, wu, wd):
+    """``down(silu(gate(x)) * up(x))`` in bf16; returns (y, gate(x), up(x))."""
+    a, b = torch.matmul(x, wg), torch.matmul(x, wu)
+    return torch.matmul(F.silu(a) * b, wd), a, b
+
+
+def swiglu_backward(dy, x, a, b, wg, wu, wd):
+    """Autograd's backward of :func:`swiglu`: (dx, dwg, dwu, dwd)."""
+    s = F.silu(a)
+    dwd = torch.matmul((s * b).transpose(-1, -2), dy)
+    dh = torch.matmul(dy, wd.transpose(-1, -2))
+    da = torch.ops.aten.silu_backward(dh * b, a)
+    db = dh * s
+    dx = torch.matmul(da, wg.transpose(-1, -2)) + torch.matmul(db, wu.transpose(-1, -2))
+    xt = x.transpose(-1, -2)
+    return dx, torch.matmul(xt, da), torch.matmul(xt, db), dwd
+
+
+class SwiGLU(torch.autograd.Function):
+    """One SwiGLU MLP over every token (the dense layer's, the shared
+    experts'), under span ``name`` where one is given."""
+
+    @staticmethod
+    def forward(ctx, x, wg, wu, wd, name):
+        ctx.round, ctx.name = spans.current(), name
+        with spans.within(ctx.round, name):
+            y, a, b = swiglu(x, wg, wu, wd)
+        ctx.save_for_backward(x, a, b, wg, wu, wd)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        with spans.within(ctx.round, ctx.name):
+            return swiglu_backward(dy, *ctx.saved_tensors) + (None,)
+
+
+def router_logits(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The router's logits, in f32 from the bf16 hidden state (T, D) and
+    the f32 weight (D, E), as the published gate computes them."""
+    return torch.matmul(x.float(), w.float())
+
+
+def balance_coefficients(topi: torch.Tensor, batch: int, n_experts: int,
+                         alpha: float) -> torch.Tensor:
+    """The sequence-level balance loss as a linear form of the scores:
+    (batch, E) coefficients ``c`` with ``loss = sum c[b, e] scores[b, s, e]``
+    over b, s and e, that is ``alpha`` times the mean over sequences of
+    ``sum_e f[b, e] P[b, e]`` (``modeling_deepseek.py``'s ``seq_aux``):
+    ``f`` each expert's share of the sequence's top-k choices times E / k,
+    ``P`` its mean score over the sequence."""
+    k = topi.shape[-1]
+    per_seq = topi.view(batch, -1)
+    seq = per_seq.shape[1] // k
+    ce = torch.zeros((batch, n_experts), dtype=torch.float32, device=topi.device)
+    ce.scatter_add_(1, per_seq, torch.ones(per_seq.shape, dtype=torch.float32,
+                                           device=topi.device))
+    ce /= seq * k / n_experts
+    return ce * (alpha / (batch * seq))
+
+
+class _Route(torch.autograd.Function):
+    """The router over every routed expert: f32 logits and softmax, greedy
+    top-k, the weights times ``scaling``, and the balance loss.  Returns
+    (weights (T, k) f32, experts (T, k), balance loss)."""
+
+    @staticmethod
+    def forward(ctx, x, w, batch, k, scaling, alpha):
+        ctx.round = spans.current()
+        with spans.within(ctx.round, "moe.route"):
+            scores = torch.softmax(router_logits(x, w), dim=-1, dtype=torch.float32)
+            topw, topi = torch.topk(scores, k=k, dim=-1, sorted=False)
+            coef = balance_coefficients(topi, batch, scores.shape[-1], alpha)
+            aux = (coef[:, None, :] * scores.view(batch, -1, scores.shape[-1])).sum()
+        ctx.mark_non_differentiable(topi)
+        ctx.save_for_backward(x, w, scores, topi, coef)
+        ctx.batch, ctx.scaling = batch, scaling
+        return topw * scaling, topi, aux
+
+    @staticmethod
+    def backward(ctx, d_topw, _d_topi, d_aux):
+        x, w, scores, topi, coef = ctx.saved_tensors
+        with spans.within(ctx.round, "moe.route"):
+            ds = torch.zeros_like(scores).scatter_(1, topi, d_topw * ctx.scaling)
+            if d_aux is not None:
+                E = scores.shape[-1]
+                ds.view(ctx.batch, -1, E).add_(coef[:, None, :] * d_aux)
+            dl = scores * (ds - (ds * scores).sum(-1, keepdim=True))
+            dx = torch.matmul(dl, w.float().transpose(0, 1)).to(x.dtype)
+            dw = torch.matmul(x.float().transpose(0, 1), dl).to(w.dtype)
+        return dx, dw, None, None, None, None
+
+
+def group_by_expert(topi: torch.Tensor, first: int, count: int):
+    """The held experts' assignments grouped by expert: (token, slot) of
+    each in expert order (stable), and each held expert's count on the host."""
+    held = (topi >= first) & (topi < first + count)
+    tok, slot = held.nonzero(as_tuple=True)
+    expert = topi[tok, slot] - first
+    order = torch.argsort(expert, stable=True)
+    counts = torch.bincount(expert, minlength=count).tolist()
+    return tok[order], slot[order], counts
+
+
+class _HeldExperts(torch.autograd.Function):
+    """The held experts' part of the combine, dropless: each assignment's
+    token through its expert's SwiGLU (bf16), times its router weight,
+    summed over the token's held assignments in f32, in bf16."""
+
+    @staticmethod
+    def forward(ctx, x, topw, topi, wg, wu, wd, first, counting):
+        ctx.round = spans.current()
+        with spans.within(ctx.round, "moe.experts"):
+            tok, slot, counts = group_by_expert(topi, first, wg.shape[0])
+            xs = x[tok]
+            ys = torch.empty_like(xs)
+            a = xs.new_empty(xs.shape[0], wg.shape[-1])
+            b = torch.empty_like(a)
+            lo = 0
+            for e, n in enumerate(counts):
+                seg = slice(lo, lo + n)
+                ys[seg], a[seg], b[seg] = swiglu(xs[seg], wg[e], wu[e], wd[e])
+                lo += n
+            gates = topw[tok, slot]
+            out = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+            out.index_add_(0, tok, ys.float() * gates[:, None])
+        if counting:
+            spans.count("moe_layer_steps")
+            spans.count("moe_assignments", topi.numel())
+            spans.count("moe_assignments_held", tok.numel())
+            spans.count("moe_max_expert_tokens", max(counts))
+            spans.count("moe_tokens_dropped", tok.numel() - lo)
+        ctx.save_for_backward(xs, a, b, ys, gates, tok, slot, wg, wu, wd)
+        ctx.counts, ctx.shape = counts, (x.shape, topw.shape)
+        return out.to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, d_out):
+        xs, a, b, ys, gates, tok, slot, wg, wu, wd = ctx.saved_tensors
+        x_shape, w_shape = ctx.shape
+        with spans.within(ctx.round, "moe.experts"):
+            g = d_out.float()[tok]
+            d_topw = torch.zeros(w_shape, dtype=torch.float32, device=g.device)
+            d_topw[tok, slot] = (g * ys.float()).sum(-1)
+            dys = (g * gates[:, None]).to(ys.dtype)
+            dxs = torch.empty_like(xs)
+            dwg, dwu, dwd = torch.empty_like(wg), torch.empty_like(wu), torch.empty_like(wd)
+            lo = 0
+            for e, n in enumerate(ctx.counts):
+                seg = slice(lo, lo + n)
+                dxs[seg], dwg[e], dwu[e], dwd[e] = swiglu_backward(
+                    dys[seg], xs[seg], a[seg], b[seg], wg[e], wu[e], wd[e])
+                lo += n
+            dx = torch.zeros(x_shape, dtype=torch.float32, device=g.device)
+            dx.index_add_(0, tok, dxs.float())
+        return dx.to(xs.dtype), d_topw, None, dwg, dwu, dwd, None, None
+
+
+def expert_layer(x: torch.Tensor, router: torch.Tensor, experts, shared, *, held_first: int,
+                 batch: int, top_k: int, scaling: float, alpha: float, counting: bool):
+    """The expert layer of ``x`` (T, D) bf16: (output (T, D), balance loss).
+
+    ``router`` is the f32 (D, E) weight over every routed expert;
+    ``experts`` the held experts' (gate, up, down) weights stacked on a
+    leading axis, experts ``held_first`` onward; ``shared`` the shared
+    experts' (gate, up, down) as one SwiGLU; ``batch`` the sequences the
+    T tokens are, for the sequence-level balance loss times ``alpha``.
+    ``counting`` adds this pass to the round's ``moe_*`` counters (the
+    forward pass does; its recomputation does not)."""
+    topw, topi, aux = _Route.apply(x, router, batch, top_k, scaling, alpha)
+    out = _HeldExperts.apply(x, topw, topi, *experts, held_first, counting)
+    return out + SwiGLU.apply(x, *shared, "moe.shared"), aux

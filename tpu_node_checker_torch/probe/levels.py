@@ -24,3 +24,7 @@ LEVEL_TIMEOUTS_S = {
     "workload": 600.0,
 }
 DEFAULT_TIMEOUT_S = LEVEL_TIMEOUTS_S["enumerate"]
+# The models the port's workload level can train (``--probe-workload-model``,
+# ``TNC_WORKLOAD_MODEL``): the burn-in transformer, and DeepSeek-V2-Lite's
+# step at one card's share of an 8-way expert-parallel layout.  Port-only.
+WORKLOAD_MODELS = ("burnin", "deepseek-v2-lite")

@@ -536,14 +536,25 @@ try:
         # does not split (one card, or three), one card's step with the
         # flash-attention kernel inside, forward and backward.
         n_ranks = group.world_size
-        cfg = BurninConfig()
-        wspec = workload_mesh(n_ranks, cfg.batch)
-        if wspec is None:
-            if cfg.seq % _FA_BLOCK == 0 and os.environ.get("TNC_SKIP_FLASH_ATTENTION") != "1":
-                cfg = _dc.replace(cfg, attention="flash")
-            wl = workload_probe(cfg, device=dev)
+        model = os.environ.get("TNC_WORKLOAD_MODEL") or "burnin"
+        if model == "deepseek-v2-lite":
+            # DeepSeek-V2-Lite's step, one card's share of its 8-way
+            # expert-parallel layout, on this process's card alone.
+            from tpu_node_checker_torch.models import deepseek_v2
+            wspec = None
+            wl = deepseek_v2.workload_probe(device=dev)
+        elif model != "burnin":
+            raise ValueError(f"TNC_WORKLOAD_MODEL {model!r} is none of the workload "
+                             "models (burnin, deepseek-v2-lite)")
         else:
-            wl = fold(group.run(workload_probe, cfg, mesh=wspec))
+            cfg = BurninConfig()
+            wspec = workload_mesh(n_ranks, cfg.batch)
+            if wspec is None:
+                if cfg.seq % _FA_BLOCK == 0 and os.environ.get("TNC_SKIP_FLASH_ATTENTION") != "1":
+                    cfg = _dc.replace(cfg, attention="flash")
+                wl = workload_probe(cfg, device=dev)
+            else:
+                wl = fold(group.run(workload_probe, cfg, mesh=wspec))
         out["workload_ok"] = wl.ok
         out["workload_devices"] = n_ranks if wspec is not None else 1
         out["workload_losses"] = [round(l, 4) for l in wl.losses]
@@ -636,6 +647,7 @@ def run_local_probe(
     num_processes: Optional[int] = None,
     process_id: Optional[int] = None,
     dist_init_timeout_s: Optional[float] = None,
+    workload_model: Optional[str] = None,
 ) -> ProbeResult:
     """Probe this host's cards in a child process; never raises on a probe
     failure.
@@ -653,7 +665,11 @@ def run_local_probe(
     ``soak_s > 0`` sets ``TNC_SOAK_S`` and extends the kill-timer by as
     much, since the soak spends its time inside the child by design.
     ``perf_floor`` sets ``TNC_PERF_FLOOR``, the fraction of the expected
-    figures the measured ones must reach (0 disables).
+    figures the measured ones must reach (0 disables).  ``workload_model``
+    (one of :data:`~tpu_node_checker_torch.probe.levels.WORKLOAD_MODELS`)
+    sets ``TNC_WORKLOAD_MODEL``, the model the workload level trains: the
+    burn-in unless it names ``deepseek-v2-lite``, whose step runs on one
+    card.
 
     With ``distributed=True`` the child joins the rendezvous of one probe
     process per host before enumerating, so the probe sees every host's
@@ -706,6 +722,8 @@ def run_local_probe(
             child_env["TNC_DIST_INIT_TIMEOUT_S"] = str(dist_init_timeout_s)
     if topology:
         child_env["TNC_TOPOLOGY"] = topology
+    if workload_model:
+        child_env["TNC_WORKLOAD_MODEL"] = workload_model
     if soak_s > 0:
         child_env["TNC_SOAK_S"] = str(soak_s)
     if perf_floor is not None:

@@ -10,7 +10,8 @@ probe child imports it before ``import torch``):
   the current round, a null context when there is none; while a
   ``torch.profiler`` records in this process it also opens
   ``record_function("tnc:<name>")``, so the span lands in the device trace
-  on the trace's own clock; :func:`count` adds to a counter;
+  on the trace's own clock; :func:`within`, a span of a given round from
+  another thread (autograd's backward); :func:`count` adds to a counter;
 * :func:`summary`: span name -> ``[count, total_ms, max_ms]``, what the
   report carries under ``spans`` (so a long soak stays a few lines);
 * the parent's side: the child's settings (:func:`child_env`), the three
@@ -220,6 +221,23 @@ def span(name: str):
     if round_ is None:
         return NULL
     return _Bridged(round_.tracer.span(name), name)
+
+
+@contextmanager
+def within(round_: Optional[Round], name: Optional[str] = None) -> Iterator[None]:
+    """Inside ``round_``, made the current one, and its span ``name`` where
+    one is given; nothing without a round.  For work that autograd runs on
+    its own thread, where no round is current: the forward pass keeps
+    :func:`current` for its backward to pass here."""
+    if round_ is None:
+        yield
+        return
+    with active(round_):
+        if name is None:
+            yield
+        else:
+            with span(name):
+                yield
 
 
 def count(name: str, n: int = 1) -> None:
